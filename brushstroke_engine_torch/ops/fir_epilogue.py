@@ -1,0 +1,156 @@
+"""Fused 4x4 FIR + modulated-conv epilogue of the up-sampling synthesis layers.
+
+Counterpart of ``brushstroke_engine_tpu/ops/pallas_fir.py``.  After the
+dilated (transposed) conv of every ``conv0`` at res >= 8 the chain is
+
+    FIR smooth (4x4, gain 4, VALID) -> * dcoefs[b, c] -> + noise[b, y, x]
+    -> + bias[c] -> leaky_relu(alpha) * act_gain -> clamp(+-clamp)
+
+:func:`fir4_epilogue` runs it as ONE pass of the hand-written CUDA kernel in
+``csrc/fir4_epilogue.cu`` for a CUDA tensor, and as the plain torch version
+:func:`fir4_epilogue_plain` (depthwise ``F.conv2d`` + elementwise tail) for a
+CPU tensor.  There is no flag and no fallback: a CUDA input the kernel does
+not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from brushstroke_engine_torch.ops import cuda_build
+from brushstroke_engine_torch.ops.upfirdn import nchw
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SUPPORTED = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)}
+
+
+def correlation_taps(f, fir_gain: float = 4.0) -> np.ndarray:
+    """Convolution taps ``f [4, 4]`` -> the correlation taps the kernel
+    applies (flipped and scaled by ``fir_gain``)."""
+    f = np.asarray(f, np.float32)
+    if f.shape != (4, 4):
+        raise ValueError(f"fir4_epilogue takes a 4x4 filter, got {f.shape}")
+    return np.ascontiguousarray(f[::-1, ::-1] * np.float32(fir_gain),
+                                np.float32)
+
+
+def fir4_epilogue_plain(x, taps, dcoefs, noise, bias, act_gain: float,
+                        clamp: Optional[float], alpha: float = 0.2,
+                        out_dtype=None):
+    """Plain torch version of the kernel (its spec).
+
+    x: ``[B, H+3, W+3, C]``; taps: ``[4, 4]`` correlation taps; dcoefs
+    ``[B, C]``; noise ``[B or 1, H, W, 1]`` or None; bias ``[C]``.  Computes
+    in f32 and returns ``[B, H, W, C]`` in ``out_dtype`` (default: x's).
+    """
+    c = x.shape[-1]
+    k = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
+    y = F.conv2d(nchw(x.float()), k[None, None].expand(c, 1, 4, 4), groups=c)
+    y = y.permute(0, 2, 3, 1)
+    y = y * dcoefs.float()[:, None, None, :]
+    if noise is not None:
+        y = y + noise.float()
+    y = y + bias.float()[None, None, None, :]
+    y = torch.where(y >= 0, y, alpha * y) * act_gain
+    if clamp is not None:
+        y = torch.clamp(y, -clamp, clamp)
+    return y.to(out_dtype or x.dtype).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    """The kernel's C entry points, typed once (builds the library first if
+    it is missing or stale)."""
+    lib = cuda_build.load("fir4_epilogue")
+    fn = lib.fir4_epilogue_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                           ctypes.c_void_p, ctypes.c_void_p] \
+        + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    err_str = lib.fir4_epilogue_error_string
+    err_str.restype = ctypes.c_char_p
+    err_str.argtypes = [ctypes.c_int]
+    return fn, err_str
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"fir4_epilogue: {name} must be a contiguous {dtype} tensor of "
+            f"shape {shape} on {device}; got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp, alpha,
+                   out_dtype):
+    if x.dim() != 4 or (x.dtype, out_dtype) not in _SUPPORTED \
+            or not x.is_contiguous():
+        raise ValueError(
+            f"fir4_epilogue: x must be a contiguous 4-D f32 or bf16 tensor "
+            f"and out_dtype its dtype; got {x.dtype} "
+            f"{tuple(x.shape)} -> {out_dtype}")
+    b, hp, wp, c = x.shape
+    h, w = hp - 3, wp - 3
+    if h <= 0 or w <= 0:
+        raise ValueError(f"fir4_epilogue: input {tuple(x.shape)} too small")
+    dev = x.device
+    _check("dcoefs", dcoefs, torch.float32, (b, c), dev)
+    _check("bias", bias, torch.float32, (c,), dev)
+    noise_bstride = 0
+    if noise is not None:
+        _check("noise", noise, torch.float32, (noise.shape[0], h, w, 1), dev)
+        if noise.shape[0] not in (1, b):
+            raise ValueError(f"fir4_epilogue: noise batch {noise.shape[0]} "
+                             f"vs input batch {b}")
+        noise_bstride = h * w if noise.shape[0] == b else 0
+    taps16 = (ctypes.c_float * 16)(*np.asarray(taps, np.float32).ravel())
+    out = torch.empty((b, h, w, c), dtype=out_dtype, device=dev)
+
+    fn, err_str = _kernel_fns()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(x.data_ptr(), out.data_ptr(), dcoefs.data_ptr(),
+            None if noise is None else noise.data_ptr(), noise_bstride,
+            bias.data_ptr(), ctypes.cast(taps16, ctypes.c_void_p),
+            b, h, w, c, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+            float(alpha), float(act_gain),
+            float("inf") if clamp is None else float(clamp), stream)
+    if rc != 0:
+        raise RuntimeError(f"fir4_epilogue kernel launch failed: "
+                           f"{err_str(rc).decode()} ({rc})")
+    fir4_epilogue.launches += 1
+    return out
+
+
+def fir4_epilogue(x, f, dcoefs, noise, bias, act_gain: float,
+                  clamp: Optional[float], alpha: float = 0.2,
+                  fir_gain: float = 4.0, out_dtype=None):
+    """Fused FIR + epilogue; same contract as the JAX ``fir4_epilogue``.
+
+    x: ``[B, H+3, W+3, C]`` conv output (pre-FIR), f32 or bf16;
+    f: ``[4, 4]`` filter (unflipped convolution taps); dcoefs ``[B, C]`` f32;
+    noise ``[B or 1, H, W, 1]`` f32 or None; bias ``[C]`` f32; clamp None =
+    no clamp.  Returns ``[B, H, W, C]`` in ``out_dtype`` (default: x's; the
+    kernel writes only x's dtype).
+
+    A CUDA tensor launches the kernel (and counts the launch in
+    ``fir4_epilogue.launches``); a CPU tensor takes the plain version.
+    """
+    taps = correlation_taps(f, fir_gain)
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return fir4_epilogue_plain(x, taps, dcoefs, noise, bias, act_gain,
+                                   clamp, alpha, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"fir4_epilogue: unsupported device {x.device}")
+    return _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp,
+                          alpha, out_dtype)
+
+
+fir4_epilogue.launches = 0
