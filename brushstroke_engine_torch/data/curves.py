@@ -2,11 +2,13 @@
 
 The port's copy of the numpy path of ``brushstroke_engine_tpu/data/curves.py``
 (centripetal Catmull-Rom splines and an exact distance-field stroke
-rasterizer), as far as the curated geometry needs it.  The JAX package's
-ctypes rasterizer is not carried over.
+rasterizer), random spline strokes and the triband geometry image of the
+training data.  The JAX package's ctypes rasterizer is not carried over.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -93,3 +95,64 @@ def draw_stroke(width: int, pts: np.ndarray, radius: float,
         dist = np.minimum(dist, _dist_to_segments(grid, seg))
     img = np.clip((dist - radius) / max(soft_edge, 1e-6), 0.0, 1.0)
     return img.reshape(width, width).astype(np.float32)
+
+
+def sample_radius(rng: np.random.Generator, min_radius: float = 1.0,
+                  max_radius: float = 26.0) -> float:
+    """Stroke thickness distribution: log-uniform over the radius range
+    (reference samples radii from empirical media distributions,
+    forger/util/spline_dist.py; log-uniform covers the same 1..25 px span)."""
+    return float(np.exp(rng.uniform(np.log(min_radius), np.log(max_radius))))
+
+
+def random_spline_stroke(rng: np.random.Generator, width: int = 128,
+                         n_control: int = 5,
+                         radius: Optional[float] = None,
+                         margin: float = 0.1) -> np.ndarray:
+    """Random centripetal Catmull-Rom stroke patch (create_splines.py analog).
+
+    Returns ``[width, width]`` float32, 1.0 = BG, 0.0 = stroke.
+    """
+    if radius is None:
+        radius = sample_radius(rng)
+    lo, hi = margin * width, (1 - margin) * width
+    ctrl = rng.uniform(lo, hi, size=(n_control, 2))
+    # Sort control points roughly along a random direction so strokes sweep
+    # across the patch instead of scribbling.
+    direction = rng.normal(size=2)
+    direction /= np.linalg.norm(direction) + 1e-8
+    order = np.argsort(ctrl @ direction)
+    ctrl = ctrl[order]
+    # Pad endpoints for CR tangents.
+    ctrl = np.concatenate([ctrl[:1] * 2 - ctrl[1:2], ctrl,
+                           ctrl[-1:] * 2 - ctrl[-2:-1]], axis=0)
+    curve = catmull_rom_spline(ctrl, samples_per_segment=24)
+    return draw_stroke(width, curve, radius)
+
+
+def triband_from_stroke(stroke: np.ndarray, blur_sigma: float = 2.0,
+                        threshold: float = 0.5) -> np.ndarray:
+    """Build a triband geometry image from a gray stroke.
+
+    Channel semantics (reference scripts/prep_geom_data.py:43-60 and
+    train.py:625-626): R = input gray, G = conditioning binary,
+    B = loss-target (blurred binary); white = BG, black = FG.
+
+    Returns ``[H, W, 3]`` float32 in [0, 1].
+    """
+    binary = (stroke > threshold).astype(np.float32)
+    blurred = _gaussian_blur2d(binary, blur_sigma)
+    return np.stack([stroke, binary, blurred], axis=-1)
+
+
+def _gaussian_blur2d(img: np.ndarray, sigma: float) -> np.ndarray:
+    if sigma <= 0:
+        return img.astype(np.float32)
+    rad = max(1, int(3 * sigma))
+    xs = np.arange(-rad, rad + 1)
+    k = np.exp(-0.5 * (xs / sigma) ** 2)
+    k /= k.sum()
+    pad = np.pad(img, ((rad, rad), (rad, rad)), mode="edge")
+    tmp = np.apply_along_axis(lambda r: np.convolve(r, k, "valid"), 1, pad)
+    out = np.apply_along_axis(lambda c: np.convolve(c, k, "valid"), 0, tmp)
+    return out.astype(np.float32)

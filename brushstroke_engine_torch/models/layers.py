@@ -12,7 +12,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from brushstroke_engine_torch.ops import bias_act
+from brushstroke_engine_torch.ops import (
+    activation_gain, bias_act, conv2d_resample,
+)
 
 
 def normalize_2nd_moment(x, dim=-1, eps=1e-8):
@@ -32,3 +34,20 @@ def fc_apply(params, x, activation: str = "linear", lr_multiplier: float = 1.0):
     x = F.linear(x, w)
     return bias_act(x, None if b is None else b.to(x.dtype), dim=-1,
                     act=activation)
+
+
+def conv_layer_apply(params, x, *, activation: str = "linear", up: int = 1,
+                     down: int = 1, resample_filter=None,
+                     conv_clamp: float | None = None, gain: float = 1.0):
+    """Equalized-LR conv layer (reference Conv2dLayer, networks.py:127):
+    NHWC ``x``, OIHW weight."""
+    _, in_ch, kh, kw = params["weight"].shape
+    weight_gain = 1.0 / math.sqrt(in_ch * kh * kw)
+    w = params["weight"] * weight_gain
+    b = params.get("bias")
+    x = conv2d_resample(x, w.to(x.dtype), f=resample_filter, up=up,
+                        down=down, padding=kh // 2, flip_weight=(up == 1))
+    act_gain = activation_gain(activation) * gain
+    act_clamp = conv_clamp * gain if conv_clamp is not None else None
+    return bias_act(x, None if b is None else b.to(x.dtype), dim=-1,
+                    act=activation, gain=act_gain, clamp=act_clamp)

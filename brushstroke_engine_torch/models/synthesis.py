@@ -10,8 +10,9 @@ demodulation, noise, bias, leaky ReLU and clamp as one call of the fused
 FIR-epilogue kernel (through :func:`modulated_conv2d`).
 
 Carried over: geometry feature injection, position-wrapped constant noise,
-per-style noise-buffer overrides, ``return_features`` and
-``blended_features``, and the color-triad head.  The 'orig' and 'canvas'
+random per-layer noise (training), per-style noise-buffer overrides,
+``return_features`` and ``blended_features``, ``force_fp32`` and the
+color-triad head.  The 'orig' and 'canvas'
 heads and positional-encoding injection are not ported yet and raise
 ``NotImplementedError``.
 """
@@ -111,12 +112,22 @@ def _synthesis_layer_apply(cfg: SynthesisConfig, params, x, w, *,
                            resolution: int, up: int = 1,
                            noise_mode: str = "const",
                            noise_const=None, input_noise=None,
-                           positions=None):
-    """One SynthesisLayer (reference networks.py:303-391), NHWC."""
+                           positions=None, random_noise=None, rng=None):
+    """One SynthesisLayer (reference networks.py:303-391), NHWC.
+
+    With ``noise_mode='random'`` the unit-normal plane ``[B, res, res, 1]``
+    is ``random_noise`` when given, else drawn from the generator ``rng``.
+    """
     styles = fc_apply(params["affine"], w.float())
 
     noise = None
-    if noise_mode == "const":
+    if noise_mode == "random":
+        if random_noise is None:
+            random_noise = torch.randn(
+                (x.shape[0], resolution, resolution, 1), generator=rng,
+                device=x.device if rng is None else rng.device).to(x.device)
+        noise = random_noise.float() * params["noise_strength"]
+    elif noise_mode == "const":
         tex = input_noise if input_noise is not None else noise_const
         if tex is not None:
             if positions is not None:
@@ -164,9 +175,12 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
                     noise_buffers: Optional[Dict] = None,
                     positions=None,
                     noise_mode: str = "const",
+                    rng: Optional[torch.Generator] = None,
+                    random_noise: Optional[Dict] = None,
                     return_debug_data: bool = False,
                     return_features: Tuple[int, ...] = (),
-                    blended_features: Optional[Dict] = None):
+                    blended_features: Optional[Dict] = None,
+                    force_fp32: bool = False):
     """Run the synthesis trunk.
 
     Args:
@@ -177,8 +191,12 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
         [res, res]}``.
       noise_buffers: optional per-style overrides, same key format.
       positions: ``[B, 2]`` int (y, x) canvas positions for noise wrapping.
-      noise_mode: 'const' | 'none' ('random' belongs to training and is not
-        ported yet).
+      noise_mode: 'const' | 'random' | 'none'.
+      rng: ``torch.Generator`` the 'random' noise planes are drawn from.
+      random_noise: explicit unit-normal planes for 'random' mode,
+        ``{"b{res}.conv{i}": [B, res, res, 1]}``; layers it lacks draw from
+        ``rng``.
+      force_fp32: run every block in f32 whatever ``num_bf16_res`` says.
       return_features: trunk resolutions whose features to export.
       blended_features: {res: (features ``[B,h,w,c]``, alpha ``[B,h,w,1]``)};
         trunk features become ``alpha*features + (1-alpha)*x``.
@@ -191,8 +209,9 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
     noise = noise or {}
     noise_buffers = noise_buffers or {}
     blended_features = blended_features or {}
-    if noise_mode not in ("const", "none"):
-        raise NotImplementedError(f"noise_mode {noise_mode!r} is not ported")
+    random_noise = random_noise or {}
+    if noise_mode not in ("const", "random", "none"):
+        raise ValueError(f"unknown noise_mode {noise_mode!r}")
 
     ws = ws.float()
     block_ws = {}
@@ -212,7 +231,7 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
     for res in cfg.block_resolutions:
         bp = params[f"b{res}"]
         cur_ws = block_ws[res]
-        dtype = cfg.block_dtype(res)
+        dtype = torch.float32 if force_fp32 else cfg.block_dtype(res)
         w_i = 0
 
         def layer_noise(name):
@@ -230,14 +249,16 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
             x = _synthesis_layer_apply(
                 cfg, bp["conv0"], x, cur_ws[:, w_i], resolution=res, up=2,
                 noise_mode=noise_mode, noise_const=nc, input_noise=ni,
-                positions=positions)
+                positions=positions, rng=rng,
+                random_noise=random_noise.get(f"b{res}.conv0"))
             w_i += 1
 
         nc, ni = layer_noise("conv1")
         x = _synthesis_layer_apply(
             cfg, bp["conv1"], x, cur_ws[:, w_i], resolution=res, up=1,
             noise_mode=noise_mode, noise_const=nc, input_noise=ni,
-            positions=positions)
+            positions=positions, rng=rng,
+            random_noise=random_noise.get(f"b{res}.conv1"))
         w_i += 1
 
         # The triad head needs the 'orig' trunk, so only the last block has

@@ -23,6 +23,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 # Kernel library name -> source file under csrc/.
 SOURCES = {
     "fir4_epilogue": "fir4_epilogue.cu",
+    "warp_twopass": "warp_twopass.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

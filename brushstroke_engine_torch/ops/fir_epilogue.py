@@ -11,6 +11,13 @@ dilated (transposed) conv of every ``conv0`` at res >= 8 the chain is
 :func:`fir4_epilogue_plain` (depthwise ``F.conv2d`` + elementwise tail) for a
 CPU tensor.  There is no flag and no fallback: a CUDA input the kernel does
 not take raises.
+
+The kernel's result carries gradient: the launch sits in an
+``autograd.Function`` whose backward differentiates the plain chain on the
+saved inputs with torch ops (the JAX package has no backward kernel for this
+chain either; its training differentiates the XLA ops), built with a graph
+of its own when gradients are being recorded, so the path-length phase can
+differentiate through it a second time.
 """
 
 from __future__ import annotations
@@ -128,6 +135,39 @@ def _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp, alpha,
     return out
 
 
+class _Fir4EpilogueFn(torch.autograd.Function):
+    """The kernel launch with a backward.  Forward: the kernel, always.
+    Backward: gradients of ``x``, ``dcoefs``, ``noise`` and ``bias`` from
+    :func:`fir4_epilogue_plain` re-run on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dcoefs, noise, bias, taps, act_gain, clamp, alpha,
+                out_dtype):
+        ctx.save_for_backward(x, dcoefs, noise, bias)
+        ctx.consts = (taps, act_gain, clamp, alpha, out_dtype)
+        return _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp,
+                              alpha, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The saved tensors keep their history, so the gradients below are
+        # functions of the original inputs and a second backward follows
+        # them (create_graph only when this backward is itself recorded).
+        ins = ctx.saved_tensors
+        taps, act_gain, clamp, alpha, out_dtype = ctx.consts
+        wanted = [i for i in range(4) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            y = fir4_epilogue_plain(ins[0], taps, ins[1], ins[2], ins[3],
+                                    act_gain, clamp, alpha, out_dtype)
+        grads = torch.autograd.grad(
+            y, [ins[i] for i in wanted], g,
+            create_graph=torch.is_grad_enabled())
+        out = [None] * 9
+        for i, gr in zip(wanted, grads):
+            out[i] = gr
+        return tuple(out)
+
+
 def fir4_epilogue(x, f, dcoefs, noise, bias, act_gain: float,
                   clamp: Optional[float], alpha: float = 0.2,
                   fir_gain: float = 4.0, out_dtype=None):
@@ -140,7 +180,8 @@ def fir4_epilogue(x, f, dcoefs, noise, bias, act_gain: float,
     kernel writes only x's dtype).
 
     A CUDA tensor launches the kernel (and counts the launch in
-    ``fir4_epilogue.launches``); a CPU tensor takes the plain version.
+    ``fir4_epilogue.launches``); a CPU tensor takes the plain version.  Both
+    are differentiable to second order.
     """
     taps = correlation_taps(f, fir_gain)
     out_dtype = out_dtype or x.dtype
@@ -149,8 +190,8 @@ def fir4_epilogue(x, f, dcoefs, noise, bias, act_gain: float,
                                    clamp, alpha, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fir4_epilogue: unsupported device {x.device}")
-    return _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp,
-                          alpha, out_dtype)
+    return _Fir4EpilogueFn.apply(x, dcoefs, noise, bias, taps, act_gain,
+                                 clamp, alpha, out_dtype)
 
 
 fir4_epilogue.launches = 0

@@ -1,0 +1,294 @@
+"""Host-side training loop: phase scheduling, data feed, ticks.
+
+Counterpart of the unfused single-device branch of
+``brushstroke_engine_tpu/train/loop.py``: the same phase machine --
+Dmain(1), Dreg(d_reg_interval), Gmain(1), Greg(g_reg_interval) and
+Ggeom(geom_interval), with a separate Ggeom-warm schedule during the
+warm-start kimg -- driving the phase functions of ``train/steps.py``.  This
+loop only feeds fixed-shape numpy batches, applies the schedule, updates
+ADA p and handles ticks (``stats.jsonl``, the ``on_tick`` hook).
+
+Per-batch loss scalars stay on the device until the tick boundary: reading
+them every batch would stall the launch queue once per scalar.
+
+Not ported yet, and raising where asked for: the fused step, device-resident
+data banks, multi-batch dispatch, a device mesh, profiling, snapshots and
+resumable train state, and the stitch phase.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from brushstroke_engine_torch.train import steps as train_steps
+from brushstroke_engine_torch.train.dataset import (
+    geom_batch_to_float, style_batch_to_float,
+)
+from brushstroke_engine_torch.train.state import TrainConfig, \
+    init_train_state
+from brushstroke_engine_torch.utils.util import (
+    resolve_device, tree_map, tree_to,
+)
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class LoopHooks:
+    """Optional callbacks invoked at tick time."""
+    on_tick: Optional[Callable] = None          # (loop, stats_dict)
+
+
+class TrainingLoop:
+    def __init__(self, cfg: TrainConfig, enc_params, enc_state,
+                 style_iter, geom_iter, run_dir: str,
+                 seed: int = 0, hooks: Optional[LoopHooks] = None,
+                 resume_state=None, auto_resume: bool = False,
+                 profile_phases: bool = False,
+                 use_fused: bool = False, mesh=None, device_banks=None,
+                 steps_per_dispatch: int = 1, profile_dir=None,
+                 device="cuda"):
+        for name, asked in (("use_fused", use_fused), ("mesh", mesh),
+                            ("device_banks", device_banks),
+                            ("steps_per_dispatch", steps_per_dispatch != 1),
+                            ("profile_dir", profile_dir),
+                            ("auto_resume", auto_resume)):
+            if asked:
+                raise NotImplementedError(
+                    f"TrainingLoop({name}=...) is not ported yet")
+        if cfg.stitch_interval > 0 and cfg.losses("stitch").items:
+            raise NotImplementedError(
+                "the stitch phase (train/stitching.py) is not ported yet")
+        self.device = resolve_device(device)
+        self.profile_phases = profile_phases
+        self.cfg = cfg
+        self.enc_params = tree_to(enc_params, self.device)
+        self.enc_state = tree_to(enc_state, self.device)
+        self.style_iter = style_iter
+        self.geom_iter = geom_iter
+        self.run_dir = run_dir
+        self.hooks = hooks or LoopHooks()
+        os.makedirs(run_dir, exist_ok=True)
+
+        self.state = tree_to(resume_state, self.device) \
+            if resume_state is not None else \
+            init_train_state(cfg, seed, device=self.device)
+        # Host stream: latents, crops and loss crops.  Device stream: noise
+        # planes, style mixing and augment draws, made where they are used.
+        self.rng = np.random.default_rng(seed)
+        self.device_rng = torch.Generator(device=self.device)
+        self.device_rng.manual_seed(seed + 1)
+
+        self.geom_step = train_steps.make_geom_step(cfg, warmstart=False) \
+            if cfg.geom_interval > 0 and cfg.losses("geom").items else None
+        self.warm_step = train_steps.make_geom_step(cfg, warmstart=True) \
+            if cfg.geom_warmstart_kimg > 0 else None
+
+        self.cur_nimg = 0
+        self.batch_idx = 0
+        self.cur_tick = 0
+        self.stats_path = os.path.join(run_dir, "stats.jsonl")
+        self._last_stats: Dict[str, float] = {}
+
+        # Clarity finetune: fake_orig losses compare against the FROZEN
+        # original generator (a real copy, taken after any resume).
+        self.g_orig_params = None
+        needs_orig = (
+            self.warm_step is not None and
+            cfg.losses("warmstart").require_original_fake_image()
+        ) or (
+            self.geom_step is not None and
+            cfg.losses("geom").require_original_fake_image()
+        )
+        if needs_orig:
+            self.g_orig_params = tree_map(torch.clone,
+                                          self.state["g_params"])
+
+    # ------------------------------------------------------------------
+
+    def save_train_state(self, path=None):
+        raise NotImplementedError(
+            "resumable train state (save_train_state) is not ported yet")
+
+    def load_train_state(self, path=None):
+        raise NotImplementedError(
+            "resumable train state (load_train_state) is not ported yet")
+
+    def save_snapshot(self):
+        raise NotImplementedError(
+            "network snapshots (save_snapshot) are not ported yet")
+
+    def _data(self, x):
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _host_normal(self, n: int, dim: int):
+        """``[n, dim]`` normal draw from the host stream, on the device."""
+        return self._data(
+            np.asarray(self.rng.standard_normal((n, dim)), np.float32))
+
+    def _ema_beta(self) -> float:
+        ema_nimg = self.cfg.ema_kimg * 1000.0
+        if self.cfg.ema_rampup is not None:
+            ema_nimg = min(ema_nimg, self.cur_nimg * self.cfg.ema_rampup)
+        return float(np.float32(0.5 ** (self.cfg.batch_size /
+                                        max(ema_nimg, 1e-8))))
+
+    def in_warmstart(self) -> bool:
+        c = self.cfg
+        start = c.geom_warmstart_start_kimg * 1000
+        return (self.cur_nimg >= start and
+                self.cur_nimg - start < c.geom_warmstart_kimg * 1000)
+
+    # ------------------------------------------------------------------
+
+    def _fetch_batch(self):
+        cfg = self.cfg
+        res = cfg.gen_cfg.img_resolution
+        style_u8 = next(self.style_iter)
+        geom_u8 = next(self.geom_iter)
+        style = style_batch_to_float(style_u8)
+        tri = geom_batch_to_float(geom_u8)            # [B, H, W, 3]
+
+        # Crop the triband image to training resolution.
+        h, w = tri.shape[1:3]
+        y = int(self.rng.integers(0, max(h - res, 0) + 1))
+        x = int(self.rng.integers(0, max(w - res, 0) + 1))
+        crop1 = (y, x, res, res)
+        tri_crop = tri[:, y:y + res, x:x + res]
+
+        # Triband channels: G = conditioning input, B = loss target
+        # (reference train.py:625-626).
+        geom_input = tri_crop[..., 1:2]
+        geom_truth = tri_crop[..., 2:3]
+        return style, tri, crop1, geom_input, geom_truth
+
+    def run(self, total_kimg: Optional[float] = None,
+            exit_after_warmstart: bool = False,
+            progress_fn: Optional[Callable] = None,
+            abort_fn: Optional[Callable] = None):
+        """Train until total_kimg.  ``progress_fn(cur_nimg, total_kimg*1000)``
+        is called per tick and ``abort_fn() -> bool`` is polled per tick."""
+        cfg = self.cfg
+        total_kimg = total_kimg if total_kimg is not None else cfg.total_kimg
+        tick_start_nimg = self.cur_nimg
+        tick_start_time = time.time()
+        if progress_fn is not None:
+            progress_fn(self.cur_nimg, total_kimg * 1000)
+        rng = self.device_rng
+        loss_draws = {"loss_rng": self.rng}
+
+        while True:
+            warm = self.in_warmstart()
+            style, _tri_full, _crop1, geom_input, geom_truth = \
+                self._fetch_batch()
+            feats = train_steps.encode_geometry(
+                cfg, self.enc_params, self.enc_state, self._data(geom_input))
+            geom_truth_t = self._data(geom_truth)
+            stats: Dict = {}
+            phase_t0 = [time.time()]
+
+            def note(s, phase=None):
+                stats.update(s)
+                if self.profile_phases and phase is not None:
+                    # Wait for the phase so wall-clock deltas approximate
+                    # per-phase time.
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    now = time.time()
+                    stats[f"Timing/{phase}"] = now - phase_t0[0]
+                    phase_t0[0] = now
+
+            ema_beta = self._ema_beta()
+            bs, zd = cfg.batch_size, cfg.gen_cfg.z_dim
+
+            if warm:
+                z = self._host_normal(bs, zd)
+                self.state, s = self.warm_step(
+                    self.state, feats, geom_truth_t, z, rng, ema_beta,
+                    g_orig_params=self.g_orig_params, draws=loss_draws)
+                note(s, "Ggeom-warm")
+            else:
+                style_t = self._data(style)
+                z = self._host_normal(bs, zd)
+                self.state, s = train_steps.d_main_step(
+                    cfg, self.state, style_t, feats, z, rng)
+                note(s, "Dmain")
+                if cfg.d_reg_interval > 0 and \
+                        self.batch_idx % cfg.d_reg_interval == 0:
+                    self.state, s = train_steps.d_reg_step(
+                        cfg, self.state, style_t, rng)
+                    note(s, "Dreg")
+                z = self._host_normal(bs, zd)
+                self.state, s = train_steps.g_main_step(
+                    cfg, self.state, feats, geom_truth_t, z, rng, ema_beta,
+                    draws=None if train_steps._num_rounds(cfg, bs) > 1
+                    else loss_draws)
+                note(s, "Gmain")
+                if cfg.g_reg_interval > 0 and \
+                        self.batch_idx % cfg.g_reg_interval == 0:
+                    z = self._host_normal(bs, zd)
+                    self.state, s = train_steps.g_reg_step(
+                        cfg, self.state, feats, z, rng, ema_beta)
+                    note(s, "Greg")
+                if self.geom_step is not None and \
+                        self.batch_idx % cfg.geom_interval == 0:
+                    z = self._host_normal(bs, zd)
+                    self.state, s = self.geom_step(
+                        self.state, feats, geom_truth_t, z, rng, ema_beta,
+                        g_orig_params=self.g_orig_params, draws=loss_draws)
+                    note(s, "Ggeom")
+                if cfg.augment is not None and \
+                        self.batch_idx % cfg.ada_interval == 0 and \
+                        self.batch_idx > 0:
+                    self.state = train_steps.ada_update(
+                        cfg, self.state,
+                        float(cfg.batch_size * cfg.ada_interval))
+
+            self.cur_nimg += cfg.batch_size
+            self.batch_idx += 1
+            self._last_stats = stats
+
+            finishing_warm = warm and not self.in_warmstart()
+            done = self.cur_nimg >= total_kimg * 1000 or \
+                (finishing_warm and exit_after_warmstart)
+            if not done and self.cur_nimg < tick_start_nimg + \
+                    cfg.kimg_per_tick * 1000:
+                continue
+
+            # ---- tick maintenance ----
+            tick_time = time.time() - tick_start_time
+            # One readback per tick; non-finite values are dropped.
+            fetched = {k: float(v) for k, v in stats.items()}
+            stats = {k: v for k, v in fetched.items() if np.isfinite(v)}
+            stats["Progress/tick"] = self.cur_tick
+            stats["Progress/kimg"] = self.cur_nimg / 1e3
+            stats["Progress/ada_p"] = float(self.state["ada_p"])
+            stats["Timing/sec_per_tick"] = tick_time
+            stats["Timing/sec_per_kimg"] = tick_time / max(
+                (self.cur_nimg - tick_start_nimg) / 1000.0, 1e-8)
+            with open(self.stats_path, "a") as f:
+                f.write(json.dumps(stats) + "\n")
+            logger.info("tick %d kimg %.1f %s", self.cur_tick,
+                        self.cur_nimg / 1e3,
+                        {k: round(v, 4) for k, v in list(stats.items())[:6]})
+            if self.hooks.on_tick is not None:
+                self.hooks.on_tick(self, stats)
+            if progress_fn is not None:
+                progress_fn(self.cur_nimg, total_kimg * 1000)
+            if abort_fn is not None and abort_fn():
+                logger.info("Aborting at user request (abort_fn)")
+                done = True
+
+            self.cur_tick += 1
+            tick_start_nimg = self.cur_nimg
+            tick_start_time = time.time()
+            if done:
+                return self.state

@@ -11,6 +11,10 @@ port's tensors:
   * const input  ``[4, 4, C]``        -> ``[C, 4, 4]``
   * everything else (biases, BN stats, noise textures, w_avg) as it is.
 
+The discriminator's ``b4.fc`` weight needs only the FC transpose: both
+packages flatten the 4x4 map as NHWC.  :func:`train_state_from_jax` applies
+the same rules to a whole JAX train state, optimizer moments included.
+
 :func:`init_native_params` builds flagship-shaped random trees in the JAX
 layout from a numpy seed, so a run needs no checkpoint and no JAX.
 """
@@ -196,12 +200,72 @@ def _init_encoder(cfg: GeoEncoderConfig, rng):
     return params, state
 
 
+def _init_discriminator(cfg, rng):
+    """Shapes and distributions of the JAX ``discriminator_init``."""
+    if cfg.c_dim > 0:
+        raise NotImplementedError(
+            "the conditional discriminator is not ported yet")
+
+    def conv(cin, cout, k, bias=True):
+        p = {"weight": _randn(rng, k, k, cin, cout)}
+        if bias:
+            p["bias"] = np.zeros((cout,), np.float32)
+        return p
+
+    params = {}
+    for res in cfg.block_resolutions:
+        tmp, out = cfg.channels(res), cfg.channels(res // 2)
+        block = {}
+        if res == cfg.img_resolution:
+            block["fromrgb"] = conv(cfg.img_channels, tmp, 1)
+        block["conv0"] = conv(tmp, tmp, 3)
+        block["conv1"] = conv(tmp, out, 3)
+        if cfg.architecture == "resnet":
+            block["skip"] = conv(tmp, out, 1, bias=False)
+        params[f"b{res}"] = block
+    ch4 = cfg.channels(4)
+    params["b4"] = {"conv": conv(ch4 + cfg.mbstd_num_channels, ch4, 3),
+                    "fc": _fc(rng, ch4 * 16, ch4),
+                    "out": _fc(rng, ch4, 1)}
+    return params
+
+
 def init_native_params(gen_cfg: GeneratorConfig, enc_cfg: GeoEncoderConfig,
-                       seed: int = 0) -> Dict:
+                       seed: int = 0, disc_cfg=None) -> Dict:
     """Random numpy trees in the JAX layout from ``RandomState(seed)``:
-    ``{"gen_params", "gen_state", "enc_params", "enc_state"}``."""
+    ``{"gen_params", "gen_state", "enc_params", "enc_state"}``, plus
+    ``"disc_params"`` for a ``DiscriminatorConfig`` (drawn last, so the other
+    trees do not depend on it)."""
     rng = np.random.RandomState(seed)
     enc_params, enc_state = _init_encoder(enc_cfg, rng)
     gen_params, gen_state = _init_generator(gen_cfg, rng)
-    return {"gen_params": gen_params, "gen_state": gen_state,
-            "enc_params": enc_params, "enc_state": enc_state}
+    trees = {"gen_params": gen_params, "gen_state": gen_state,
+             "enc_params": enc_params, "enc_state": enc_state}
+    if disc_cfg is not None:
+        trees["disc_params"] = _init_discriminator(disc_cfg, rng)
+    return trees
+
+
+def _adam_from_jax(opt_state) -> Dict:
+    """An ``optax.adam`` state -> the port's ``{"count", "mu", "nu"}``.
+    Takes optax's tuple ``(ScaleByAdamState, ...)`` or a dict of the three."""
+    if not isinstance(opt_state, dict):
+        adam = next(s for s in opt_state if hasattr(s, "mu"))
+        opt_state = {"count": adam.count, "mu": adam.mu, "nu": adam.nu}
+    return {"count": int(np.asarray(opt_state["count"])),
+            "mu": params_from_jax(opt_state["mu"]),
+            "nu": params_from_jax(opt_state["nu"])}
+
+
+def train_state_from_jax(state, device="cuda") -> Dict:
+    """The JAX package's train state (numpy or JAX array trees, see its
+    ``init_train_state``) -> the port's, on ``device``: parameter trees, EMA
+    and Adam moments by the layout rules of :func:`params_from_jax`."""
+    dev = resolve_device(device)
+    out = {k: params_from_jax(state[k])
+           for k in ("g_params", "d_params", "g_ema", "noise")}
+    for k in ("w_avg", "pl_mean", "ada_p", "ada_signs", "ada_count"):
+        out[k] = torch.from_numpy(np.array(state[k], np.float32))
+    for k in ("g_opt", "d_opt", "geom_opt"):
+        out[k] = _adam_from_jax(state[k])
+    return tree_to(out, dev)

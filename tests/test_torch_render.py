@@ -202,7 +202,11 @@ def test_entry_points_need_cuda_unless_cpu(model, monkeypatch, tmp_path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(
         brushstroke_engine_torch.__path__, "brushstroke_engine_torch.")]
-    assert "brushstroke_engine_torch.engine.brush" in names
+    for mod in ("engine.brush", "ops.warp", "models.discriminator",
+                "train.augment", "train.dataset", "train.losses",
+                "train.loop", "train.state", "train.steps", "utils.img_proc",
+                "tools.profile_render", "tools.profile_train", "flagship"):
+        assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"

@@ -52,3 +52,27 @@ def small_model(seed=0, noise_strength=0.4):
     return dict(jax_cfg=(jgen, jenc), cfg=(tgen, tenc), np=trees,
                 jax=jax.tree_util.tree_map(jnp.asarray, trees),
                 torch={k: params_from_jax(v) for k, v in trees.items()})
+
+
+def replay_augment_draws(cfg, key, batch, shape):
+    """The raw draws that the JAX ``augment_pipe(cfg, key, images, p)``
+    makes for ``images [batch, *shape]``, as the port's ``draws`` dict:
+    the key is split and consumed exactly as in
+    ``brushstroke_engine_tpu/train/augment.py``."""
+    import torch
+    from brushstroke_engine_torch.train.augment import draw_spec
+
+    fns = {"uniform": jax.random.uniform, "normal": jax.random.normal}
+    ki = iter(jax.random.split(key, 40))
+    filter_keys = None
+    draws = {}
+    for name, kind, shp in draw_spec(cfg, batch, shape):
+        if name.startswith("imgfilter"):
+            # _imgfilter takes ONE key and splits it 2 * bands ways.
+            if filter_keys is None:
+                filter_keys = iter(jax.random.split(next(ki), 8))
+            k = next(filter_keys)
+        else:
+            k = next(ki)
+        draws[name] = torch.from_numpy(np.array(fns[kind](k, shp)))
+    return draws
