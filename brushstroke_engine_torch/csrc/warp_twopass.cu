@@ -15,8 +15,9 @@
 // passes in reverse order:
 //   i1b[r, j, c]  = sum_i w2[i, j, r] * g[i, j, c]
 //   xbar[r, k, c] = sum_j w1[r, j, k] * i1b[r, j, c]
-// Images are NHWC [B, N, N, C] f32, contiguous; there is no limit on N or C
-// (the TPU kernel's N % 128 == 0 and C <= 8 were Mosaic tiling limits).
+// Images are NHWC [B, N, N, C] f32, contiguous, with any C and any N (the
+// TPU kernel's N % 128 == 0 and C <= 8 were Mosaic tiling limits) up to the
+// N whose line still fits W^T's shared-memory tile (about 5800).
 //
 // Design.  Not carried over block by block: the TPU kernel builds dense
 // [8, N, N] weight tiles for the matrix unit; here a triangle of half-width
@@ -24,22 +25,28 @@
 // taps per output pixel (one thread per (b, row, col), all C channels in
 // registers, col fastest so a warp's loads and stores run along a row).  The
 // transposed passes are gathers too, which keeps them deterministic (no
-// atomicAdd): each output loops densely over all N source pixels of its row
-// or column, recomputes that pixel's centre, and where its triangle covers
-// the output recomputes its normaliser and accumulates.  The interpolation
-// weights never reach global memory.  The intermediate i1 / i1b goes through
-// a global scratch tensor between the two launches of an entry point (at
-// [64,128,128,3] it is 12.6 MB and stays in the 50 MB L2), which keeps every
-// SM busy; one block per sample with i1 in shared memory would use 64 of 132.
+// atomicAdd, a fixed summation order): a block computes the centre and the
+// normaliser of each source pixel of its tile once, into shared memory, and
+// each output tap then visits only the few sources whose triangle can reach
+// it, in ascending order (see "Transposed passes" below).  The
+// interpolation weights never reach global memory.  The intermediate i1 /
+// i1b goes through a global scratch tensor between the two launches of an
+// entry point (at [64,128,128,3] it is 12.6 MB and stays in the 50 MB L2),
+// which keeps every SM busy; one block per sample with i1 in shared memory
+// would use 64 of 132.
 //
 // Bound: memory.  Each direction must read one image batch and write one
 // (2 * B*N*N*C*4 bytes: 25.2 MB, 7.5 us at 3.35 TB/s for [64,128,128,3]);
 // the forward does about (2*s1+1 + 2*s2+1) * C multiply-adds per output and
-// the transposed 2*N centre evaluations, both far below the f32 roof.
-// Measured on an H100 80GB HBM3 at 700 W (torch.profiler, training batch):
-// W 41 us for its two launches, W^T 633 us -- the dense N-step loop with an
-// fmodf per step is W^T's cost, and visiting only the source pixels whose
-// triangle can reach the output is the next step (PERF.md has the table).
+// the transposed about as many, both far below the f32 roof.  What bounds
+// the kernels at this size is latency: little work per thread, with trip
+// counts that depend on the data.
+// Measured on an H100 80GB HBM3 at 700 W at [64,128,128,3] (ADA 'bgc'
+// matrices at p = 1, antialias; chip_smoke.py and tools/tune_kernels.py):
+// W 0.047 ms per call, 45 us of it device time for its two launches; W^T
+// 0.083-0.085 ms per call, 79 us device time (40 + 39).  The first W^T, a
+// dense N-step loop per output that recomputed centre and normaliser at
+// every step, took 0.707 ms (PERF.md has the table and the steps between).
 //
 // The centre arithmetic is written with __fmul_rn/__fadd_rn so that it is
 // not contracted into FMAs and equals the plain version's separate multiply
@@ -152,47 +159,276 @@ __global__ void __launch_bounds__(kThreads) resample_gather(
   }
 }
 
-// One transposed pass in gather form.  Vertical: dst[r, j] = sum_i
-// w2[i, j, r] * src[i, j] (centre of source pixel (i, j), tap index r);
-// horizontal: dst[r, k] = sum_j w1[r, j, k] * src[r, j] (centre of source
-// pixel (r, j), tap index k).
+// ---------------------------------------------------------------------------
+// Transposed passes.
+//
+// A transposed pass is a gather over SOURCE pixels: output tap t of a line
+// (a column in the vertical pass, a row in the horizontal one) sums
+//   tri(t, ctr[m]) / norm[m] * src[m]
+// over the sources m = 0..N-1 of that line, in ascending m.  ctr and norm
+// depend on the source pixel only, so a block first fills a table
+// (ctr, 1 / norm) for every source pixel of its tile of lines in shared
+// memory -- each centre (one fmodf) and each normaliser (one loop over the
+// taps under the triangle) is computed once per block -- and the gather
+// reads two shared floats per visited source.  The block's source pixels
+// are staged in shared memory too (one coalesced read of the tile), because
+// the gather's trip count depends on the data and its loads would otherwise
+// wait for device memory one after the other.
+//
+// It visits only the sources that can reach the tap.  Along a line the
+// unreflected centre lin(m) = base + slope * m is affine in m, and its
+// reflection equals t exactly where lin(m) = +-t + k * period.  The sources
+// whose triangle covers t therefore lie in a few index intervals
+// (lin(m) within reach of one of those targets).  The targets are walked so
+// that m ascends, each interval is widened by a margin that covers the f32
+// rounding of lin, of the reflection and of the weight test, and clipped to
+// start after the previous one; every visited source still gets the exact
+// weight test from the table.  The set is a superset of the non-zero
+// weights and the order is ascending whatever the schedule, so the sum is
+// bit-identical to the dense loop's.  ops/warp.py:source_intervals is the
+// same enumeration in Python; the CPU tests hold it against dense weights.
+// A slope too flat to divide by, or one that would give more targets than
+// sources, takes the dense loop over the table.
+
+constexpr int kLines = 8;       // lines (columns or rows) per block
+
+// What the walk knows of one line (tap-independent; set once per thread).
+struct LineWalk {
+  double base, reach, period, inv_slope, inv_period;
+  double lin_lo, lin_hi;   // range of lin over the line, widened by reach
+  int n;
+  bool rising;             // slope > 0
+  bool dense;              // no walk on this line: visit every source
+};
+
+// One tap's walk along a line.
+struct SourceWalk {
+  double tap;
+  bool dense;
+  int q, q_end, q_step;   // target index: k = q >> 1, sign = q & 1 ? + : -
+  int next;               // first source index not yet visited
+};
+
+__device__ __forceinline__ LineWalk line_begin(float slope, float coef,
+                                               float line, float c, float s,
+                                               int n) {
+  LineWalk lw;
+  const double nm1 = (double)(n - 1);
+  const double sl = (double)slope;
+  lw.base = (double)coef * (double)line + (double)c;
+  lw.period = 2.0 * nm1;
+  lw.inv_period = 1.0 / lw.period;
+  lw.n = n;
+  lw.rising = sl > 0.0;
+  // Margin: three f32 roundings in lin, the reflection's two, the weight
+  // test's two; 1e-6 relative to every magnitude involved is > 8 ulp.
+  const double mag = fabs(sl) * nm1 + fabs(lw.base) + fabs((double)c) +
+                     lw.period + (double)s;
+  lw.reach = (double)s + 1e-6 * mag + 1e-6;
+  lw.dense = !(fabs(sl) * nm1 >= 1.0);
+  lw.inv_slope = lw.dense ? 0.0 : 1.0 / sl;
+  const double end = lw.base + sl * nm1;
+  lw.lin_lo = fmin(lw.base, end) - lw.reach;
+  lw.lin_hi = fmax(lw.base, end) + lw.reach;
+  return lw;
+}
+
+__device__ __forceinline__ SourceWalk walk_begin(const LineWalk& lw,
+                                                 float tap) {
+  SourceWalk w;
+  w.tap = (double)tap;
+  w.next = 0;
+  w.dense = lw.dense;
+  w.q = w.q_end = 0;
+  w.q_step = 1;
+  if (!w.dense) {
+    // Targets within reach of the line: k of +tap + k * period, and of
+    // -tap + k * period.
+    const double kp_lo = ceil((lw.lin_lo - w.tap) * lw.inv_period);
+    const double kp_hi = floor((lw.lin_hi - w.tap) * lw.inv_period);
+    const double km_lo = ceil((lw.lin_lo + w.tap) * lw.inv_period);
+    const double km_hi = floor((lw.lin_hi + w.tap) * lw.inv_period);
+    // As q = 2k + 1 and q = 2k they interleave in ascending order; a q
+    // between the two ranges that belongs to neither is only an extra
+    // interval.
+    double q_lo = 1.0, q_hi = 0.0;            // empty
+    if (kp_lo <= kp_hi) { q_lo = 2.0 * kp_lo + 1.0; q_hi = 2.0 * kp_hi + 1.0; }
+    if (km_lo <= km_hi) {
+      const bool none = q_lo > q_hi;
+      q_lo = none ? 2.0 * km_lo : fmin(q_lo, 2.0 * km_lo);
+      q_hi = none ? 2.0 * km_hi : fmax(q_hi, 2.0 * km_hi);
+    }
+    // Too many targets for the walk to pay (or indices beyond int range).
+    if (q_hi - q_lo > 0.5 * (double)lw.n || fabs(q_lo) > 1e8 ||
+        fabs(q_hi) > 1e8) {
+      w.dense = true;
+    } else if (q_lo <= q_hi) {
+      if (lw.rising) { w.q = (int)q_lo; w.q_end = (int)q_hi + 1; }
+      else { w.q = (int)q_hi; w.q_end = (int)q_lo - 1; w.q_step = -1; }
+    }
+  }
+  return w;
+}
+
+// The next interval [lo, hi] of sources to visit; false when none is left.
+__device__ __forceinline__ bool walk_next(const LineWalk& lw, SourceWalk& w,
+                                          int* lo, int* hi) {
+  if (w.dense) {
+    if (w.next > 0) return false;
+    *lo = 0; *hi = lw.n - 1; w.next = lw.n;
+    return true;
+  }
+  while (w.q != w.q_end && w.next < lw.n) {
+    const int q = w.q;
+    w.q += w.q_step;
+    const double target =
+        (double)(q >> 1) * lw.period + ((q & 1) ? w.tap : -w.tap) - lw.base;
+    const double m0 = (target - lw.reach) * lw.inv_slope;
+    const double m1 = (target + lw.reach) * lw.inv_slope;
+    const double first = fmax(floor(fmin(m0, m1)) - 1.0, (double)w.next);
+    const double last = fmin(ceil(fmax(m0, m1)) + 1.0, (double)(lw.n - 1));
+    if (first <= last) {
+      *lo = (int)first; *hi = (int)last; w.next = *hi + 1;
+      return true;
+    }
+  }
+  return false;
+}
+
+// One transposed pass.  Vertical: dst[r, j] = sum_i w2[i, j, r] * src[i, j]
+// (source pixel (i, j), tap r; a line is a column).  Horizontal:
+// dst[r, k] = sum_j w1[r, j, k] * src[r, j] (source pixel (r, j), tap k; a
+// line is a row).  A block owns `lines` lines of one sample; a thread owns
+// one line and every (kThreads / lines)-th tap.  In the vertical pass the
+// lines are the fast thread index, so a warp stores runs of neighbouring
+// columns; in the horizontal pass the taps are.  Dynamic shared memory:
+// N * lines * (2 + min(C, kChunk)) floats (centres, 1 / normalisers, pixels).
 template <bool kVertical>
 __global__ void __launch_bounds__(kThreads) resample_gather_t(
     const float* __restrict__ src, float* __restrict__ dst,
-    const float* __restrict__ scalars, int N, int C, long long total) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int col = (int)(idx % N);
-  const int row = (int)((idx / N) % N);
-  const long long b = idx / ((long long)N * N);
+    const float* __restrict__ scalars, int N, int C, int lines) {
+  extern __shared__ float shared[];
+  const int cells = N * lines;
+  float* tctr = shared;                  // [cells] reflected centre
+  float* tinv = shared + cells;          // [cells] 1 / normaliser
+  float* tpix = shared + 2 * cells;      // [cells][nc] source pixels
+  const long long b = blockIdx.y;
+  const int line0 = blockIdx.x * lines;
   const PassScalars ps = load_scalars<kVertical>(scalars + b * 8);
   const float nm1 = (float)(N - 1);
-  const float tap = (float)(kVertical ? row : col);
   const float* img = src + b * N * N * C;
-  float* out = dst + idx * C;
+  float* out = dst + b * N * N * C;
+
+  // Cell of source m of line l: vertical m * lines + l, horizontal
+  // l * N + m -- the order of the pixels in memory, so the tile loads run
+  // along it.
+  for (int e = threadIdx.x; e < cells; e += kThreads) {
+    const int l = kVertical ? e % lines : e / N;
+    const int m = kVertical ? e / lines : e % N;
+    if (line0 + l < N) {
+      const int srow = kVertical ? m : line0 + l;
+      const int scol = kVertical ? line0 + l : m;
+      const float ctr = centre(ps, srow, scol, nm1);
+      tctr[e] = ctr;
+      tinv[e] = 1.f / normaliser(ctr, ps, N);
+    }
+  }
+
+  const int l = kVertical ? threadIdx.x % lines
+                          : threadIdx.x / (kThreads / lines);
+  const int t_first = kVertical ? threadIdx.x / lines
+                                : threadIdx.x % (kThreads / lines);
+  const int t_step = kThreads / lines;
+  const bool active = line0 + l < N;
+  // lin(m) = slope * m + coef * line + c along the line.
+  const LineWalk lw = line_begin(kVertical ? ps.p : ps.q,
+                                 kVertical ? ps.q : ps.p,
+                                 (float)(line0 + l), ps.c, ps.s, N);
 
   for (int c0 = 0; c0 < C; c0 += kChunk) {
     const int nc = min(kChunk, C - c0);
-    float acc[kChunk];
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) acc[c] = 0.f;
-    for (int m = 0; m < N; ++m) {
-      const int srow = kVertical ? m : row;
-      const int scol = kVertical ? col : m;
-      const float ctr = centre(ps, srow, scol, nm1);
-      const float w = tri(tap, ctr, ps.inv);
-      if (w > 0.f) {
-        const float wn = w / normaliser(ctr, ps, N);
-        const float* px = img + ((long long)srow * N + scol) * C + c0;
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c)
-          if (c < nc) acc[c] += wn * __ldg(px + c);
+    __syncthreads();          // the table is filled; the last chunk is read
+    if (nc == C) {
+      // Whole pixels: the tile is `lines * C` consecutive floats per source
+      // row (vertical) or one run of `lines` whole rows (horizontal).
+      const int run = kVertical ? lines * C : cells * C;
+      const int valid = kVertical ? min(lines, N - line0) * C
+                                  : min(lines, N - line0) * N * C;
+      for (int e = threadIdx.x; e < cells * C; e += kThreads) {
+        const int m = e / run, r = e - m * run;
+        if (r < valid)
+          tpix[e] = __ldg(img + ((long long)m * N * (kVertical ? 1 : 0) +
+                                 (kVertical ? line0 : (long long)line0 * N)) *
+                                    C + r);
+      }
+    } else {
+      for (int e = threadIdx.x; e < cells * nc; e += kThreads) {
+        const int cell = e / nc, c = e % nc;
+        const int ll = kVertical ? cell % lines : cell / N;
+        const int m = kVertical ? cell / lines : cell % N;
+        if (line0 + ll < N) {
+          const long long pixel = kVertical
+              ? (long long)m * N + line0 + ll
+              : (long long)(line0 + ll) * N + m;
+          tpix[e] = __ldg(img + pixel * C + c0 + c);
+        }
       }
     }
+    __syncthreads();
+    if (!active) continue;
+    for (int t = t_first; t < N; t += t_step) {
+      const float tap = (float)t;
+      float acc[kChunk];
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c)
-      if (c < nc) out[c0 + c] = acc[c];
+      for (int c = 0; c < kChunk; ++c) acc[c] = 0.f;
+      SourceWalk w = walk_begin(lw, tap);
+      int lo, hi;
+      while (walk_next(lw, w, &lo, &hi)) {
+        for (int m = lo; m <= hi; ++m) {
+          const int e = kVertical ? m * lines + l : l * N + m;
+          const float wt = tri(tap, tctr[e], ps.inv);
+          if (wt > 0.f) {
+            const float wn = wt * tinv[e];
+            const float* px = tpix + (size_t)e * nc;
+#pragma unroll
+            for (int c = 0; c < kChunk; ++c)
+              if (c < nc) acc[c] += wn * px[c];
+          }
+        }
+      }
+      float* o = out + (kVertical ? ((long long)t * N + line0 + l)
+                                  : ((long long)(line0 + l) * N + t)) * C +
+                 c0;
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c)
+        if (c < nc) o[c] = acc[c];
+    }
   }
+}
+
+// Shared memory a block may use (the opt-in maximum on sm_90).
+constexpr size_t kMaxShared = 227 * 1024;
+
+// Launch one transposed pass; `lines` per block shrinks until the tile fits.
+template <bool kVertical>
+cudaError_t launch_t(const float* src, float* dst, const float* scalars,
+                     int B, int N, int C, cudaStream_t s) {
+  const size_t per_line = (size_t)N * (2 + (C < kChunk ? C : kChunk)) *
+                          sizeof(float);
+  int lines = kLines;
+  while (lines > 1 && per_line * lines > 64 * 1024) lines /= 2;
+  const size_t shared = per_line * lines;
+  if (shared > kMaxShared || B > 65535) return cudaErrorInvalidValue;
+  if (shared > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        resample_gather_t<kVertical>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((N + lines - 1) / lines, B);
+  resample_gather_t<kVertical><<<grid, kThreads, shared, s>>>(
+      src, dst, scalars, N, C, lines);
+  return cudaGetLastError();
 }
 
 bool shape_ok(int B, int N, int C, long long* total, unsigned* blocks) {
@@ -225,7 +461,10 @@ extern "C" int warp_twopass_launch(const float* x, float* scratch, float* out,
   return (int)cudaGetLastError();
 }
 
-// W^T: g [B, N, N, C] -> out, through `scratch` (holds i1b).
+// W^T: g [B, N, N, C] -> out, through `scratch` (holds i1b).  N is limited
+// by one line's tile in shared memory (N * (2 + min(C, 8)) floats <= 227 KB,
+// N <= 5800 at C >= 8) and B by the grid's y extent (65535); beyond either
+// the call returns cudaErrorInvalidValue.
 extern "C" int warp_twopass_t_launch(const float* g, float* scratch,
                                      float* out, const float* scalars, int B,
                                      int N, int C, void* stream) {
@@ -233,13 +472,9 @@ extern "C" int warp_twopass_t_launch(const float* g, float* scratch,
   unsigned blocks;
   if (!shape_ok(B, N, C, &total, &blocks)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  resample_gather_t<true><<<blocks, kThreads, 0, s>>>(g, scratch, scalars, N,
-                                                      C, total);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_t<true>(g, scratch, scalars, B, N, C, s);
   if (err != cudaSuccess) return (int)err;
-  resample_gather_t<false><<<blocks, kThreads, 0, s>>>(scratch, out, scalars,
-                                                       N, C, total);
-  return (int)cudaGetLastError();
+  return (int)launch_t<false>(scratch, out, scalars, B, N, C, s);
 }
 
 extern "C" const char* warp_twopass_error_string(int code) {

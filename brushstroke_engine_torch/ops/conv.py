@@ -170,8 +170,11 @@ def modulated_conv2d(
             dcoefs = torch.ones((b, out_ch), device=x.device)
         if bias is None:
             bias = torch.zeros((out_ch,), device=x.device)
+        # .float() and .contiguous() return their tensor where it already
+        # is f32 and contiguous; fir4_epilogue validates, and caches the
+        # taps of `f` by content.
         return fir4_epilogue(
-            pre.contiguous(), _filter_2d(f), dcoefs.contiguous(),
+            pre.contiguous(), f, dcoefs.contiguous(),
             None if noise is None else noise.float().contiguous(),
             bias.float().contiguous(), act_gain, clamp,
             alpha=_FIR_ALPHA[activation], fir_gain=up ** 2,

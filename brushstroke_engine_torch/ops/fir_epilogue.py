@@ -12,12 +12,12 @@ dilated (transposed) conv of every ``conv0`` at res >= 8 the chain is
 CPU tensor.  There is no flag and no fallback: a CUDA input the kernel does
 not take raises.
 
-The kernel's result carries gradient: the launch sits in an
-``autograd.Function`` whose backward differentiates the plain chain on the
-saved inputs with torch ops (the JAX package has no backward kernel for this
-chain either; its training differentiates the XLA ops), built with a graph
-of its own when gradients are being recorded, so the path-length phase can
-differentiate through it a second time.
+The kernel's result carries gradient: where an input requires it, the launch
+sits in an ``autograd.Function`` whose backward differentiates the plain
+chain on the saved inputs with torch ops (the JAX package has no backward
+kernel for this chain either; its training differentiates the XLA ops),
+built with a graph of its own when gradients are being recorded, so the
+path-length phase can differentiate through it a second time.
 """
 
 from __future__ import annotations
@@ -47,6 +47,30 @@ def correlation_taps(f, fir_gain: float = 4.0) -> np.ndarray:
                                 np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _taps_from_bytes(f_bytes: bytes, shape, fir_gain: float) -> np.ndarray:
+    taps = correlation_taps(
+        np.frombuffer(f_bytes, np.float32).reshape(shape), fir_gain)
+    taps.setflags(write=False)
+    return taps
+
+
+def cached_taps(f, fir_gain: float = 4.0) -> np.ndarray:
+    """:func:`correlation_taps` of the filter ``f``, built once per filter
+    content and gain and read-only (every layer of a model passes the same
+    filter on every call)."""
+    if isinstance(f, torch.Tensor):
+        f = f.detach().cpu().numpy()
+    f = np.asarray(f, np.float32)
+    return _taps_from_bytes(f.tobytes(), f.shape, float(fir_gain))
+
+
+@functools.lru_cache(maxsize=64)
+def _taps16(taps_bytes: bytes):
+    """The 16 taps as the ``ctypes`` array the kernel's entry point reads."""
+    return (ctypes.c_float * 16).from_buffer_copy(taps_bytes)
+
+
 def fir4_epilogue_plain(x, taps, dcoefs, noise, bias, act_gain: float,
                         clamp: Optional[float], alpha: float = 0.2,
                         out_dtype=None):
@@ -57,7 +81,7 @@ def fir4_epilogue_plain(x, taps, dcoefs, noise, bias, act_gain: float,
     in f32 and returns ``[B, H, W, C]`` in ``out_dtype`` (default: x's).
     """
     c = x.shape[-1]
-    k = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
+    k = torch.as_tensor(np.array(taps, np.float32), device=x.device)
     y = F.conv2d(nchw(x.float()), k[None, None].expand(c, 1, 4, 4), groups=c)
     y = y.permute(0, 2, 3, 1)
     y = y * dcoefs.float()[:, None, None, :]
@@ -79,55 +103,65 @@ def _kernel_fns():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
                                            ctypes.c_void_p, ctypes.c_void_p] \
-        + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
     err_str = lib.fir4_epilogue_error_string
     err_str.restype = ctypes.c_char_p
     err_str.argtypes = [ctypes.c_int]
     return fn, err_str
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"fir4_epilogue: {name} must be a contiguous {dtype} tensor of "
-            f"shape {shape} on {device}; got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device} (contiguous={t.is_contiguous()})")
+def _takes(t, dtype, shape, device) -> bool:
+    return (t.dtype == dtype and tuple(t.shape) == shape
+            and t.device == device and t.is_contiguous())
 
 
 def _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp, alpha,
-                   out_dtype):
-    if x.dim() != 4 or (x.dtype, out_dtype) not in _SUPPORTED \
-            or not x.is_contiguous():
-        raise ValueError(
-            f"fir4_epilogue: x must be a contiguous 4-D f32 or bf16 tensor "
-            f"and out_dtype its dtype; got {x.dtype} "
-            f"{tuple(x.shape)} -> {out_dtype}")
-    b, hp, wp, c = x.shape
-    h, w = hp - 3, wp - 3
-    if h <= 0 or w <= 0:
-        raise ValueError(f"fir4_epilogue: input {tuple(x.shape)} too small")
+                   out_dtype, tile=(0, 0)):
+    """Validate once, launch, count.  ``taps``: ``[4, 4]`` f32 correlation
+    taps.  ``tile = (xw, strip)`` overrides the kernel's own
+    choice of columns per thread and rows per strip (0 = its choice); only
+    the tuning tool and the checks pass it."""
     dev = x.device
-    _check("dcoefs", dcoefs, torch.float32, (b, c), dev)
-    _check("bias", bias, torch.float32, (c,), dev)
-    noise_bstride = 0
-    if noise is not None:
-        _check("noise", noise, torch.float32, (noise.shape[0], h, w, 1), dev)
-        if noise.shape[0] not in (1, b):
-            raise ValueError(f"fir4_epilogue: noise batch {noise.shape[0]} "
-                             f"vs input batch {b}")
-        noise_bstride = h * w if noise.shape[0] == b else 0
-    taps16 = (ctypes.c_float * 16)(*np.asarray(taps, np.float32).ravel())
+    ok = x.dim() == 4 and (x.dtype, out_dtype) in _SUPPORTED \
+        and x.is_contiguous() and x.shape[1] > 3 and x.shape[2] > 3
+    if ok:
+        b, hp, wp, c = x.shape
+        h, w = hp - 3, wp - 3
+        ok = _takes(dcoefs, torch.float32, (b, c), dev) \
+            and _takes(bias, torch.float32, (c,), dev) \
+            and (noise is None or (
+                noise.shape[0] in (1, b)
+                and _takes(noise, torch.float32, (noise.shape[0], h, w, 1),
+                           dev)))
+    if not ok:
+        def said(t):
+            return None if t is None else (
+                f"{t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
+        raise ValueError(
+            "fir4_epilogue: x must be a contiguous f32 or bf16 "
+            "[B, H+3, W+3, C] tensor with H, W >= 1 and out_dtype its dtype; "
+            "dcoefs [B, C], bias [C] and noise [B or 1, H, W, 1] (or None) "
+            "contiguous f32 tensors on x's device; got x "
+            f"{said(x)} -> {out_dtype}, dcoefs {said(dcoefs)}, noise "
+            f"{said(noise)}, bias {said(bias)}")
+    taps = np.ascontiguousarray(taps, np.float32)
+    if taps.shape != (4, 4):
+        raise ValueError(f"fir4_epilogue: taps must be [4, 4], got "
+                         f"{taps.shape}")
+    taps16 = _taps16(taps.tobytes())
+    noise_bstride = h * w if noise is not None and noise.shape[0] == b else 0
     out = torch.empty((b, h, w, c), dtype=out_dtype, device=dev)
 
     fn, err_str = _kernel_fns()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(x.data_ptr(), out.data_ptr(), dcoefs.data_ptr(),
             None if noise is None else noise.data_ptr(), noise_bstride,
-            bias.data_ptr(), ctypes.cast(taps16, ctypes.c_void_p),
+            bias.data_ptr(), ctypes.addressof(taps16),
             b, h, w, c, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
             float(alpha), float(act_gain),
-            float("inf") if clamp is None else float(clamp), stream)
+            float("inf") if clamp is None else float(clamp), *tile,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fir4_epilogue kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")
@@ -183,13 +217,20 @@ def fir4_epilogue(x, f, dcoefs, noise, bias, act_gain: float,
     ``fir4_epilogue.launches``); a CPU tensor takes the plain version.  Both
     are differentiable to second order.
     """
-    taps = correlation_taps(f, fir_gain)
+    taps = cached_taps(f, fir_gain)
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return fir4_epilogue_plain(x, taps, dcoefs, noise, bias, act_gain,
                                    clamp, alpha, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fir4_epilogue: unsupported device {x.device}")
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dcoefs, noise, bias))):
+        # Nothing to record (the render): the launch alone, without the
+        # autograd.Function's host cost.
+        return _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp,
+                              alpha, out_dtype)
     return _Fir4EpilogueFn.apply(x, dcoefs, noise, bias, taps, act_gain,
                                  clamp, alpha, out_dtype)
 

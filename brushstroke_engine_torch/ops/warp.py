@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -81,6 +82,63 @@ def warp_twopass_t_plain(g, scalars):
     w1, w2 = dense_weights(scalars, g.shape[1])
     i1b = torch.einsum("bijr,bijc->brjc", w2, g.float())
     return torch.einsum("brjk,brjc->brkc", w1, i1b)
+
+
+def source_intervals(slope: float, coef: float, line: int, c: float,
+                     s: float, tap: int, n: int):
+    """The source indices a transposed pass visits for output tap ``tap`` of
+    one line, as ascending, disjoint, inclusive ``(lo, hi)`` intervals: the
+    same enumeration as ``LineWalk`` / ``SourceWalk`` in
+    ``csrc/warp_twopass.cu``, in Python floats (the kernel does it in
+    double), so the CPU tests can hold it against the dense weights.
+
+    Along the line the unreflected centre of source ``m`` is
+    ``lin(m) = slope * m + coef * line + c`` (vertical pass: ``slope = E2``,
+    ``coef = D2``, ``line`` = column, ``c = c2``; horizontal: ``A1``, ``B1``,
+    row, ``c1``).  Its reflection equals ``tap`` where ``lin = +-tap + k *
+    period``; the sources within ``s`` (plus a rounding margin) of such a
+    target can have a non-zero weight, no other can.  A slope too flat to
+    divide by, or more targets than half of the sources, gives the whole
+    line.
+    """
+    nm1 = float(n - 1)
+    base = coef * float(line) + c
+    period = 2.0 * nm1
+    inv_period = 1.0 / period
+    mag = abs(slope) * nm1 + abs(base) + abs(c) + period + s
+    reach = s + 1e-6 * mag + 1e-6
+    if not abs(slope) * nm1 >= 1.0:
+        return [(0, n - 1)]
+    inv_slope = 1.0 / slope
+    end = base + slope * nm1
+    lin_lo, lin_hi = min(base, end) - reach, max(base, end) + reach
+    # Targets within reach of the line: +tap + k * period as q = 2k + 1,
+    # -tap + k * period as q = 2k; ascending in q.
+    kp = (math.ceil((lin_lo - tap) * inv_period),
+          math.floor((lin_hi - tap) * inv_period))
+    km = (math.ceil((lin_lo + tap) * inv_period),
+          math.floor((lin_hi + tap) * inv_period))
+    q_ends = ([2 * k + 1 for k in kp] if kp[0] <= kp[1] else []) \
+        + ([2 * k for k in km] if km[0] <= km[1] else [])
+    if not q_ends:
+        return []
+    q_lo, q_hi = min(q_ends), max(q_ends)
+    if q_hi - q_lo > 0.5 * n or abs(q_lo) > 1e8 or abs(q_hi) > 1e8:
+        return [(0, n - 1)]
+    qs = range(q_lo, q_hi + 1)
+    out, nxt = [], 0
+    for q in (qs if slope > 0.0 else reversed(qs)):
+        if nxt >= n:
+            break
+        target = (q >> 1) * period + (tap if q & 1 else -tap) - base
+        m0 = (target - reach) * inv_slope
+        m1 = (target + reach) * inv_slope
+        first = max(math.floor(min(m0, m1)) - 1.0, float(nxt))
+        last = min(math.ceil(max(m0, m1)) + 1.0, float(n - 1))
+        if first <= last:
+            out.append((int(first), int(last)))
+            nxt = int(last) + 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -72,15 +72,20 @@ def trace(name, fn, iters, out_dir):
     busy_ms = sum(us for us, _ in per_name.values()) / 1e3 / iters
     if busy_ms <= 0:
         raise RuntimeError(f"{name}: the profiler recorded no device time")
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:15]
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
+
+    def rows(items):
+        return [{"name": k[:100], "ms_per_call": us / 1e3 / iters,
+                 "share": us / 1e3 / iters / busy_ms,
+                 "launches_per_call": n / iters} for k, (us, n) in items]
+
     result = {"config": name, "iters": iters, "wall_ms": wall_ms,
               "device_busy_ms": busy_ms,
               "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-              "top_kernels": [
-                  {"name": k[:100], "ms_per_call": us / 1e3 / iters,
-                   "share": us / 1e3 / iters / busy_ms,
-                   "launches_per_call": n / iters}
-                  for k, (us, n) in top]}
+              "top_kernels": rows(ranked[:15]),
+              # The port's own kernel, every instantiation the call launched.
+              "own_kernels": rows([kv for kv in ranked
+                                   if "fir4_epilogue" in kv[0]])}
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",

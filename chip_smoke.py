@@ -14,14 +14,20 @@ Phases, in order; any failure exits non-zero:
    noise, with per-sample noise and with one noise plane for the batch, with
    and without clamp, against ``fir4_epilogue_plain``; then the
    kernel's, the plain version's and a library yardstick's times beside the
-   memory bound.
+   memory bound.  Then shapes off the kernel's vector path (a channel count
+   that is no multiple of the 16-byte vector, H != W, ragged strips, W
+   narrower than a thread's column walk), every tile forced as well as the
+   kernel's own choice; then times at the trainer's shapes (B = 64, f32).
 4. The FIR-epilogue kernel's backward: gradients of x, dcoefs, noise and
    bias through the kernel path against autograd through the plain version
    at the 64-px and 128-px training shapes, and one double backward.
 5. The ADA two-pass warp kernels W and W^T against their plain versions:
    the five transform classes and 64 matrices of the ADA pipe at p = 1, at
    [64,128,128,3] and [8,64,64,3], antialias on and off, values, the
-   second-order (R1) pattern and the adjoint identity, with times.
+   second-order (R1) pattern and the adjoint identity, with times.  Then
+   W^T's source walk under stress: pass slopes of 0 and near 0, a quarter
+   turn, a translation, flips, a strong zoom-out and zoom-in, a
+   near-singular shear, at N = 67 (C = 5) and N = 128.
 6. The render path: the 256-px flagship (random weights from a seed, through
    ``init_native_params`` -> ``params_from_jax``) renders through
    ``TriadGanPaintEngine.render_stroke`` (z style, canvas position, UVS
@@ -223,6 +229,66 @@ def phase_kernel_vs_plain():
     print(f"[fir4] all 72 kernel-vs-plain cases within tolerance; max abs "
           f"err f32 {max_err[torch.float32]:.3e}, bf16 "
           f"{max_err[torch.bfloat16]:.3e}", flush=True)
+
+    # Off the vector path: C = 20 (a multiple of 4, not of 8), C = 5
+    # (neither), H != W with H no multiple of any strip, W narrower than a
+    # thread's walk of 2 columns; the kernel's own tile and every forced
+    # (columns, rows) tile.  Same tolerances.
+    n_off = 0
+    for b, h, w, c in ((2, 13, 9, 20), (3, 5, 7, 5), (2, 6, 3, 24),
+                       (1, 1, 1, 8), (2, 37, 66, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            rtol = F32_RTOL if dtype == torch.float32 else BF16_RTOL
+            x = (torch.randn((b, h + 3, w + 3, c), generator=gen,
+                             device="cuda") * 2).to(dtype)
+            d = torch.rand((b, c), generator=gen, device="cuda") * 0.5 + 0.7
+            noise = torch.randn((b, h, w, 1), generator=gen, device="cuda")
+            bias = torch.randn((c,), generator=gen, device="cuda")
+            want = fe.fir4_epilogue_plain(x, taps, d, noise, bias, act_gain,
+                                          256.0, out_dtype=dtype).float()
+            tiles = [(xw, strip) for xw in (1, 2) for strip in (1, 3, 8)]
+            for tile in [None] + tiles:
+                if tile is None:
+                    got = fe.fir4_epilogue(x, f, d, noise, bias, act_gain,
+                                           256.0, out_dtype=dtype)
+                else:
+                    got = fe._launch_kernel(x, taps, d, noise, bias,
+                                            act_gain, 256.0, 0.2, dtype,
+                                            tile=tile)
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs()
+                check(got.shape == (b, h, w, c) and not bool(
+                    (err > rtol * want.abs() + ATOL).any()),
+                    f"kernel != plain at [{b},{h},{w},{c}] {dtype} tile "
+                    f"{tile}: max err {err.max().item():.3e}")
+                max_err[dtype] = max(max_err[dtype], err.max().item())
+                n_off += 1
+    print(f"[fir4] {n_off} off-vector-path cases within tolerance",
+          flush=True)
+
+    # Times at the trainer's shapes (B = 64, C = 128, f32, noise and clamp).
+    train_rows = []
+    for res in flagship_generator_config(TRAIN_RES).synthesis \
+            .block_resolutions[1:]:
+        c = flagship_generator_config(TRAIN_RES).synthesis.channels(res)
+        x = torch.randn((TRAIN_BATCH, res + 3, res + 3, c), generator=gen,
+                        device="cuda") * 2
+        d = torch.rand((TRAIN_BATCH, c), generator=gen, device="cuda") + 0.5
+        noise = torch.randn((TRAIN_BATCH, res, res, 1), generator=gen,
+                            device="cuda")
+        bias = torch.randn((c,), generator=gen, device="cuda")
+        iters = 200 if res <= 32 else 30
+        k_ms = cuda_ms(lambda: fe.fir4_epilogue(
+            x, f, d, noise, bias, act_gain, 256.0), iters)
+        p_ms = cuda_ms(lambda: fe.fir4_epilogue_plain(
+            x, taps, d, noise, bias, act_gain, 256.0), iters)
+        nbytes = 4 * (x.numel() + TRAIN_BATCH * res * res * c
+                      + noise.numel() + d.numel() + bias.numel())
+        row = {"shape": [TRAIN_BATCH, res, res, c], "dtype": "float32",
+               "kernel_ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        train_rows.append(row)
+        print("[fir4-train] " + json.dumps(row), flush=True)
     return rows, max_err
 
 
@@ -329,6 +395,73 @@ def _class_mats(batch):
     return np.stack(ms).astype(np.float32)
 
 
+def _stress_mats():
+    """Inverse affines that stress W^T's source walk: a pure quarter turn
+    (factored out by the prep), a pure translation, flips, a strong zoom-out
+    (wide triangles, many sources per tap), a zoom-in (no source for many
+    taps), a near-singular shear (pass-1 slope near 0)."""
+    import numpy as np
+    ms = {
+        "quarter": [[0, -1, 0.0], [1, 0, 0.0]],
+        "translate": [[1, 0, 13.25], [0, 1, -40.5]],
+        "flip_x": [[-1, 0, 0.5], [0, 1, 0.0]],
+        "flip_y": [[1, 0, 0.0], [0, -1, -0.25]],
+        "zoom_out": [[4.3, 0.2, 1.0], [-0.3, 3.1, 2.0]],
+        "zoom_in": [[0.3, 0.05, -2.0], [0.02, 0.22, 3.0]],
+        "shear_flat": [[0.81 + 1e-5, 0.9, 0.0], [0.9, 1.0, 0.0]],
+        "rotate_far": [[0.8, -0.6, 300.0], [0.6, 0.8, -500.0]],
+    }
+    return list(ms), np.stack([np.array(m + [[0, 0, 1.0]], np.float32)
+                               for m in ms.values()])
+
+
+def _warp_stress(tw, taug, gen, worst):
+    """W^T against its plain version, twice for equal bits, and against W by
+    the adjoint identity, on the stress matrices and on scalar packs whose
+    pass slopes are exactly 0 and next to 0 (which no matrix reaches through
+    the prep).  Returns the number of cases."""
+    import torch
+    names, mats = _stress_mats()
+    mats = torch.from_numpy(mats).to("cuda")
+    n_cases = 0
+    for n, c in ((67, 5), (128, 3)):
+        b = len(names)
+        for antialias in (True, False):
+            x = torch.randn((b, n, n, c), generator=gen, device="cuda")
+            g = torch.randn((b, n, n, c), generator=gen, device="cuda")
+            imgs, sc = taug._twopass_prep(x, mats, antialias)
+            packs = [("matrices", imgs.contiguous(), sc.contiguous())]
+            flat = sc.clone()
+            flat[:, 0] = torch.tensor([0.0, 1e-7, -1e-7, 3e-3, 0.0, 1e-7,
+                                       -3e-3, 0.0], device="cuda")
+            flat[:, 5] = torch.tensor([1e-6, -1e-6, 2e-3, 1e-6, -2e-3, 1.0,
+                                       1e-6, -1.0], device="cuda")
+            if antialias:
+                flat[:, 3], flat[:, 7] = 1.0, 1.0
+            packs.append(("flat slopes", imgs.contiguous(), flat))
+            for what, im, scal in packs:
+                wtg = tw.warp_twopass_t(g, scal)
+                torch.cuda.synchronize()
+                ptg = tw.warp_twopass_t_plain(g, scal)
+                err = (wtg - ptg).abs()
+                bad = err > WARP_GRAD_TOL * ptg.abs() + WARP_GRAD_TOL
+                tag = f"{what} [{b},{n},{n},{c}] antialias={antialias}"
+                check(not bool(bad.any()),
+                      f"W^T != plain, {tag}: max err per sample "
+                      f"{dict(zip(names, err.amax(dim=(1, 2, 3)).tolist()))}")
+                check(torch.equal(wtg, tw.warp_twopass_t(g, scal)),
+                      f"W^T is not deterministic, {tag}")
+                wx = tw.warp_twopass(im, scal)
+                lhs, rhs = (wx * g).sum().item(), (im * wtg).sum().item()
+                adj = abs(lhs - rhs) / max(abs(lhs), 1.0)
+                check(adj <= WARP_ADJ_RTOL,
+                      f"<Wx,g> {lhs} != <x,W^T g> {rhs}, {tag}")
+                worst["wt_stress"] = max(worst["wt_stress"], err.max().item())
+                worst["adjoint"] = max(worst["adjoint"], adj)
+                n_cases += b
+    return n_cases
+
+
 def phase_warp_vs_plain():
     import torch
     from brushstroke_engine_torch.ops import warp as tw
@@ -338,7 +471,8 @@ def phase_warp_vs_plain():
     cfg = taug.AugmentConfig.from_spec("bgc")
     one = torch.tensor(1.0, device="cuda")
     rows = []
-    worst = {"w": 0.0, "wt": 0.0, "second": 0.0, "adjoint": 0.0}
+    worst = {"w": 0.0, "wt": 0.0, "wt_stress": 0.0, "second": 0.0,
+             "adjoint": 0.0}
 
     def second_order(fn, x, g):
         xr = x.clone().requires_grad_(True)
@@ -437,6 +571,9 @@ def phase_warp_vs_plain():
                        "max_abs_err_wt": err_t.max().item()}
                 rows.append(row)
                 print("[warp] " + json.dumps(row), flush=True)
+    n_stress = _warp_stress(tw, taug, gen, worst)
+    print(f"[warp] {n_stress} W^T stress cases within tolerance and "
+          f"bit-stable, max abs err {worst['wt_stress']:.3e}", flush=True)
     print(f"[warp] all {len(rows)} cases within tolerance: W max abs err "
           f"{worst['w']:.3e}, W^T {worst['wt']:.3e}, second-order rel "
           f"{worst['second']:.3e}, adjoint rel {worst['adjoint']:.3e}",

@@ -72,6 +72,47 @@ def test_kernel_matches_plain(dtype, out_dtype, shape, noise_batch, clamp):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [(0, 0), (1, 1), (1, 3), (2, 1), (2, 8)])
+@pytest.mark.parametrize("shape", [
+    (2, 13, 9, 20),      # C a multiple of 4, not of 8; H != W; ragged strips
+    (3, 5, 7, 5),        # C a multiple of neither: the scalar instantiation
+    (2, 6, 3, 24),       # W narrower than two columns plus the window
+    (1, 1, 1, 8),        # one pixel
+    (2, 37, 66, 64),     # the vector path with ragged strips and columns
+])
+def test_kernel_off_vector_path_and_forced_tiles(shape, tile, dtype):
+    """Every instantiation (16-byte and scalar, one and two columns per
+    thread) and strips that do not divide H, against the plain version."""
+    x, d, noise, bias = _inputs(6, *shape, shape[0])
+    x = x.to(dtype)
+    taps = fe.cached_taps(F)
+    got = fe._launch_kernel(x, taps, d, noise, bias, 1.4142, 256.0, 0.2,
+                            dtype, tile=tile)
+    torch.cuda.synchronize()
+    want = fe.fir4_epilogue_plain(x, taps, d, noise, bias, 1.4142, 256.0,
+                                  out_dtype=dtype)
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5)
+
+
+def test_kernel_takes_an_unaligned_view():
+    """A pointer off the 16-byte grid takes the scalar instantiation inside
+    the kernel; it neither raises nor goes to the plain version."""
+    x, d, noise, bias = _inputs(7, 2, 8, 8, 16, 2)
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    xu = flat[1:].view(x.shape).copy_(x)
+    assert xu.data_ptr() % 16 != 0 and xu.is_contiguous()
+    before = fe.fir4_epilogue.launches
+    got = fe.fir4_epilogue(xu, F, d, noise, bias, 1.0, None)
+    torch.cuda.synchronize()
+    assert fe.fir4_epilogue.launches == before + 1
+    want = fe.fir4_epilogue_plain(x, fe.cached_taps(F), d, noise, bias, 1.0,
+                                  None)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_kernel_rejects_what_it_does_not_take():
     x, d, noise, bias = _inputs(1, 2, 8, 8, 16, 2)
     with pytest.raises(ValueError):
@@ -232,3 +273,88 @@ def test_warp_kernel_rejects_what_it_does_not_take():
         tw.warp_twopass(x, sc.cpu())
     with pytest.raises(ValueError):
         tw.warp_twopass_t(g, sc[:1])
+
+
+# Inverse affines that stress W^T's source walk (as in chip_smoke.py).
+_STRESS = {
+    "quarter": [[0, -1, 0.0], [1, 0, 0.0]],
+    "translate": [[1, 0, 13.25], [0, 1, -40.5]],
+    "flip_x": [[-1, 0, 0.5], [0, 1, 0.0]],
+    "flip_y": [[1, 0, 0.0], [0, -1, -0.25]],
+    "zoom_out": [[4.3, 0.2, 1.0], [-0.3, 3.1, 2.0]],
+    "zoom_in": [[0.3, 0.05, -2.0], [0.02, 0.22, 3.0]],
+    "shear_flat": [[0.81 + 1e-5, 0.9, 0.0], [0.9, 1.0, 0.0]],
+    "rotate_far": [[0.8, -0.6, 300.0], [0.6, 0.8, -500.0]],
+}
+
+
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("antialias", [True, False])
+@pytest.mark.parametrize("n,c", [(67, 5), (128, 3), (8, 1), (40, 11)])
+def test_warp_transpose_source_walk_under_stress(n, c, antialias, flat):
+    """W^T where its interval walk is hardest: a quarter turn, a far
+    translation, flips, a strong zoom-out and zoom-in, a near-singular
+    shear; with ``flat`` pass slopes of exactly 0 and next to 0 written into
+    the scalar pack.  N = 67 and 40 are no multiple of the tile, C = 11
+    takes two channel chunks."""
+    rng = np.random.RandomState(14)
+    mats = torch.from_numpy(np.stack([
+        np.array(m + [[0, 0, 1.0]], np.float32) for m in _STRESS.values()
+    ])).cuda()
+    b = len(_STRESS)
+    x = torch.from_numpy(rng.randn(b, n, n, c).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.randn(b, n, n, c).astype(np.float32)).cuda()
+    imgs, sc = taug._twopass_prep(x, mats, antialias)
+    imgs, sc = imgs.contiguous(), sc.contiguous()
+    if flat:
+        sc[:, 0] = torch.tensor([0.0, 1e-7, -1e-7, 3e-3, 0.0, 1e-7, -3e-3,
+                                 0.0]).cuda()
+        sc[:, 5] = torch.tensor([1e-6, -1e-6, 2e-3, 1e-6, -2e-3, 1.0, 1e-6,
+                                 -1.0]).cuda()
+        if antialias:
+            sc[:, 3], sc[:, 7] = 1.0, 1.0
+    wtg = tw.warp_twopass_t(g, sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(wtg, tw.warp_twopass_t_plain(g, sc),
+                               rtol=2e-4, atol=2e-4)
+    assert torch.equal(wtg, tw.warp_twopass_t(g, sc))
+    wx = tw.warp_twopass(imgs, sc)
+    lhs, rhs = (wx * g).sum().item(), (imgs * wtg).sum().item()
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), 1.0)
+
+
+def test_warp_transpose_large_n_tiles():
+    """N so large that W^T's shared-memory tile holds fewer than its usual
+    eight lines: N = 600 (four lines) against the plain version; N = 3000
+    (one line, above the 48 KB that needs no opt-in), where the dense
+    weights of the plain version no longer fit, by the adjoint identity
+    with W on four probes."""
+    rng = np.random.RandomState(15)
+    th = 0.3
+    mat = torch.tensor([[[1.3 * np.cos(th), -np.sin(th), 4.5],
+                         [np.sin(th), 0.8 * np.cos(th), -7.25],
+                         [0, 0, 1.0]]], dtype=torch.float32).cuda()
+    n = 600
+    g = torch.from_numpy(rng.randn(1, n, n, 3).astype(np.float32)).cuda()
+    _, sc = taug._twopass_prep(g, mat, True)
+    sc = sc.contiguous()
+    wtg = tw.warp_twopass_t(g, sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(wtg, tw.warp_twopass_t_plain(g, sc),
+                               rtol=2e-4, atol=2e-4)
+    assert torch.equal(wtg, tw.warp_twopass_t(g, sc))
+
+    n = 3000
+    g = torch.from_numpy(rng.randn(1, n, n, 1).astype(np.float32)).cuda()
+    _, sc = taug._twopass_prep(g, mat, True)
+    sc = sc.contiguous()
+    wtg = tw.warp_twopass_t(g, sc)
+    for _ in range(4):
+        x = torch.from_numpy(rng.randn(1, n, n, 1).astype(np.float32)).cuda()
+        lhs = (tw.warp_twopass(x, sc).double() * g.double()).sum().item()
+        rhs = (x.double() * wtg.double()).sum().item()
+        # Both sums have 9e6 terms of size ~1: compare against their scale.
+        assert abs(lhs - rhs) <= 1e-4 * n, (lhs, rhs)
+    with pytest.raises(RuntimeError):           # beyond the tile's limit
+        big = torch.zeros((1, 6000, 6000, 8), device="cuda")
+        tw.warp_twopass_t(big, sc)

@@ -145,3 +145,71 @@ class TestSynthesisLayerUp2:
         # A 108-term conv sum then the 16-term FIR, reordered: 1e-4 abs on
         # outputs of magnitude ~10.
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+class TestOffVectorPathShapes:
+    """Shapes the CUDA kernel serves off its 16-byte path (C = 20 is a
+    multiple of 4 but not of 8, C = 5 of neither; H != W; W narrower than a
+    thread's column walk; one pixel): here the plain version against the
+    JAX reference, on the card the kernel against the plain version."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", [(2, 13, 9, 20), (3, 5, 7, 5),
+                                       (2, 6, 3, 24), (1, 1, 1, 8)])
+    def test_plain_matches_jax_reference(self, shape, dtype):
+        b, h, w, c = shape
+        x, f, d, noise, bias = make_inputs(seed=9, B=b, H=h, W=w, C=c,
+                                           with_noise=True)
+        if dtype == "float32":
+            got = _port(x, f, d, noise, bias, 1.4142, 256.0)
+            want = _jax(x, f, d, noise, bias, 1.4142, 256.0)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+            return
+        xb = torch.from_numpy(x).to(torch.bfloat16)
+        got = tfir.fir4_epilogue(xb, f, torch.from_numpy(d),
+                                 torch.from_numpy(noise),
+                                 torch.from_numpy(bias), 1.4142, 256.0)
+        assert got.dtype == torch.bfloat16 and got.shape == shape
+        want = _jax(xb.float().numpy(), f, d, noise, bias, 1.4142, 256.0)
+        # One rounding to bf16 at the end: half a bf16 ulp.
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -8,
+                                   atol=1e-6)
+
+
+class TestTapsCache:
+    def test_same_filter_same_object(self):
+        f = setup_filter([1, 3, 3, 1])
+        a = tfir.cached_taps(f)
+        assert tfir.cached_taps(setup_filter([1, 3, 3, 1])) is a
+        assert tfir.cached_taps(torch.from_numpy(f.copy())) is a
+        np.testing.assert_array_equal(a, tfir.correlation_taps(f))
+        assert not a.flags.writeable
+
+    def test_other_filter_or_gain_other_taps(self):
+        f = setup_filter([1, 3, 3, 1])
+        a = tfir.cached_taps(f)
+        g = np.random.RandomState(3).randn(4, 4).astype(np.float32)
+        b = tfir.cached_taps(g)
+        assert b is not a
+        np.testing.assert_array_equal(b, g[::-1, ::-1] * np.float32(4.0))
+        c = tfir.cached_taps(f, fir_gain=1.0)
+        assert c is not a
+        np.testing.assert_allclose(c * 4.0, a, rtol=1e-7)
+        # The cache is by content: mutating the caller's filter afterwards
+        # changes neither entry.
+        f2 = f.copy()
+        a2 = tfir.cached_taps(f2)
+        f2[0, 0] = 99.0
+        assert tfir.cached_taps(f2) is not a2
+        np.testing.assert_array_equal(a2, a)
+
+    def test_cached_taps_reject_non_4x4(self):
+        with pytest.raises(ValueError):
+            tfir.cached_taps(setup_filter([1, 2, 1]))
+
+    def test_ctypes_taps_hold_the_same_16_floats(self):
+        a = tfir.cached_taps(setup_filter([1, 3, 3, 1]))
+        t16 = tfir._taps16(a.tobytes())
+        assert tfir._taps16(a.tobytes()) is t16
+        np.testing.assert_array_equal(np.array(list(t16), np.float32),
+                                      a.ravel())

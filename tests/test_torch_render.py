@@ -205,7 +205,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for mod in ("engine.brush", "ops.warp", "models.discriminator",
                 "train.augment", "train.dataset", "train.losses",
                 "train.loop", "train.state", "train.steps", "utils.img_proc",
-                "tools.profile_render", "tools.profile_train", "flagship"):
+                "tools.profile_render", "tools.profile_train",
+                "tools.tune_kernels", "flagship"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

@@ -191,3 +191,166 @@ def test_warp_eligible_and_gather_dispatch():
     got = taug._affine_warp(torch.from_numpy(imgs), torch.from_numpy(mat))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# W^T's source walk (the CUDA kernel's enumeration, mirrored in Python)
+# ---------------------------------------------------------------------------
+
+STRESS = {
+    "quarter": [[0, -1, 0.0], [1, 0, 0.0]],
+    "translate_far": [[1, 0, 13.25], [0, 1, -40.5]],
+    "flip_x": [[-1, 0, 0.5], [0, 1, 0.0]],
+    "flip_y": [[1, 0, 0.0], [0, -1, -0.25]],
+    "zoom_out": [[4.3, 0.2, 1.0], [-0.3, 3.1, 2.0]],
+    "zoom_in": [[0.3, 0.05, -2.0], [0.02, 0.22, 3.0]],
+    "shear_flat": [[0.81 + 1e-5, 0.9, 0.0], [0.9, 1.0, 0.0]],
+    "rotate_far": [[0.8, -0.6, 300.0], [0.6, 0.8, -500.0]],
+}
+
+
+def _walk_covers(scalars, n, lines):
+    """For each pass, line in ``lines`` and output tap: the intervals are
+    ascending, disjoint and inside [0, n-1], and every source with a non-zero
+    dense weight lies in one.  Returns the mean number of sources visited."""
+    w1, w2 = tw.dense_weights(torch.tensor([scalars], dtype=torch.float32), n)
+    w1, w2 = w1[0].numpy(), w2[0].numpy()      # w1[r, j, k], w2[i, j, r]
+    a1, b1, c1, s1, d2, e2, c2, s2 = (
+        float(v) for v in np.asarray(scalars, np.float32))
+    visited = 0
+    for line in lines:
+        for tap in range(n):
+            for vertical in (False, True):
+                if vertical:
+                    got = tw.source_intervals(e2, d2, line, c2, s2, tap, n)
+                    nonzero = np.nonzero(w2[:, line, tap])[0]
+                else:
+                    got = tw.source_intervals(a1, b1, line, c1, s1, tap, n)
+                    nonzero = np.nonzero(w1[line, :, tap])[0]
+                mask = np.zeros(n, bool)
+                prev = -1
+                for lo, hi in got:
+                    assert prev < lo <= hi <= n - 1, (got, scalars)
+                    mask[lo:hi + 1] = True
+                    prev = hi
+                assert mask[nonzero].all(), (scalars, line, tap, vertical,
+                                             got, nonzero)
+                visited += int(mask.sum())
+    return visited / (len(lines) * n * 2)
+
+
+def _some_lines(n):
+    return range(n) if n <= 16 else sorted({0, 1, n // 3, n // 2, n - 2,
+                                            n - 1})
+
+
+@pytest.mark.parametrize("antialias", [True, False])
+@pytest.mark.parametrize("n", [8, 67, 128])
+@pytest.mark.parametrize("kind", KINDS + tuple(STRESS))
+def test_source_walk_covers_dense_weights(kind, n, antialias):
+    mat = _mats((kind,)) if kind in KINDS else np.array(
+        [STRESS[kind] + [[0, 0, 1.0]]], np.float32)
+    _, sc = taug._twopass_prep(torch.zeros(1, n, n, 1),
+                               torch.from_numpy(mat), antialias)
+    visited = _walk_covers(sc[0].tolist(), n, _some_lines(n))
+    # The walk pays: away from flat slopes it visits a few sources per tap.
+    if kind in ("identity", "translate", "rotate", "flip_x") and n == 128:
+        assert visited < 12, visited
+
+
+@pytest.mark.parametrize("a1,e2", [(0.0, 1e-6), (1e-7, -1e-6), (-3e-3, 2e-3),
+                                   (1.0, 1e-6), (40.0, -35.0), (1e6, 1e5)])
+def test_source_walk_flat_and_steep_slopes(a1, e2):
+    """Slopes no matrix reaches through the prep: exactly 0, next to 0 (the
+    dense line), and so steep that the targets outnumber the sources."""
+    for n in (8, 67):
+        for antialias in (True, False):
+            s1 = max(abs(a1), 1.0) if antialias else 1.0
+            s2 = max(abs(e2), 1.0) if antialias else 1.0
+            _walk_covers([a1, 0.37, 5.5 - n, s1, -0.21, e2, 2.0 * n, s2], n,
+                         _some_lines(n))
+
+
+def test_source_walk_covers_dense_weights_hypothesis():
+    from hypothesis import given, settings, strategies as st
+
+    slope = st.one_of(st.floats(-6, 6, width=32),
+                      st.sampled_from([0.0, 1e-7, -1e-7, 1.0, -1.0]))
+    cross = st.floats(-3, 3, width=32)
+    offset = st.floats(-600, 600, width=32)
+
+    @settings(max_examples=40, deadline=None, derandomize=True,
+              database=None)
+    @given(a1=slope, b1=cross, c1=offset, d2=cross, e2=slope, c2=offset,
+           n=st.sampled_from([8, 67, 128]), antialias=st.booleans(),
+           line=st.integers(0, 127))
+    def run(a1, b1, c1, d2, e2, c2, n, antialias, line):
+        if abs(e2) < 1e-6:                     # the prep's floor on e
+            e2 = 1e-6
+        s1 = max(abs(a1), 1.0) if antialias else 1.0
+        s2 = max(abs(e2), 1.0) if antialias else 1.0
+        _walk_covers([a1, b1, c1, s1, d2, e2, c2, s2], n,
+                     sorted({line % n, n - 1}))
+
+    run()
+
+
+def _transpose_tabled(g, scalars):
+    """``W^T`` the way the kernel computes it, in torch and Python loops
+    (small shapes only): per source pixel the reflected centre
+    and ``1 / normaliser`` once, then per output tap a gather over
+    ``source_intervals`` in ascending source order."""
+    b, n, _, ch = g.shape
+    sc = scalars.float()
+    grid = torch.arange(n, dtype=torch.float32)
+    rows, cols = grid[:, None], grid[None, :]
+    out = torch.zeros_like(g, dtype=torch.float32)
+
+    def one_pass(src, p, q, c, s, vertical):
+        ctr = tw._reflect((p * rows + q * cols) + c, n)            # [row, col]
+        tri_all = torch.clamp_min(
+            1.0 - (grid - ctr[..., None]).abs() * (1.0 / s), 0.0)
+        inv = 1.0 / torch.clamp_min(tri_all.sum(-1), 1e-8)
+        dst = torch.zeros_like(src)
+        slope, coef = (p, q) if vertical else (q, p)
+        for line in range(n):
+            for tap in range(n):
+                acc = torch.zeros(ch)
+                for lo, hi in tw.source_intervals(float(slope), float(coef),
+                                               line, float(c), float(s), tap,
+                                               n):
+                    for m in range(lo, hi + 1):
+                        r, j = (m, line) if vertical else (line, m)
+                        w = max(0.0, 1.0 - abs(tap - float(ctr[r, j]))
+                                * float(1.0 / s))
+                        if w > 0.0:
+                            acc = acc + (w * inv[r, j]) * src[r, j]
+                if vertical:
+                    dst[tap, line] = acc
+                else:
+                    dst[line, tap] = acc
+        return dst
+
+    for i in range(b):
+        a1, b1, c1, s1, d2, e2, c2, s2 = sc[i]
+        i1b = one_pass(g[i].float(), e2, d2, c2, s2, True)
+        out[i] = one_pass(i1b, b1, a1, c1, s1, False)
+    return out
+
+
+@pytest.mark.parametrize("antialias", [True, False])
+def test_tabled_transpose_matches_plain(antialias):
+    """The kernel's algorithm in torch (per-source centre and 1/normaliser
+    once, then the gather over the walk) equals ``warp_twopass_t_plain``
+    within 2e-6: the reciprocal normaliser and the order of the tap sums
+    are all that differ."""
+    n = 12
+    kinds = ("rotate", "scale", "near90", "translate")
+    mats = np.concatenate([_mats(kinds), np.array(
+        [STRESS[k] + [[0, 0, 1.0]] for k in ("zoom_out", "flip_x")],
+        np.float32)])
+    g = torch.from_numpy(_images(20, len(mats), n, 2))
+    _, sc = taug._twopass_prep(g, torch.from_numpy(mats), antialias)
+    torch.testing.assert_close(_transpose_tabled(g, sc),
+                               tw.warp_twopass_t_plain(g, sc), rtol=0,
+                               atol=2e-6)
