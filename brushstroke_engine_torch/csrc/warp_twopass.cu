@@ -17,36 +17,47 @@
 //   xbar[r, k, c] = sum_j w1[r, j, k] * i1b[r, j, c]
 // Images are NHWC [B, N, N, C] f32, contiguous, with any C and any N (the
 // TPU kernel's N % 128 == 0 and C <= 8 were Mosaic tiling limits) up to the
-// N whose line still fits W^T's shared-memory tile (about 5800).
+// N whose column of i1 still fits W's shared memory (7264 at C >= 8) and
+// whose line still fits W^T's tile (about 5800).
 //
 // Design.  Not carried over block by block: the TPU kernel builds dense
 // [8, N, N] weight tiles for the matrix unit; here a triangle of half-width
 // s has at most 2s+1 non-zero taps, so the forward passes GATHER only those
-// taps per output pixel (one thread per (b, row, col), all C channels in
-// registers, col fastest so a warp's loads and stores run along a row).  The
-// transposed passes are gathers too, which keeps them deterministic (no
-// atomicAdd, a fixed summation order): a block computes the centre and the
-// normaliser of each source pixel of its tile once, into shared memory, and
-// each output tap then visits only the few sources whose triangle can reach
-// it, in ascending order (see "Transposed passes" below).  The
-// interpolation weights never reach global memory.  The intermediate i1 /
-// i1b goes through a global scratch tensor between the two launches of an
-// entry point (at [64,128,128,3] it is 12.6 MB and stays in the 50 MB L2),
-// which keeps every SM busy; one block per sample with i1 in shared memory
-// would use 64 of 132.
+// taps per output pixel.  The interpolation weights never reach global
+// memory.
+//
+// W is one launch with no global intermediate.  Pass 2 is vertical, so a
+// band of output columns J needs only i1[:, J], and i1[r, j] needs only row
+// r of x: a block that owns (column band, sample) needs no halo from any
+// other block.  It computes i1 for every row of its band into shared memory
+// (phase 1, horizontal taps gathered from x through L1/L2), syncs, and
+// gathers pass 2's vertical taps from there (phase 2), writing each output
+// pixel once.  The band is picked per shape (`fused_band`) so that the grid
+// fills the card: [64,128,128,3] takes bands of 16 columns, 512 blocks of
+// 24 KB.  Indices come from blockIdx / threadIdx in 32-bit ints (64-bit only
+// in pointers), and a pixel's normaliser is one reciprocal.
+//
+// W^T is a gather too, which keeps it deterministic (no atomicAdd, a fixed
+// summation order): a block computes the centre and the normaliser of each
+// source pixel of its tile once, into shared memory, and each output tap
+// then visits only the few sources whose triangle can reach it, in
+// ascending order (see "Transposed passes" below).  Its intermediate i1b
+// goes through a global scratch tensor between its two launches (at
+// [64,128,128,3] it is 12.6 MB and stays in the 50 MB L2).
 //
 // Bound: memory.  Each direction must read one image batch and write one
 // (2 * B*N*N*C*4 bytes: 25.2 MB, 7.5 us at 3.35 TB/s for [64,128,128,3]);
 // the forward does about (2*s1+1 + 2*s2+1) * C multiply-adds per output and
 // the transposed about as many, both far below the f32 roof.  What bounds
-// the kernels at this size is latency: little work per thread, with trip
-// counts that depend on the data.
+// the kernels at this size is instruction issue and latency: little work
+// per thread, with trip counts that depend on the data.
 // Measured on an H100 80GB HBM3 at 700 W at [64,128,128,3] (ADA 'bgc'
 // matrices at p = 1, antialias; chip_smoke.py and tools/tune_kernels.py):
-// W 0.047 ms per call, 45 us of it device time for its two launches; W^T
-// 0.083-0.085 ms per call, 79 us device time (40 + 39).  The first W^T, a
-// dense N-step loop per output that recomputed centre and normaliser at
-// every step, took 0.707 ms (PERF.md has the table and the steps between).
+// W one launch of 13.7 us device time (1.8x the bound); the first W, two
+// gather launches through a scratch tensor, 24.2 + 20.6 us.  W^T
+// 0.083-0.085 ms per call, 79 us device time (40 + 39); the first W^T, a
+// dense N-step loop per output, 0.707 ms.  PERF.md has the tables and the
+// steps between.
 //
 // The centre arithmetic is written with __fmul_rn/__fadd_rn so that it is
 // not contracted into FMAs and equals the plain version's separate multiply
@@ -117,45 +128,105 @@ __device__ __forceinline__ float normaliser(float ctr, const PassScalars& ps,
   return fmaxf(sum, 1e-8f);
 }
 
-// One forward pass: dst[row, col, :] = sum_t w(row, col, t) * src[tap pixel].
-// Horizontal taps run along the row (src[row, t]), vertical ones along the
-// column (src[t, col]).
-template <bool kVertical>
-__global__ void __launch_bounds__(kThreads) resample_gather(
-    const float* __restrict__ src, float* __restrict__ dst,
-    const float* __restrict__ scalars, int N, int C, long long total) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int col = (int)(idx % N);
-  const int row = (int)((idx / N) % N);
-  const long long b = idx / ((long long)N * N);
-  const PassScalars ps = load_scalars<kVertical>(scalars + b * 8);
-  const float ctr = centre(ps, row, col, (float)(N - 1));
-  int lo, hi;
-  tap_range(ctr, ps.s, N, &lo, &hi);
-  const float* img = src + b * N * N * C;
-  float* out = dst + idx * C;
+// W, fused.  A (band, rows) block owns columns j0 .. j0 + band - 1 of one
+// sample (blockIdx.y = band index, blockIdx.x = sample); thread (jj, y)
+// owns column j0 + jj and rows y, y + rows, ...  Columns are the fast
+// index, so a warp's loads and stores run along image rows.  Channels are
+// held kNC = min(C, kChunk) at a time; kWhole (C <= kChunk) makes the pixel
+// stride a constant, so a tap's channels load at fixed offsets from one
+// pointer; a larger C takes its channels in chunks, one chunk's i1 band in
+// shared memory at a time.  Dynamic shared memory: i1[N][band][kNC] floats.
+//
+// What bounds it is instruction issue and the latency of the gathers, not
+// bytes: each output pixel costs a centre, a tap range, a normaliser and
+// (2s+1) * C multiply-adds per pass.  So the taps' loads go out in groups
+// of kTapGroup from one pointer with a tap past the range predicated off
+// (weight 0, no load: the sums equal the tap-by-tap loop's bit for bit),
+// and rows advance by pointer increments (no 64-bit multiply per pixel).
 
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
-    const int nc = min(kChunk, C - c0);
-    float acc[kChunk];
+constexpr int kTapGroup = 4;
+
+// acc[c] = sum over taps t = lo..hi of w(t) * px[(t - lo) * stride + c],
+// in ascending t; returns the sum of the weights w(t) = tri(t, ctr).
+template <int kNC>
+__device__ __forceinline__ float gather_taps(const float* px, int stride,
+                                             int lo, int hi, float ctr,
+                                             float inv, int nc, float* acc) {
+  float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c) acc[c] = 0.f;
-    float sum = 0.f;
-    for (int t = lo; t <= hi; ++t) {
-      const float w = tri((float)t, ctr, ps.inv);
-      sum += w;
-      const float* px = img +
-          (kVertical ? ((long long)t * N + col) : ((long long)row * N + t)) *
-              C + c0;
+  for (int c = 0; c < kNC; ++c) acc[c] = 0.f;
+  for (int t0 = lo; t0 <= hi; t0 += kTapGroup, px += kTapGroup * stride) {
+    float v[kTapGroup][kNC], w[kTapGroup];
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c)
-        if (c < nc) acc[c] += w * __ldg(px + c);
+    for (int g = 0; g < kTapGroup; ++g) {
+      const bool ok = t0 + g <= hi;
+#pragma unroll
+      for (int c = 0; c < kNC; ++c)
+        v[g][c] = (ok && c < nc) ? px[g * stride + c] : 0.f;
+      w[g] = ok ? tri((float)(t0 + g), ctr, inv) : 0.f;
     }
-    const float norm = fmaxf(sum, 1e-8f);
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c)
-      if (c < nc) out[c0 + c] = acc[c] / norm;
+    for (int g = 0; g < kTapGroup; ++g) {
+      sum += w[g];
+#pragma unroll
+      for (int c = 0; c < kNC; ++c)
+        if (c < nc) acc[c] += w[g] * v[g][c];
+    }
+  }
+  return sum;
+}
+
+template <int kNC, bool kWhole>
+__global__ void __launch_bounds__(kThreads) warp_fused(
+    const float* __restrict__ x, float* __restrict__ out,
+    const float* __restrict__ scalars, int N, int C) {
+  extern __shared__ float i1[];
+  const int band = blockDim.x, rows = blockDim.y;
+  const int jj = threadIdx.x;
+  const int j = blockIdx.y * band + jj;
+  const bool active = j < N;                  // the last band may be ragged
+  const float* sc = scalars + 8 * blockIdx.x;
+  const PassScalars p1 = load_scalars<false>(sc);
+  const PassScalars p2 = load_scalars<true>(sc);
+  const float nm1 = (float)(N - 1);
+  const int stride = kWhole ? kNC : C;          // floats per pixel
+  const size_t image = (size_t)blockIdx.x * N * N * C;
+  const size_t row_step = (size_t)rows * N * C;
+
+  for (int c0 = 0; c0 < C; c0 += kNC) {
+    const int nc = kWhole ? kNC : min(kNC, C - c0);
+    if (c0 > 0) __syncthreads();              // the last chunk's i1 is read
+    // Phase 1 (horizontal): i1[r, j] = sum_t w1(r, j, t) * x[r, t].
+    const float* row = x + image + (size_t)threadIdx.y * N * C + c0;
+    float* cell = i1 + (threadIdx.y * band + jj) * kNC;
+    for (int r = active ? threadIdx.y : N; r < N;
+         r += rows, row += row_step, cell += rows * band * kNC) {
+      const float ctr = centre(p1, r, j, nm1);
+      int lo, hi;
+      tap_range(ctr, p1.s, N, &lo, &hi);
+      float acc[kNC];
+      const float rn = 1.f / fmaxf(
+          gather_taps<kNC>(row + lo * stride, stride, lo, hi, ctr, p1.inv,
+                           nc, acc), 1e-8f);
+#pragma unroll
+      for (int c = 0; c < kNC; ++c)
+        if (c < nc) cell[c] = acc[c] * rn;
+    }
+    __syncthreads();
+    // Phase 2 (vertical): out[i, j] = sum_t w2(i, j, t) * i1[t, j].
+    float* o = out + image + ((size_t)threadIdx.y * N + j) * C + c0;
+    for (int i = active ? threadIdx.y : N; i < N; i += rows, o += row_step) {
+      const float ctr = centre(p2, i, j, nm1);
+      int lo, hi;
+      tap_range(ctr, p2.s, N, &lo, &hi);
+      float acc[kNC];
+      const float rn = 1.f / fmaxf(
+          gather_taps<kNC>(i1 + (lo * band + jj) * kNC, band * kNC, lo, hi,
+                           ctr, p2.inv, nc, acc), 1e-8f);
+#pragma unroll
+      for (int c = 0; c < kNC; ++c)
+        if (c < nc) o[c] = acc[c] * rn;
+    }
   }
 }
 
@@ -440,25 +511,77 @@ bool shape_ok(int B, int N, int C, long long* total, unsigned* blocks) {
   return true;
 }
 
+size_t fused_shared(int N, int C, int band) {
+  return (size_t)N * band * (C < kChunk ? C : kChunk) * sizeof(float);
+}
+
+// W's column band at [B, N, N, C]: the widest power of two up to kMaxBand
+// whose grid still has kWantBlocks blocks (one per SM) and whose i1 band
+// fits in 48 KB, else one column, so that small batches spread over the
+// SMs.  0 when not even one column of i1 fits in shared memory.  From the
+// sweep in tools/tune_kernels.py (H100): [64,128,128,3] is fastest at 16
+// (512 blocks; 8 and 32 are 15-25% slower), [8,64,64,3] at 4 (128 blocks).
+constexpr int kMaxBand = 16;
+constexpr long long kWantBlocks = 128;
+
+int fused_band(int B, int N, int C) {
+  if (B <= 0 || N < 2 || C <= 0) return 0;
+  for (int band = kMaxBand; band > 1; band /= 2)
+    if ((long long)B * ((N + band - 1) / band) >= kWantBlocks &&
+        fused_shared(N, C, band) <= 48 * 1024)
+      return band;
+  return fused_shared(N, C, 1) <= kMaxShared ? 1 : 0;
+}
+
+template <int kNC, bool kWhole>
+cudaError_t launch_fused(const float* x, float* out, const float* scalars,
+                         int B, int N, int C, int band, cudaStream_t s) {
+  const size_t shared = fused_shared(N, C, band);
+  if (shared > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        warp_fused<kNC, kWhole>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shared);
+    if (err != cudaSuccess) return err;
+  }
+  const int rows = kThreads / band < N ? kThreads / band : N;
+  const dim3 block(band, rows);
+  const dim3 grid(B, (N + band - 1) / band);
+  warp_fused<kNC, kWhole><<<grid, block, shared, s>>>(x, out, scalars, N, C);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// W: x [B, N, N, C] -> out, through `scratch` (same shape, holds i1).  All
-// pointers are device pointers to contiguous f32; `scalars` is [B, 8].
-// Returns the CUDA error code of the first launch that failed (0 = success).
-extern "C" int warp_twopass_launch(const float* x, float* scratch, float* out,
+// The column band W takes at [B, N, N, C] (0: the shape does not fit).
+extern "C" int warp_twopass_band(int B, int N, int C) {
+  return fused_band(B, N, C);
+}
+
+// W: x [B, N, N, C] -> out, in one launch.  All pointers are device
+// pointers to contiguous f32; `scalars` is [B, 8].  `band` > 0 overrides
+// the column band (at most kThreads; wider than N means one band).  N is
+// limited by one column of i1 in shared memory (N * min(C, 8) floats <=
+// 227 KB: N <= 7264 at C >= 8, 19370 at C = 3); beyond it the call returns
+// cudaErrorInvalidValue.  Returns the CUDA error code of the launch
+// (0 = success).
+extern "C" int warp_twopass_launch(const float* x, float* out,
                                    const float* scalars, int B, int N, int C,
-                                   void* stream) {
-  long long total;
-  unsigned blocks;
-  if (!shape_ok(B, N, C, &total, &blocks)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  resample_gather<false><<<blocks, kThreads, 0, s>>>(x, scratch, scalars, N, C,
-                                                     total);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  resample_gather<true><<<blocks, kThreads, 0, s>>>(scratch, out, scalars, N,
-                                                    C, total);
-  return (int)cudaGetLastError();
+                                   int band, void* stream) {
+  if (band <= 0) band = fused_band(B, N, C);
+  else if (band > N) band = N;
+  if (B <= 0 || N < 2 || C <= 0 || band <= 0 || band > kThreads ||
+      fused_shared(N, C, band) > kMaxShared || (N + band - 1) / band > 65535)
+    return (int)cudaErrorInvalidValue;
+  using Launch = cudaError_t (*)(const float*, float*, const float*, int,
+                                 int, int, int, cudaStream_t);
+  static const Launch kWholePixels[kChunk] = {
+      launch_fused<1, true>, launch_fused<2, true>, launch_fused<3, true>,
+      launch_fused<4, true>, launch_fused<5, true>, launch_fused<6, true>,
+      launch_fused<7, true>, launch_fused<8, true>};
+  const Launch launch =
+      C <= kChunk ? kWholePixels[C - 1] : launch_fused<kChunk, false>;
+  return (int)launch(x, out, scalars, B, N, C, band,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // W^T: g [B, N, N, C] -> out, through `scratch` (holds i1b).  N is limited

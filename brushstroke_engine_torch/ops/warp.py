@@ -14,7 +14,8 @@ R1 phase differentiates through the backward pass).  The scalar pack gets no
 gradient: ADA matrices are functions of the random draws only.
 
 For a CUDA tensor both directions launch the kernels of
-``csrc/warp_twopass.cu``; for a CPU tensor they take the plain version
+``csrc/warp_twopass.cu`` (``W`` in one fused launch, ``W^T`` in two through
+a scratch tensor); for a CPU tensor they take the plain version
 (:func:`warp_twopass_plain`, :func:`warp_twopass_t_plain`: dense weight
 matrices and two einsums).  There is no flag and no fallback: a CUDA input
 the kernel does not take raises.
@@ -146,20 +147,31 @@ def _kernel_fns():
     """The kernels' C entry points, typed once (builds the library first if
     it is missing or stale)."""
     lib = cuda_build.load("warp_twopass")
-    fns = []
-    for name in ("warp_twopass_launch", "warp_twopass_t_launch"):
-        fn = getattr(lib, name)
+    fwd, bwd, band = (lib.warp_twopass_launch, lib.warp_twopass_t_launch,
+                      lib.warp_twopass_band)
+    fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    band.argtypes = [ctypes.c_int] * 3
+    for fn in (fwd, bwd, band):
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        fns.append(fn)
     err_str = lib.warp_twopass_error_string
     err_str.restype = ctypes.c_char_p
     err_str.argtypes = [ctypes.c_int]
-    return fns[0], fns[1], err_str
+    return fwd, bwd, band, err_str
 
 
-def _launch(imgs, scalars, transposed: bool):
+def warp_band(b: int, n: int, c: int) -> int:
+    """The column band ``W``'s kernel picks at ``[b, n, n, c]`` (0: the shape
+    does not fit its shared memory)."""
+    return _kernel_fns()[2](b, n, c)
+
+
+def _launch(imgs, scalars, transposed: bool, band: int = 0):
+    """Validate, launch, count.  ``band`` > 0 overrides ``W``'s column band
+    (0 = the kernel's choice); only the tuning tool and the checks pass
+    it."""
     b, n, _, c = imgs.shape
     if not warp_eligible(imgs):
         raise ValueError(
@@ -172,13 +184,16 @@ def _launch(imgs, scalars, transposed: bool):
             f"warp_twopass: scalars must be a contiguous f32 [{b}, 8] tensor "
             f"on {imgs.device}; got {scalars.dtype} {tuple(scalars.shape)} "
             f"on {scalars.device}")
-    fwd, bwd, err_str = _kernel_fns()
-    scratch = torch.empty_like(imgs)
+    fwd, bwd, _, err_str = _kernel_fns()
     out = torch.empty_like(imgs)
     stream = torch.cuda.current_stream(imgs.device).cuda_stream
-    rc = (bwd if transposed else fwd)(
-        imgs.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        scalars.data_ptr(), b, n, c, stream)
+    if transposed:
+        scratch = torch.empty_like(imgs)
+        rc = bwd(imgs.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                 scalars.data_ptr(), b, n, c, stream)
+    else:
+        rc = fwd(imgs.data_ptr(), out.data_ptr(), scalars.data_ptr(), b, n, c,
+                 band, stream)
     if rc != 0:
         raise RuntimeError(f"warp_twopass kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")

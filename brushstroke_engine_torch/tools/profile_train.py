@@ -44,7 +44,7 @@ from brushstroke_engine_torch.ops.precision import set_precision_mode
 from brushstroke_engine_torch.train.loop import TrainingLoop
 
 RES, BATCH, WARMUP_BATCHES = 128, 64, 16
-OWN_KERNELS = ("fir4_epilogue", "resample_gather")
+OWN_KERNELS = ("fir4_epilogue", "resample_gather", "warp_fused")
 
 
 def main(argv=None):

@@ -1,15 +1,19 @@
-"""Tile sweep of the FIR-epilogue kernel and a quick check of both redesigned
-kernels, on the GPU.
+"""Tile and band sweeps of the hand-written kernels and a quick check of
+each, on the GPU.
 
 Builds the kernels (printing ``ptxas``'s register and spill counts), holds
-the FIR-epilogue kernel and the transposed warp against their plain versions
-at a few awkward shapes, then times the FIR-epilogue kernel at the shapes
-the render (B = 16 and B = 1, f32 and bf16) and the trainer (B = 64, f32)
-launch, for every ``(xw, strip)`` tile the kernel has -- columns per
-thread, output rows per strip -- beside the tile it picks itself and the
-byte bound.  The kernel's own choice (``dispatch``
-in ``csrc/fir4_epilogue.cu``) was set from this table.  Last, the times of
-the warp W and its transpose at the trainer's shape.
+the FIR-epilogue kernel, the warp W (with every column band) and its
+transpose against their plain versions at a few awkward shapes, and times
+W and W^T at the trainer's shapes: call time, and device time per launch
+from the profiler.  Without ``--check_only`` it then sweeps W's column band
+at ``[64,128,128,3]`` and ``[8,64,64,3]`` (device time per band beside the
+band ``fused_band`` in ``csrc/warp_twopass.cu`` picks, which was set from
+this table), and times the FIR-epilogue kernel at the shapes the render
+(B = 16 and B = 1, f32 and bf16) and the trainer (B = 64, f32) launch, for
+every ``(xw, strip)`` tile the kernel has -- columns per thread, output
+rows per strip -- beside the tile it picks itself and the byte bound.  The
+kernel's own choice (``dispatch`` in ``csrc/fir4_epilogue.cu``) was set
+from that table.
 
     python3 -m brushstroke_engine_torch.tools.tune_kernels [--check_only]
         [--out_dir DIR]
@@ -86,21 +90,54 @@ def check_fir():
           f"tolerance (f32 max abs err {worst:.3e})", flush=True)
 
 
+def stress_pack(rng, n):
+    """Twelve scalar packs whose pass slopes are steep, flat, exactly 0 or
+    next to 0, with random cross terms and far offsets."""
+    b = 12
+    sc = np.zeros((b, 8), np.float32)
+    slopes = [1.0, -1.0, 1e-7, 0.013, 0.4, 3.7, -2.2, 1.3, 0.0, 40.0,
+              -0.7, 1.0]
+    for i in range(b):
+        a1 = slopes[i]
+        e2 = slopes[(i + 5) % b] or 1e-6
+        sc[i] = (a1, rng.uniform(-1, 1), rng.uniform(-2 * n, 2 * n),
+                 max(abs(a1), 1.0), rng.uniform(-1, 1), e2,
+                 rng.uniform(-2 * n, 2 * n), max(abs(e2), 1.0))
+    return torch.from_numpy(sc).cuda()
+
+
+def check_warp():
+    """W with its own band and every forced band (ragged last bands, one
+    band wider than N) at awkward N and C, twice for equal bits."""
+    rng = np.random.RandomState(1)
+    worst = 0.0
+    for n, c in ((67, 5), (128, 3), (8, 1), (33, 11)):
+        sc_t = stress_pack(rng, n)
+        x = torch.from_numpy(rng.randn(len(sc_t), n, n, c)
+                             .astype(np.float32)).cuda()
+        want = tw.warp_twopass_plain(x, sc_t)
+        for band in (0, 1, 2, 3, 5, 8, 16, 32, 64, 128):
+            got = tw._launch(x, sc_t, False, band=band)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if bool((err > 2e-5 * want.abs() + 2e-5).any()):
+                bad = err.amax(dim=(1, 2, 3)).tolist()
+                raise RuntimeError(f"W n={n} c={c} band={band}: max err per "
+                                   f"sample {bad}")
+            if not torch.equal(got, tw._launch(x, sc_t, False, band=band)):
+                raise RuntimeError(f"W n={n} c={c} band={band}: two calls "
+                                   f"differ")
+            worst = max(worst, err.max().item())
+    print(f"[check] warp_twopass: every band within tolerance and bit-stable "
+          f"(max abs err {worst:.3e})", flush=True)
+
+
 def check_warp_t():
     rng = np.random.RandomState(0)
     worst = 0.0
     for n, c in ((67, 5), (128, 3), (8, 1)):
-        b = 12
-        sc = np.zeros((b, 8), np.float32)
-        slopes = [1.0, -1.0, 1e-7, 0.013, 0.4, 3.7, -2.2, 1.3, 0.0, 40.0,
-                  -0.7, 1.0]
-        for i in range(b):
-            a1 = slopes[i]
-            e2 = slopes[(i + 5) % b] or 1e-6
-            sc[i] = (a1, rng.uniform(-1, 1), rng.uniform(-2 * n, 2 * n),
-                     max(abs(a1), 1.0), rng.uniform(-1, 1), e2,
-                     rng.uniform(-2 * n, 2 * n), max(abs(e2), 1.0))
-        sc_t = torch.from_numpy(sc).cuda()
+        sc_t = stress_pack(rng, n)
+        b = len(sc_t)
         g = torch.from_numpy(rng.randn(b, n, n, c).astype(np.float32)).cuda()
         got = tw.warp_twopass_t(g, sc_t)
         torch.cuda.synchronize()
@@ -154,42 +191,83 @@ def sweep_fir():
     return rows
 
 
-def time_warp():
-    from brushstroke_engine_torch.train import augment as taug
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    cfg = taug.AugmentConfig.from_spec("bgc")
-    rows = []
-    for b, n in ((64, 128), (8, 64)):
-        draws = taug.draw_augment(cfg, gen, b, (n, n, 3), "cuda")
-        mat = torch.linalg.inv_ex(taug.geometric_matrix(
-            cfg, draws, b, n, n, torch.tensor(1.0, device="cuda"))).inverse
-        x = torch.randn((b, n, n, 3), generator=gen, device="cuda")
-        imgs, sc = taug._twopass_prep(x, mat, True)
-        imgs, sc = imgs.contiguous(), sc.contiguous()
-        row = {"shape": [b, n, n, 3],
-               "w_ms": cuda_ms(lambda: tw.warp_twopass(imgs, sc), 50),
-               "wt_ms": cuda_ms(lambda: tw.warp_twopass_t(imgs, sc), 50),
-               "bound_ms": (2 * imgs.numel() + sc.numel()) * 4
-               / HBM_BYTES_PER_S * 1e3}
-        # Device time of each launch (the event times above include the
-        # wrapper's host cost where the kernels are short).
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                tw.warp_twopass(imgs, sc)
-                tw.warp_twopass_t(imgs, sc)
-            torch.cuda.synchronize()
-        per_kernel = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and "resample" in e.name:
-                key = e.name[e.name.index("resample"):][:40]
+def device_us(fn, reps=20):
+    """Mean device time (us) of each warp kernel that ``reps`` calls of
+    ``fn`` launch, by kernel name, from the profiler (event times include
+    the wrapper's host cost where the kernels are short)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for mark in ("warp_fused", "resample_gather"):
+            if mark in e.name:
+                key = e.name[e.name.index(mark):][:40]
                 per_kernel.setdefault(key, []).append(
                     e.time_range.elapsed_us())
-        row["device_us"] = {k: sum(v) / len(v) for k, v in per_kernel.items()}
+    return {k: sum(v) / len(v) for k, v in per_kernel.items()}
+
+
+def ada_case(b, n, seed=2):
+    """``[b, n, n, 3]`` images and the scalar packs of the ADA 'bgc'
+    matrices at p = 1, antialias, as the trainer warps them."""
+    from brushstroke_engine_torch.train import augment as taug
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = taug.AugmentConfig.from_spec("bgc")
+    draws = taug.draw_augment(cfg, gen, b, (n, n, 3), "cuda")
+    mat = torch.linalg.inv_ex(taug.geometric_matrix(
+        cfg, draws, b, n, n, torch.tensor(1.0, device="cuda"))).inverse
+    x = torch.randn((b, n, n, 3), generator=gen, device="cuda")
+    imgs, sc = taug._twopass_prep(x, mat, True)
+    return imgs.contiguous(), sc.contiguous()
+
+
+def warp_bound_ms(imgs, sc):
+    return (2 * imgs.numel() + sc.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def time_warp():
+    rows = []
+    for b, n in ((64, 128), (8, 64)):
+        imgs, sc = ada_case(b, n)
+        row = {"shape": [b, n, n, 3], "band": tw.warp_band(b, n, 3),
+               "w_ms": cuda_ms(lambda: tw.warp_twopass(imgs, sc), 50),
+               "wt_ms": cuda_ms(lambda: tw.warp_twopass_t(imgs, sc), 50),
+               "bound_ms": warp_bound_ms(imgs, sc),
+               "device_us": {**device_us(lambda: tw.warp_twopass(imgs, sc)),
+                             **device_us(
+                                 lambda: tw.warp_twopass_t(imgs, sc))}}
         rows.append(row)
         print("[warp] " + json.dumps(row), flush=True)
+    return rows
+
+
+def sweep_warp():
+    """W's device time per column band at the trainer's shape and the small
+    one, beside the band the kernel picks."""
+    rows = []
+    for b, n in ((64, 128), (8, 64)):
+        imgs, sc = ada_case(b, n)
+        times = {}
+        for band in (1, 2, 4, 8, 16, 32, 64, 128):
+            if band <= n:
+                us = device_us(lambda: tw._launch(imgs, sc, False, band=band))
+                times[band] = sum(us.values())
+        auto = tw.warp_band(b, n, 3)
+        best = min(times, key=times.get)
+        row = {"shape": [b, n, n, 3],
+               "bound_us": warp_bound_ms(imgs, sc) * 1e3, "auto_band": auto, "auto_us": times.get(auto),
+               "best_band": best, "best_us": times[best], "bands_us": times}
+        rows.append(row)
+        print("[warp-sweep] " + json.dumps(row), flush=True)
     return rows
 
 
@@ -211,13 +289,15 @@ def main(argv=None):
                     or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()[:160]}")
     check_fir()
+    check_warp()
     check_warp_t()
     warp_rows = time_warp()
+    band_rows = [] if args.check_only else sweep_warp()
     rows = [] if args.check_only else sweep_fir()
     os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, "tune_kernels.json"), "w") as f:
-        json.dump({"card": card, "warp": warp_rows, "fir4_epilogue": rows},
-                  f, indent=1)
+        json.dump({"card": card, "warp": warp_rows, "warp_bands": band_rows,
+                   "fir4_epilogue": rows}, f, indent=1)
 
 
 if __name__ == "__main__":

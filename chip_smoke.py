@@ -23,11 +23,13 @@ Phases, in order; any failure exits non-zero:
    at the 64-px and 128-px training shapes, and one double backward.
 5. The ADA two-pass warp kernels W and W^T against their plain versions:
    the five transform classes and 64 matrices of the ADA pipe at p = 1, at
-   [64,128,128,3] and [8,64,64,3], antialias on and off, values, the
-   second-order (R1) pattern and the adjoint identity, with times.  Then
-   W^T's source walk under stress: pass slopes of 0 and near 0, a quarter
+   [64,128,128,3] and [8,64,64,3], antialias on and off, values, two calls
+   bit-equal, the second-order (R1) pattern and the adjoint identity, with
+   times.  Then both under stress: pass slopes of 0 and near 0, a quarter
    turn, a translation, flips, a strong zoom-out and zoom-in, a
-   near-singular shear, at N = 67 (C = 5) and N = 128.
+   near-singular shear, at N = 67 (C = 5; no multiple of W's column band),
+   N = 128 and N = 33 (C = 11: two channel chunks).  Prints the column band
+   W picks at each shape.
 6. The render path: the 256-px flagship (random weights from a seed, through
    ``init_native_params`` -> ``params_from_jax``) renders through
    ``TriadGanPaintEngine.render_stroke`` (z style, canvas position, UVS
@@ -415,17 +417,24 @@ def _stress_mats():
                                for m in ms.values()])
 
 
+# Stress shapes (N, C) of the warp kernels at B = 8: N = 67 is no multiple
+# of the column band W picks there, C = 11 takes two channel chunks.
+WARP_STRESS_SHAPES = ((67, 5), (128, 3), (33, 11))
+
+
 def _warp_stress(tw, taug, gen, worst):
-    """W^T against its plain version, twice for equal bits, and against W by
-    the adjoint identity, on the stress matrices and on scalar packs whose
-    pass slopes are exactly 0 and next to 0 (which no matrix reaches through
-    the prep).  Returns the number of cases."""
+    """W and W^T against their plain versions, each twice for equal bits,
+    and against each other by the adjoint identity, on the stress matrices
+    and on scalar packs whose pass slopes are exactly 0 and next to 0 (which
+    no matrix reaches through the prep).  Returns the number of cases."""
     import torch
     names, mats = _stress_mats()
     mats = torch.from_numpy(mats).to("cuda")
     n_cases = 0
-    for n, c in ((67, 5), (128, 3)):
-        b = len(names)
+    b = len(names)
+    check(any(n % tw.warp_band(b, n, c) for n, c in WARP_STRESS_SHAPES),
+          "no stress shape leaves W a ragged last column band")
+    for n, c in WARP_STRESS_SHAPES:
         for antialias in (True, False):
             x = torch.randn((b, n, n, c), generator=gen, device="cuda")
             g = torch.randn((b, n, n, c), generator=gen, device="cuda")
@@ -452,10 +461,22 @@ def _warp_stress(tw, taug, gen, worst):
                 check(torch.equal(wtg, tw.warp_twopass_t(g, scal)),
                       f"W^T is not deterministic, {tag}")
                 wx = tw.warp_twopass(im, scal)
+                torch.cuda.synchronize()
+                px = tw.warp_twopass_plain(im, scal)
+                err_w = (wx - px).abs()
+                per_sample = err_w.amax(dim=(1, 2, 3)).tolist()
+                check(not bool((err_w > WARP_FWD_TOL * px.abs()
+                                + WARP_FWD_TOL).any()),
+                      f"W != plain, {tag}: max err per sample "
+                      f"{dict(zip(names, per_sample))}")
+                check(torch.equal(wx, tw.warp_twopass(im, scal)),
+                      f"W is not deterministic, {tag}")
                 lhs, rhs = (wx * g).sum().item(), (im * wtg).sum().item()
                 adj = abs(lhs - rhs) / max(abs(lhs), 1.0)
                 check(adj <= WARP_ADJ_RTOL,
                       f"<Wx,g> {lhs} != <x,W^T g> {rhs}, {tag}")
+                worst["w_stress"] = max(worst["w_stress"],
+                                        err_w.max().item())
                 worst["wt_stress"] = max(worst["wt_stress"], err.max().item())
                 worst["adjoint"] = max(worst["adjoint"], adj)
                 n_cases += b
@@ -471,8 +492,8 @@ def phase_warp_vs_plain():
     cfg = taug.AugmentConfig.from_spec("bgc")
     one = torch.tensor(1.0, device="cuda")
     rows = []
-    worst = {"w": 0.0, "wt": 0.0, "wt_stress": 0.0, "second": 0.0,
-             "adjoint": 0.0}
+    worst = {"w": 0.0, "wt": 0.0, "w_stress": 0.0, "wt_stress": 0.0,
+             "second": 0.0, "adjoint": 0.0}
 
     def second_order(fn, x, g):
         xr = x.clone().requires_grad_(True)
@@ -511,6 +532,8 @@ def phase_warp_vs_plain():
                                 + WARP_GRAD_TOL).any()),
                       f"W^T != plain, {tag}: max err "
                       f"{err_t.max().item():.3e}")
+                check(torch.equal(wx, tw.warp_twopass(imgs, sc)),
+                      f"W is not deterministic, {tag}")
                 check(torch.equal(wtg, tw.warp_twopass_t(g, sc)),
                       f"W^T is not deterministic, {tag}")
                 lhs, rhs = (wx * g).sum().item(), (imgs * wtg).sum().item()
@@ -572,8 +595,14 @@ def phase_warp_vs_plain():
                 rows.append(row)
                 print("[warp] " + json.dumps(row), flush=True)
     n_stress = _warp_stress(tw, taug, gen, worst)
-    print(f"[warp] {n_stress} W^T stress cases within tolerance and "
-          f"bit-stable, max abs err {worst['wt_stress']:.3e}", flush=True)
+    print(f"[warp] {n_stress} W and W^T stress cases within tolerance and "
+          f"bit-stable, max abs err W {worst['w_stress']:.3e}, W^T "
+          f"{worst['wt_stress']:.3e}", flush=True)
+    shapes = [(TRAIN_BATCH, TRAIN_RES, 3), (8, TRAIN_RES, 3), (8, 64, 3)] \
+        + [(len(_stress_mats()[0]), n, c) for n, c in WARP_STRESS_SHAPES]
+    print("[warp] W column band per shape: " + json.dumps(
+        {f"[{b},{n},{n},{c}]": tw.warp_band(b, n, c) for b, n, c in shapes}),
+        flush=True)
     print(f"[warp] all {len(rows)} cases within tolerance: W max abs err "
           f"{worst['w']:.3e}, W^T {worst['wt']:.3e}, second-order rel "
           f"{worst['second']:.3e}, adjoint rel {worst['adjoint']:.3e}",

@@ -288,16 +288,10 @@ _STRESS = {
 }
 
 
-@pytest.mark.parametrize("flat", [False, True])
-@pytest.mark.parametrize("antialias", [True, False])
-@pytest.mark.parametrize("n,c", [(67, 5), (128, 3), (8, 1), (40, 11)])
-def test_warp_transpose_source_walk_under_stress(n, c, antialias, flat):
-    """W^T where its interval walk is hardest: a quarter turn, a far
-    translation, flips, a strong zoom-out and zoom-in, a near-singular
-    shear; with ``flat`` pass slopes of exactly 0 and next to 0 written into
-    the scalar pack.  N = 67 and 40 are no multiple of the tile, C = 11
-    takes two channel chunks."""
-    rng = np.random.RandomState(14)
+def _stress_case(seed, n, c, antialias, flat):
+    """Images, a cotangent and the scalar packs of the stress matrices; with
+    ``flat`` pass slopes of exactly 0 and next to 0 written into the pack."""
+    rng = np.random.RandomState(seed)
     mats = torch.from_numpy(np.stack([
         np.array(m + [[0, 0, 1.0]], np.float32) for m in _STRESS.values()
     ])).cuda()
@@ -313,6 +307,19 @@ def test_warp_transpose_source_walk_under_stress(n, c, antialias, flat):
                                  -1.0]).cuda()
         if antialias:
             sc[:, 3], sc[:, 7] = 1.0, 1.0
+    return imgs, g, sc
+
+
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("antialias", [True, False])
+@pytest.mark.parametrize("n,c", [(67, 5), (128, 3), (8, 1), (40, 11)])
+def test_warp_transpose_source_walk_under_stress(n, c, antialias, flat):
+    """W^T where its interval walk is hardest: a quarter turn, a far
+    translation, flips, a strong zoom-out and zoom-in, a near-singular
+    shear; with ``flat`` pass slopes of exactly 0 and next to 0 written into
+    the scalar pack.  N = 67 and 40 are no multiple of the tile, C = 11
+    takes two channel chunks."""
+    imgs, g, sc = _stress_case(14, n, c, antialias, flat)
     wtg = tw.warp_twopass_t(g, sc)
     torch.cuda.synchronize()
     torch.testing.assert_close(wtg, tw.warp_twopass_t_plain(g, sc),
@@ -321,6 +328,40 @@ def test_warp_transpose_source_walk_under_stress(n, c, antialias, flat):
     wx = tw.warp_twopass(imgs, sc)
     lhs, rhs = (wx * g).sum().item(), (imgs * wtg).sum().item()
     assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), 1.0)
+
+
+@pytest.mark.parametrize("band", [0, 1, 5, 16, 128])
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("antialias", [True, False])
+@pytest.mark.parametrize("n,c", [(67, 5), (128, 3), (8, 1), (33, 11)])
+def test_warp_forward_bands_under_stress(n, c, antialias, flat, band):
+    """The fused W on the stress matrices and flat slopes, with the kernel's
+    own band (0) and every forced one: 5 and 16 leave a ragged last band at
+    N = 67 and 33, 128 is one band (wider than N below 128), C = 11 takes
+    two channel chunks.  Two calls give equal bits."""
+    imgs, _, sc = _stress_case(16, n, c, antialias, flat)
+    before = tw.warp_twopass.launches
+    wx = tw._launch(imgs, sc, False, band=band)
+    torch.cuda.synchronize()
+    assert tw.warp_twopass.launches == before + 1
+    torch.testing.assert_close(wx, tw.warp_twopass_plain(imgs, sc),
+                               rtol=2e-5, atol=2e-5)
+    assert torch.equal(wx, tw._launch(imgs, sc, False, band=band))
+
+
+def test_warp_forward_deterministic_and_size_limit():
+    """W gives equal bits on every call at the trainer's shape; where not
+    even one column of its intermediate fits in shared memory (N = 7300 at
+    C = 8: 233,600 bytes) the launch raises and the band query says 0."""
+    x, _, sc = _warp_case(17, 64, 128, 3, True)
+    first = tw.warp_twopass(x, sc)
+    for _ in range(3):
+        assert torch.equal(first, tw.warp_twopass(x, sc))
+    assert tw.warp_band(64, 128, 3) > 0
+    assert tw.warp_band(1, 7300, 8) == 0
+    big = torch.zeros((1, 7300, 7300, 8), device="cuda")
+    with pytest.raises(RuntimeError):
+        tw.warp_twopass(big, sc[:1].contiguous())
 
 
 def test_warp_transpose_large_n_tiles():

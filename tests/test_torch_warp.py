@@ -354,3 +354,75 @@ def test_tabled_transpose_matches_plain(antialias):
     torch.testing.assert_close(_transpose_tabled(g, sc),
                                tw.warp_twopass_t_plain(g, sc), rtol=0,
                                atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# W's fused schedule (the CUDA kernel's order of work, mirrored in torch)
+# ---------------------------------------------------------------------------
+
+def _forward_banded(imgs, scalars, band):
+    """``W`` the way the fused kernel computes it, in torch (small shapes
+    only): for each band of ``band`` output columns (the last one may be
+    ragged), pass 1 fills the band's ``i1`` for every row from ``x``, then
+    pass 2 gathers its taps from that band alone.  Per pixel: the kernel's
+    tap range ``[max(0, ceil(ctr - s)), min(n - 1, floor(ctr + s))]``, the
+    taps and their weight sum accumulated in ascending order, and one
+    reciprocal normaliser."""
+    b, n, _, ch = imgs.shape
+    x = imgs.float()
+    grid = torch.arange(n, dtype=torch.float32)
+    rows, r_idx = grid[:, None], torch.arange(n)[:, None]
+    out = torch.empty_like(x)
+
+    def gather(ctr, s, fetch):
+        """``ctr [R, J]``; ``fetch(t)``: the ``[R, J, ch]`` values at tap
+        indices ``t [R, J]``."""
+        lo = torch.clamp_min(torch.ceil(ctr - s), 0.0).long()
+        hi = torch.clamp_max(torch.floor(ctr + s), n - 1.0).long()
+        inv = 1.0 / s
+        acc = torch.zeros(ctr.shape + (ch,))
+        total = torch.zeros(ctr.shape)
+        for k in range(int((hi - lo).max()) + 1):
+            t = lo + k
+            w = torch.where(t <= hi, torch.clamp_min(
+                1.0 - (t.float() - ctr).abs() * inv, 0.0), 0.0)
+            total = total + w
+            acc = acc + w[..., None] * fetch(torch.clamp_max(t, n - 1))
+        return acc * (1.0 / torch.clamp_min(total, 1e-8))[..., None]
+
+    for i in range(b):
+        a1, b1, c1, s1, d2, e2, c2, s2 = scalars[i].float()
+        for j0 in range(0, n, band):
+            cols = grid[None, j0:j0 + band]
+            j_idx = torch.arange(cols.shape[1])[None, :]
+            ctr1 = tw._reflect((b1 * rows + a1 * cols) + c1, n)     # [R, J]
+            i1 = gather(ctr1, s1, lambda t: x[i][r_idx, t])
+            ctr2 = tw._reflect((e2 * rows + d2 * cols) + c2, n)     # [I, J]
+            out[i, :, j0:j0 + band] = gather(ctr2, s2,
+                                             lambda t: i1[t, j_idx])
+    return out
+
+
+@pytest.mark.parametrize("antialias", [True, False])
+@pytest.mark.parametrize("band", [1, 5, 16, 13])
+@pytest.mark.parametrize("kind", KINDS + tuple(STRESS))
+def test_banded_forward_matches_plain_and_jax(kind, band, antialias):
+    """The fused kernel's schedule in torch at N = 13 (band 5 leaves a
+    ragged last band, 16 one band wider than the image, 13 the whole image)
+    equals ``warp_twopass_plain`` within 2e-6 -- the reciprocal normaliser
+    and the order of the tap sums are all that differ -- and the JAX
+    package's two-pass warp within 2e-5."""
+    n = 13
+    mat = _mats((kind, kind)) if kind in KINDS else np.array(
+        [STRESS[kind] + [[0, 0, 1.0]]] * 2, np.float32)
+    mat[1, 0, 2] += 1.25                       # two different samples
+    imgs = _images(30, 2, n)
+    t_imgs, sc = taug._twopass_prep(torch.from_numpy(imgs),
+                                    torch.from_numpy(mat), antialias)
+    got = _forward_banded(t_imgs, sc, band)
+    torch.testing.assert_close(got, tw.warp_twopass_plain(t_imgs, sc),
+                               rtol=0, atol=2e-6)
+    want = jaug._affine_warp_twopass(jnp.asarray(imgs), jnp.asarray(mat),
+                                     antialias)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
