@@ -105,16 +105,11 @@ def sample_radius(rng: np.random.Generator, min_radius: float = 1.0,
     return float(np.exp(rng.uniform(np.log(min_radius), np.log(max_radius))))
 
 
-def random_spline_stroke(rng: np.random.Generator, width: int = 128,
+def random_spline_points(rng: np.random.Generator, width: int = 128,
                          n_control: int = 5,
-                         radius: Optional[float] = None,
                          margin: float = 0.1) -> np.ndarray:
-    """Random centripetal Catmull-Rom stroke patch (create_splines.py analog).
-
-    Returns ``[width, width]`` float32, 1.0 = BG, 0.0 = stroke.
-    """
-    if radius is None:
-        radius = sample_radius(rng)
+    """Dense ``[M, 2]`` (y, x) points of a random centripetal Catmull-Rom
+    curve across a ``width`` box."""
     lo, hi = margin * width, (1 - margin) * width
     ctrl = rng.uniform(lo, hi, size=(n_control, 2))
     # Sort control points roughly along a random direction so strokes sweep
@@ -126,8 +121,63 @@ def random_spline_stroke(rng: np.random.Generator, width: int = 128,
     # Pad endpoints for CR tangents.
     ctrl = np.concatenate([ctrl[:1] * 2 - ctrl[1:2], ctrl,
                            ctrl[-1:] * 2 - ctrl[-2:-1]], axis=0)
-    curve = catmull_rom_spline(ctrl, samples_per_segment=24)
-    return draw_stroke(width, curve, radius)
+    return catmull_rom_spline(ctrl, samples_per_segment=24)
+
+
+def random_spline_stroke(rng: np.random.Generator, width: int = 128,
+                         n_control: int = 5,
+                         radius: Optional[float] = None,
+                         margin: float = 0.1) -> np.ndarray:
+    """Random centripetal Catmull-Rom stroke patch (create_splines.py analog).
+
+    Returns ``[width, width]`` float32, 1.0 = BG, 0.0 = stroke.
+    """
+    if radius is None:
+        radius = sample_radius(rng)
+    return draw_stroke(width, random_spline_points(rng, width, n_control,
+                                                   margin), radius)
+
+
+def draw_stroke_into(canvas: np.ndarray, pts: np.ndarray, radius: float,
+                     soft_edge: float = 1.0) -> None:
+    """Darken ``canvas`` (float32, 1.0 = background) in place with the
+    stroke :func:`draw_stroke` draws along ``pts``.  Each segment is
+    evaluated only within ``radius + soft_edge`` of itself: farther pixels
+    are background for it, so the result equals ``draw_stroke``'s at a cost
+    that grows with the stroke's length, not with the canvas."""
+    h, w = canvas.shape
+    reach = radius + soft_edge
+    pts = np.asarray(pts, np.float64)
+    for p, q in zip(pts[:-1], pts[1:]):
+        y0 = max(int(np.floor(min(p[0], q[0]) - reach)), 0)
+        y1 = min(int(np.ceil(max(p[0], q[0]) + reach)) + 1, h)
+        x0 = max(int(np.floor(min(p[1], q[1]) - reach)), 0)
+        x1 = min(int(np.ceil(max(p[1], q[1]) + reach)) + 1, w)
+        if y0 >= y1 or x0 >= x1:
+            continue
+        ys, xs = np.meshgrid(np.arange(y0, y1), np.arange(x0, x1),
+                             indexing="ij")
+        grid = np.stack([ys.ravel(), xs.ravel()], axis=1).astype(np.float64)
+        dist = _dist_to_segments(grid, np.stack([p, q]))
+        img = np.clip((dist - radius) / max(soft_edge, 1e-6), 0.0, 1.0)
+        box = canvas[y0:y1, x0:x1]
+        np.minimum(box, img.reshape(box.shape).astype(np.float32), out=box)
+
+
+def line_drawing(size: int, n_strokes: int, seed: int = 0,
+                 span: int = 256) -> np.ndarray:
+    """A synthetic line drawing for the stylize tool: ``n_strokes`` random
+    spline strokes of 2-8 px radius, each across a ``span``-wide box at a
+    random place.  Returns ``[size, size]`` float32, 1.0 = background."""
+    rng = np.random.default_rng(seed)
+    canvas = np.ones((size, size), np.float32)
+    span = min(span, size)
+    for _ in range(n_strokes):
+        offset = rng.integers(0, size - span + 1, size=2)
+        radius = rng.uniform(2.0, 8.0)
+        draw_stroke_into(canvas, random_spline_points(rng, span) + offset,
+                         radius)
+    return canvas
 
 
 def triband_from_stroke(stroke: np.ndarray, blur_sigma: float = 2.0,

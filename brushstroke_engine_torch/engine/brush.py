@@ -1,17 +1,18 @@
 """Paint engines: GAN-backed stroke renderers with user color control.
 
-Counterpart of ``brushstroke_engine_tpu/engine/brush.py`` for the triad
-engine: ``GanBrushOptions``, ``GanPaintEngine`` / ``TriadGanPaintEngine``
-with ``render_stroke``, ``render_batch``, ``random_style`` and
-``prepare_geom_input``.  The numeric path is :func:`render.render_core`;
-these classes handle uint8 <-> device conversion and brush state.  The int8
-path, the serving mesh and the canvas engine are not ported yet.
+Counterpart of ``brushstroke_engine_tpu/engine/brush.py``:
+``GanBrushOptions``, the ``PaintEngine`` interface, ``GanPaintEngine`` with
+its triad and canvas forms, ``MockPaintEngine`` and ``PaintEngineFactory``.
+The numeric path is :func:`render.render_core`; these classes handle uint8
+<-> device conversion and brush state.  The int8 path and the serving mesh
+are not ported.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict
+import pickle
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -116,7 +117,29 @@ class GanBrushOptions:
         return override, mask
 
 
-class GanPaintEngine:
+class PaintEngine:
+    """Base interface (reference brush.py:530-548)."""
+
+    # True for engines with a device render (_render_stroke_device /
+    # render_batch); PaintingHelper routes those through prepare_render and
+    # calls render_stroke for the others.
+    supports_device_render = False
+
+    def __init__(self):
+        self.patch_width = 0
+
+    def render_stroke(self, stroke_patch, canvas_patch, opts,
+                      **generator_kwargs):
+        raise NotImplementedError
+
+    def random_style(self, seed):
+        return None
+
+    def summary(self):
+        raise NotImplementedError
+
+
+class GanPaintEngine(PaintEngine):
     """GAN-backed engine core: holds the generator and frozen geometry
     encoder parameter trees on ``device`` and calls the render core.
 
@@ -125,6 +148,7 @@ class GanPaintEngine:
     raises without it; pass ``device="cpu"`` to render on the CPU.
     """
 
+    supports_device_render = True
     color_format = "triad"
 
     def __init__(self, gen_cfg: GeneratorConfig, gen_params, gen_state,
@@ -132,6 +156,7 @@ class GanPaintEngine:
                  geom_inject_resolutions=(0,),
                  gan_checkpoint: str = "", encoder_checkpoint: str = "",
                  device="cuda"):
+        super().__init__()
         self.device = resolve_device(device)
         self.gen_cfg = gen_cfg
         # Weights are moved to the device once, not per render.
@@ -242,17 +267,24 @@ class GanPaintEngine:
                             override, mask, blended_features, None,
                             return_features)
 
-    def render_stroke(self, stroke_patch, canvas_patch, opts,
-                      **generator_kwargs):
-        """uint8 W x W x 4 stroke patch -> (uint8 W x W x 4 RGBA, debug)."""
-        geom = self.prepare_geom_input(stroke_patch)
-        geom = geom.reshape(1, self.patch_width, self.patch_width, 1)
+    def _render_stroke_device(self, geom, canvas, opts, **generator_kwargs):
+        """Render on the engine's device; returns (rgba ``[B,W,W,4]`` float
+        tensor, the render-core output dict, debug image or None)."""
         out = self._run_core(
             geom, opts,
             blended_features=generator_kwargs.get("blended_features"),
             return_features=generator_kwargs.get("return_features", ()))
         debug_img = self._make_debug_image(geom, out) if opts.debug else None
-        res = out["rgba"][0].cpu().numpy()
+        return out["rgba"], out, debug_img
+
+    def render_stroke(self, stroke_patch, canvas_patch, opts,
+                      **generator_kwargs):
+        """uint8 W x W x 4 stroke patch -> (uint8 W x W x 4 RGBA, debug)."""
+        geom = self.prepare_geom_input(stroke_patch)
+        geom = geom.reshape(1, self.patch_width, self.patch_width, 1)
+        rgba, _, debug_img = self._render_stroke_device(
+            geom, canvas_patch, opts, **generator_kwargs)
+        res = rgba[0].cpu().numpy()
         res = np.clip(res * 255.0, 0, 255).astype(np.uint8)
         return np.ascontiguousarray(res), debug_img
 
@@ -281,3 +313,71 @@ class TriadGanPaintEngine(GanPaintEngine):
 
     color_format = "triad"
 
+
+class CanvasPaintEngine(GanPaintEngine):
+    """Canvas-format engine with extra 'stroke'/'canvas' render modes
+    (reference brush.py:878-1064)."""
+
+    color_format = "canvas"
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.render_modes.add("stroke")
+        self.render_modes.add("canvas")
+
+
+class MockPaintEngine(PaintEngine):
+    """Draws a red frame; lets the canvas and server stack run with no
+    checkpoint (reference brush.py:1067-1096)."""
+
+    def __init__(self, patch_width):
+        super().__init__()
+        self.patch_width = patch_width
+
+    def render_stroke(self, stroke_patch, canvas_patch, opts,
+                      **generator_kwargs):
+        result = np.copy(canvas_patch)
+        result[:3, :, 0] = 255
+        result[:3, :, -1] = 255
+        result[-3:, :, 0] = 255
+        result[-3:, :, -1] = 255
+        result[:, 0, 0] = 255
+        result[:, 0, -1] = 255
+        result[:, -3:, 0] = 255
+        result[:, -3:, -1] = 255
+        return result, None
+
+    def summary(self):
+        return "mock engine"
+
+
+class PaintEngineFactory:
+    """Build an engine from a checkpoint (reference brush.py:550-604)."""
+
+    @staticmethod
+    def create(gan_checkpoint: Optional[str],
+               encoder_checkpoint: Optional[str] = None, device="cuda"):
+        """A native bundle (``utils.checkpoint.load_native``) becomes a
+        triad or canvas engine on ``device``; ``None`` gives the mock
+        engine.  The encoder of a native bundle is inside it, so
+        ``encoder_checkpoint`` only names the reference snapshots, whose
+        conversion is not ported."""
+        resolve_device(device)
+        if gan_checkpoint is None:
+            logger.warning("Creating MockPaintEngine")
+            return MockPaintEngine(256)
+        from brushstroke_engine_torch.utils import checkpoint as ckpt
+        try:
+            bundle = ckpt.load_native(gan_checkpoint, device=device)
+        except (ValueError, pickle.UnpicklingError) as e:
+            raise NotImplementedError(
+                f"{gan_checkpoint} is not a native bundle; converting a "
+                f"reference snapshot is not ported yet") from e
+        cls = TriadGanPaintEngine if bundle.color_format == "triad" \
+            else CanvasPaintEngine
+        return cls(bundle.gen_cfg, bundle.gen_params, bundle.gen_state,
+                   bundle.enc_cfg, bundle.enc_params, bundle.enc_state,
+                   geom_inject_resolutions=bundle.geom_inject_resolutions,
+                   gan_checkpoint=gan_checkpoint,
+                   encoder_checkpoint=encoder_checkpoint or "",
+                   device=device)

@@ -1,6 +1,6 @@
-"""Per-style background-clarity ("UVS") mapping.
+"""Per-style background-clarity ("UVS") mapping, brush icons and color chips.
 
-Counterpart of ``StyleUVSMapper.get_sfactor`` in
+Counterpart of ``StyleUVSMapper`` in
 ``brushstroke_engine_tpu/engine/mapper.py``: for a style, render 5 curated
 medium-thickness geometry patches, take the 15th-largest background S over
 known-background pixels (from the thick variants), and derive
@@ -12,13 +12,14 @@ from __future__ import annotations
 
 import logging
 
+import numpy as np
 import torch
 
 from brushstroke_engine_torch.data.curated_geometry import (
     curated_geometry_batch, MAPPER_SHAPES, MAPPER_MED_RADIUS,
     MAPPER_THICK_RADIUS,
 )
-from brushstroke_engine_torch.engine.render import sfactor_core
+from brushstroke_engine_torch.engine.render import map_uvs_s, sfactor_core
 
 logger = logging.getLogger(__name__)
 
@@ -63,3 +64,37 @@ class StyleUVSMapper:
             first_row(brush_opts.style_z), first_row(brush_opts.style_ws)))
         self.sfactors[style_id] = sfactor
         return sfactor
+
+    def map_style(self, brush_opts, uvs, colors):
+        """Host-side remap (the render core usually does this itself)."""
+        sfactor = self.get_sfactor(brush_opts)
+        uvs = torch.as_tensor(np.asarray(uvs, np.float32))
+        return map_uvs_s(uvs, sfactor).numpy(), colors
+
+    # ----- icons / color chips (reference mapper.py:96-115) -----
+
+    def _render_single(self, brush_opts):
+        if self._geom_med is None:
+            self._init_geometry()
+        return self.engine._run_core(self._geom_med[:1], brush_opts)
+
+    def get_colors_raw(self, brush_opts) -> np.ndarray:
+        out = self._render_single(brush_opts)
+        # The render core's colors are already in [0, 1].
+        return out["colors"].cpu().numpy() * 2.0 - 1.0
+
+    def get_colors(self, brush_opts) -> str:
+        colors = ((self.get_colors_raw(brush_opts)[0] / 2 + 0.5) * 255)
+        colors = colors.astype(np.uint8)
+        return ":".join(
+            "rgb(%s)" % ",".join(str(int(x)) for x in colors[..., i])
+            for i in range(3))
+
+    def get_brush_icon(self, brush_opts, on_white: bool = True) -> np.ndarray:
+        logger.info(f"Rendering icon for style {brush_opts.style_id}")
+        out = self._render_single(brush_opts)
+        render = out["raw_img"][0].cpu().numpy()     # [W, W, 3] in [-1, 1]
+        if on_white:
+            s = out["uvs"][0, ..., 2:3].cpu().numpy()
+            render = render * (1 - s) + s
+        return np.clip((render / 2 + 0.5) * 255, 0, 255).astype(np.uint8)

@@ -72,11 +72,9 @@ def render_core(gen_cfg: GeneratorConfig, enc_cfg: GeoEncoderConfig,
 
     Returns:
       dict with 'rgba' ``[B, W, W, 4]`` in [0,1], 'uvs', 'colors',
-      'raw_img', and any 'features{res}' requested.
+      'raw_img', 'alpha_fg' and 'canvas' (canvas format), and any
+      'features{res}' requested.
     """
-    if color_format != "triad":
-        raise NotImplementedError(
-            f"the {color_format!r} color format is not ported yet")
     dev = resolve_device(device)
     f32 = torch.float32
     geom = _as_tensor(geom, dev, f32)
@@ -109,18 +107,42 @@ def render_core(gen_cfg: GeneratorConfig, enc_cfg: GeoEncoderConfig,
             + (1.0 - mask) * colors
 
     stroke = torch.einsum("bhwk,bck->bhwc", uvs, colors)
-    if render_mode == "clear":
-        alpha = uvs[..., 0:2].sum(dim=-1, keepdim=True)
-    elif render_mode == "full":
-        alpha = torch.ones_like(stroke[..., :1])
+    ones = torch.ones_like(stroke[..., :1])
+    if color_format == "triad":
+        if render_mode == "clear":
+            alpha = uvs[..., 0:2].sum(dim=-1, keepdim=True)
+        elif render_mode == "full":
+            alpha = ones
+        else:
+            raise ValueError(
+                f"triad engine: unknown render mode {render_mode}")
+        rgba = torch.cat([stroke, alpha], dim=-1)
     else:
-        raise ValueError(f"triad engine: unknown render mode {render_mode}")
-    rgba = torch.cat([stroke, alpha], dim=-1)
+        # The canvas head (reference brush.py:905-947): its own alpha and a
+        # generated canvas color in [-1, 1].
+        alpha_fg = debug["alpha_fg"]
+        gen_canvas = debug["canvas"]
+        if render_mode == "clear":
+            rgba = torch.cat([stroke, alpha_fg], dim=-1)
+        elif render_mode == "stroke":
+            rgba = torch.cat([stroke, ones], dim=-1)
+        elif render_mode == "canvas":
+            rgba = torch.cat([(gen_canvas + 1.0) / 2.0, ones], dim=-1)
+        elif render_mode == "full":
+            comp = (1 - alpha_fg) * (gen_canvas + 1.0) / 2.0 \
+                + alpha_fg * stroke
+            rgba = torch.cat([comp, ones], dim=-1)
+        else:
+            raise ValueError(
+                f"canvas engine: unknown render mode {render_mode}")
 
     out = {"rgba": rgba, "uvs": uvs, "colors": colors, "raw_img": img}
     for r in return_features:
         out[f"features{r}"] = debug[f"features{r}"]
         out[f"features{r}_preblend"] = debug[f"features{r}_preblend"]
+    for k in ("alpha_fg", "canvas"):
+        if k in debug:
+            out[k] = debug[k]
     return out
 
 

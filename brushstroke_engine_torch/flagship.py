@@ -1,7 +1,8 @@
 """Flagship model configuration: the canonical NeuBE brush engine.
 
 The port's copy of the configs of ``brushstroke_engine_tpu/flagship.py``:
-z = w = 64, channel_base 16384, channel_max 128, the color-triad head, the
+z = w = 64, channel_base 16384, channel_max 128, the color-triad head (or
+the canvas head of ``CanvasPaintEngine``), the
 default 'sauto' geometry encoder, geometry injected at encoder resolutions
 (0, 1).  256 px is the high-resolution painting engine; 128 px at batch 64
 is the canonical training configuration (:func:`flagship_train_config`).
@@ -11,7 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from brushstroke_engine_torch.engine.brush import TriadGanPaintEngine
+from brushstroke_engine_torch.engine.brush import (
+    CanvasPaintEngine, TriadGanPaintEngine,
+)
 from brushstroke_engine_torch.models.generator import (
     GeneratorConfig, make_generator_config,
 )
@@ -34,7 +37,8 @@ def flagship_encoder_config() -> GeoEncoderConfig:
 
 def flagship_generator_config(img_resolution: int = 128,
                               inject_res=(0, 1),
-                              num_bf16_res: int = 0) -> GeneratorConfig:
+                              num_bf16_res: int = 0,
+                              color_format: str = "triad") -> GeneratorConfig:
     enc = flagship_encoder_config()
     geom_res = tuple(enc.featuremap_resolution(img_resolution, r)
                      for r in inject_res)
@@ -42,19 +46,20 @@ def flagship_generator_config(img_resolution: int = 128,
     return make_generator_config(
         z_dim=64, w_dim=64, img_resolution=img_resolution,
         geom_feature_resolutions=geom_res, geom_feature_channels=geom_ch,
-        color_format="triad", channel_base=16384, channel_max=128,
+        color_format=color_format, channel_base=16384, channel_max=128,
         num_bf16_res=num_bf16_res)
 
 
 def flagship_trees(img_resolution: int = 256, seed: int = 0,
-                   noise_strength: float = 0.0):
+                   noise_strength: float = 0.0, color_format: str = "triad"):
     """Random flagship weights in the JAX layout (``init_native_params``).
 
     Init leaves every ``noise_strength`` at 0; a non-zero value makes the
     constant noise count in the render, as it does in a trained model.
     """
-    trees = init_native_params(flagship_generator_config(img_resolution),
-                               flagship_encoder_config(), seed=seed)
+    trees = init_native_params(
+        flagship_generator_config(img_resolution, color_format=color_format),
+        flagship_encoder_config(), seed=seed)
     _set_noise_strength(trees, noise_strength)
     return trees
 
@@ -67,12 +72,15 @@ def _set_noise_strength(trees, noise_strength: float):
 
 
 def flagship_engine(trees, img_resolution: int = 256, num_bf16_res: int = 0,
-                    device="cuda") -> TriadGanPaintEngine:
-    """Triad engine over JAX-layout ``trees``, through ``params_from_jax``
-    as a loaded bundle would be."""
+                    device="cuda", color_format: str = "triad"):
+    """Triad (or canvas-format) engine over JAX-layout ``trees``, through
+    ``params_from_jax`` as a loaded bundle would be."""
     t = {k: params_from_jax(v) for k, v in trees.items()}
-    return TriadGanPaintEngine(
-        flagship_generator_config(img_resolution, (0, 1), num_bf16_res),
+    cls = TriadGanPaintEngine if color_format == "triad" \
+        else CanvasPaintEngine
+    return cls(
+        flagship_generator_config(img_resolution, (0, 1), num_bf16_res,
+                                  color_format),
         t["gen_params"], t["gen_state"], flagship_encoder_config(),
         t["enc_params"], t["enc_state"], geom_inject_resolutions=(0, 1),
         device=device)

@@ -11,9 +11,9 @@ FIR-epilogue kernel (through :func:`modulated_conv2d`).
 
 Carried over: geometry feature injection, position-wrapped constant noise,
 random per-layer noise (training), per-style noise-buffer overrides,
-``return_features`` and ``blended_features``, ``force_fp32`` and the
-color-triad head.  The 'orig' and 'canvas'
-heads and positional-encoding injection are not ported yet and raise
+``return_features`` and ``blended_features``, ``force_fp32``, the
+color-triad and 'canvas' heads and ``color_w_channels``.  The 'orig' head
+and positional-encoding injection are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -104,6 +104,10 @@ class SynthesisConfig:
         return n + 1  # +1 for the (last) torgb w.
 
     @property
+    def torgb_extra_channels(self) -> int:
+        return 5 if self.color_format == "canvas" else 0
+
+    @property
     def resample_filter(self):
         return setup_filter(list(self.resample_taps))
 
@@ -146,16 +150,27 @@ def _synthesis_layer_apply(cfg: SynthesisConfig, params, x, w, *,
 
 
 def _torgb_apply(cfg: SynthesisConfig, params, x, w):
-    """Color-triad head (ToRGBColorTriadLayer). Returns (img, debug_data)."""
-    if cfg.color_format != "triad" or cfg.color_w_channels > 0:
-        raise NotImplementedError(
-            f"the {cfg.color_format!r} output head with color_w_channels="
-            f"{cfg.color_w_channels} is not ported yet")
+    """Color-triad head (ToRGBColorTriadLayer) and its 'canvas' form.
+    Returns (img, debug_data).
+
+    Colors come from the style affine (9 extra outputs) or, with
+    ``color_w_channels > 0``, from a separate ``color_affine`` of the first
+    ``color_w_channels`` entries of w.  The 'canvas' head has 5 more output
+    channels: a canvas color (3-5) and a two-way alpha softmax (6-7) that
+    mixes stroke and canvas."""
+    if cfg.color_format == "orig":
+        raise NotImplementedError("the 'orig' output head is not ported yet")
     in_ch = params["weight"].shape[1]
     weight_gain = 1.0 / math.sqrt(in_ch)  # 1x1 kernel
-    scaled = fc_apply(params["affine"], w.float())
-    colors = scaled[:, 0:9]
-    styles = scaled[:, 9:] * weight_gain
+    w32 = w.float()
+    if cfg.color_w_channels > 0:
+        styles = fc_apply(params["affine"], w32) * weight_gain
+        colors = fc_apply(params["color_affine"],
+                          w32[..., :cfg.color_w_channels])
+    else:
+        scaled = fc_apply(params["affine"], w32)
+        colors = scaled[:, 0:9]
+        styles = scaled[:, 9:] * weight_gain
 
     colors = bias_act(colors, params["color_bias"], dim=-1, act="tanh")
     colors = colors.reshape(-1, 3, 3)  # [B, rgb, (u,v,s)]
@@ -165,9 +180,15 @@ def _torgb_apply(cfg: SynthesisConfig, params, x, w):
     x = x.float()
 
     uvs = torch.softmax(x[..., :3], dim=-1)          # [B, H, W, 3]
+    debug = {"colors": colors, "uvs": uvs}
     # stroke[b,h,w,c] = sum_k uvs[b,h,w,k] * colors[b,c,k]
     stroke = torch.einsum("bhwk,bck->bhwc", uvs, colors)
-    return stroke, {"colors": colors, "uvs": uvs}
+    if cfg.color_format == "triad":
+        return stroke, debug
+    canvas = x[..., 3:6]
+    alpha = torch.softmax(x[..., 6:8], dim=-1)
+    debug.update(canvas=canvas, alpha_fg=alpha[..., :1], alpha=alpha)
+    return alpha[..., :1] * stroke + alpha[..., 1:] * canvas, debug
 
 
 def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
@@ -261,8 +282,8 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
             random_noise=random_noise.get(f"b{res}.conv1"))
         w_i += 1
 
-        # The triad head needs the 'orig' trunk, so only the last block has
-        # a torgb and no lower-resolution image is carried up.
+        # The triad and canvas heads need the 'orig' trunk, so only the last
+        # block has a torgb and no lower-resolution image is carried up.
         if cfg.block_has_torgb(res):
             img, tdebug = _torgb_apply(cfg, bp["torgb"], x, cur_ws[:, -1])
             debug.update(tdebug)

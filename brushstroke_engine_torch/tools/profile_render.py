@@ -4,12 +4,17 @@ Traces the 256-px flagship render with ``torch.profiler`` (CPU and CUDA
 activities) in three configurations -- ``render_stroke`` (B=1, strict f32,
 UVS mapping on), ``render_batch`` B=16 strict f32, ``render_batch`` B=16
 with bf16 blocks in 'fast' mode -- and prints, per configuration, the wall
-time per call, the device's busy time and idle share, and the kernels that
-take the most device time.  The full tables go to
+time per call, the device's busy time and idle share, K1's share and the
+kernels that take the most device time.  With ``--canvas`` it traces the
+paint path instead (strict f32): one blended ``PaintingHelper`` stroke and
+one ``DevicePaintSession`` stroke on a 1024-px canvas at blending level 2,
+and the 2048-px stylize of ``chip_smoke.py`` through
+``stylize_image_batched`` (B=16: 7 wave chunks) and
+``stylize_image_ondevice`` (B=32: 4).  The full tables go to
 ``<out_dir>/profile_<config>.txt`` (default ``build/profile``).
 
     python3 -m brushstroke_engine_torch.tools.profile_render [--iters N]
-        [--out_dir DIR]
+        [--out_dir DIR] [--canvas]
 
 Needs a CUDA device; weights are random, from a seed.
 """
@@ -79,13 +84,15 @@ def trace(name, fn, iters, out_dir):
                  "share": us / 1e3 / iters / busy_ms,
                  "launches_per_call": n / iters} for k, (us, n) in items]
 
+    own = rows([kv for kv in ranked if "fir4_epilogue" in kv[0]])
     result = {"config": name, "iters": iters, "wall_ms": wall_ms,
               "device_busy_ms": busy_ms,
               "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+              "k1_ms": sum(r["ms_per_call"] for r in own),
+              "k1_share": sum(r["share"] for r in own),
               "top_kernels": rows(ranked[:15]),
               # The port's own kernel, every instantiation the call launched.
-              "own_kernels": rows([kv for kv in ranked
-                                   if "fir4_epilogue" in kv[0]])}
+              "own_kernels": own}
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
@@ -94,14 +101,69 @@ def trace(name, fn, iters, out_dir):
     return result
 
 
+def trace_canvas(trees, iters, out_dir):
+    """The paint path: a blended stroke through each canvas, and the
+    2048-px stylize through the two wave renderers."""
+    from brushstroke_engine_torch.data.curves import line_drawing
+    from brushstroke_engine_torch.engine.canvas import PaintingHelper
+    from brushstroke_engine_torch.engine.device_canvas import \
+        DevicePaintSession
+    from brushstroke_engine_torch.engine.stylize import (
+        stylize_image_batched, stylize_image_ondevice,
+    )
+    engine = flagship_engine(trees, RES, 0, "cuda")
+    patch = _patch()
+    canvas, step = 1024, 48
+    helper = PaintingHelper(engine, style_seed=0)
+    helper.make_new_canvas(canvas, canvas, feature_blending=2)
+    session = DevicePaintSession(engine, canvas, canvas,
+                                 feature_blending_level=2, crop_margin=10)
+    opts = _opts(engine, 0, False)
+    calls = {"helper": 0, "session": 0}
+
+    def position(key):
+        # Overlapping strokes along a diagonal, so each blends with the last.
+        i = calls[key] = calls[key] + 1
+        return (i * step) % (canvas - RES), (i * step // 2) % (canvas - RES)
+
+    def helper_stroke():
+        x, y = position("helper")
+        opts.set_position(x, y)
+        helper.render_stroke(patch, None, opts,
+                             meta={"x": x, "y": y, "crop_margin": 10})
+
+    def session_stroke():
+        x, y = position("session")
+        session.render_stroke(patch, opts, x=x, y=y)
+
+    trace("paint_helper_stroke_f32", helper_stroke, iters, out_dir)
+    trace("device_session_stroke_f32", session_stroke, iters, out_dir)
+    drawing = line_drawing(2048, 64, 0)
+    kw = dict(overlap_margin=10, crop_margin=10, feature_blending_level=2)
+    trace("stylize_batched_2048_f32",
+          lambda: stylize_image_batched(engine, drawing,
+                                        _opts(engine, 0, False), **kw),
+          max(iters // 5, 1), out_dir)
+    trace("stylize_ondevice_2048_f32",
+          lambda: stylize_image_ondevice(engine, drawing,
+                                         _opts(engine, 0, False), **kw),
+          max(iters // 5, 1), out_dir)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--out_dir", default="build/profile")
+    p.add_argument("--canvas", action="store_true",
+                   help="trace the paint path instead of the render")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_render needs a CUDA device")
     trees = flagship_trees(RES, seed=0, noise_strength=0.1)
+    if args.canvas:
+        with precision_mode("strict"):
+            trace_canvas(trees, args.iters, args.out_dir)
+        return
     patch = _patch()
     with precision_mode("strict"):
         engine = flagship_engine(trees, RES, 0, "cuda")

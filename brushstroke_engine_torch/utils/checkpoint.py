@@ -123,6 +123,23 @@ def _randn(rng, *shape):
     return rng.randn(*shape).astype(np.float32)
 
 
+def _init_torgb(scfg: SynthesisConfig, rng, in_ch: int):
+    """The triad or canvas head; colors from the style affine or, with
+    ``color_w_channels``, from a ``color_affine`` of their own."""
+    if scfg.color_format == "orig":
+        raise NotImplementedError("the 'orig' output head is not ported yet")
+    out_ch = scfg.img_channels + scfg.torgb_extra_channels
+    cw = scfg.color_w_channels
+    p = {"affine": _fc(rng, scfg.w_dim, in_ch + (0 if cw else 9),
+                       bias_init=1.0)}
+    if cw:
+        p["color_affine"] = _fc(rng, cw, 9)
+    p.update(weight=_randn(rng, 1, 1, in_ch, out_ch),
+             bias=np.zeros((out_ch,), np.float32),
+             color_bias=np.zeros((9,), np.float32))
+    return p
+
+
 def _init_generator(cfg: GeneratorConfig, rng):
     mcfg = cfg.mapping
     feats = mcfg.features_list
@@ -148,13 +165,7 @@ def _init_generator(cfg: GeneratorConfig, rng):
         block["conv1"] = layer(out_ch, out_ch)
         noise[f"b{res}.conv1.noise_const"] = _randn(rng, res, res)
         if scfg.block_has_torgb(res):
-            if scfg.color_format != "triad" or scfg.color_w_channels:
-                raise NotImplementedError("only the plain triad head inits")
-            block["torgb"] = {
-                "affine": _fc(rng, scfg.w_dim, out_ch + 9, bias_init=1.0),
-                "weight": _randn(rng, 1, 1, out_ch, scfg.img_channels),
-                "bias": np.zeros((scfg.img_channels,), np.float32),
-                "color_bias": np.zeros((9,), np.float32)}
+            block["torgb"] = _init_torgb(scfg, rng, out_ch)
         synthesis[f"b{res}"] = block
     state = {"noise": noise, "w_avg": np.zeros((cfg.w_dim,), np.float32)}
     return {"mapping": mapping, "synthesis": synthesis}, state

@@ -1,5 +1,6 @@
-"""Numpy image helpers of the training data pipeline (the port's copy of
-what it needs from ``brushstroke_engine_tpu/utils/img_proc.py``)."""
+"""Numpy image helpers of the training data pipeline and the stylize tool
+(the port's copy of what it needs from
+``brushstroke_engine_tpu/utils/img_proc.py``)."""
 
 from __future__ import annotations
 
@@ -28,3 +29,24 @@ def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
         + img[yhi][:, xhi] * xf[None, :, None]
     out = top * (1 - yf)[:, None, None] + bot * yf[:, None, None]
     return out[..., 0] if squeeze else out
+
+
+def threshold_otsu(gray: np.ndarray, nbins: int = 256) -> float:
+    """Otsu's threshold for a [0,1] or [0,255] gray image."""
+    g = np.asarray(gray, np.float64).ravel()
+    lo, hi = float(g.min()), float(g.max())
+    if hi <= lo:
+        return lo
+    hist, edges = np.histogram(g, bins=nbins, range=(lo, hi))
+    hist = hist.astype(np.float64)
+    centers = (edges[:-1] + edges[1:]) / 2
+    w0 = np.cumsum(hist)
+    w1 = w0[-1] - w0
+    m0 = np.cumsum(hist * centers)
+    mt = m0[-1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        mu0 = m0 / w0
+        mu1 = (mt - m0) / w1
+        between = w0 * w1 * (mu0 - mu1) ** 2
+    between[~np.isfinite(between)] = -1
+    return float(centers[int(np.argmax(between))])

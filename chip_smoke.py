@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero:
    memory bound.  Then shapes off the kernel's vector path (a channel count
    that is no multiple of the 16-byte vector, H != W, ragged strips, W
    narrower than a thread's column walk), every tile forced as well as the
-   kernel's own choice; then times at the trainer's shapes (B = 64, f32).
+   kernel's own choice; then the paint path's batches (B = 1 and 32 at the
+   same six shapes, f32); then the trainer's shapes (B = 64, f32), checked
+   and timed.
 4. The FIR-epilogue kernel's backward: gradients of x, dcoefs, noise and
    bias through the kernel path against autograd through the plain version
    at the 64-px and 128-px training shapes, and one double backward.
@@ -44,7 +46,20 @@ Phases, in order; any failure exits non-zero:
    parameters, the three kernels' launch counts against the schedule, and a
    non-zero gradient at every ``conv0``; then the first Dmain, Dr1, Gmain
    and Gpl batch at B = 8 with identical draws on the card and on the CPU.
-8. Prints the kernel table as JSON, then the final JSON line.
+8. The paint path: the same flagship (strict f32) paints a 1024 x 1024 canvas
+   through ``PaintingHelper`` with feature blending at level 2 (12
+   overlapping full strokes and 4 partial patches, crop margin 10, then 30
+   timed strokes), through ``DevicePaintSession`` (30 timed strokes after
+   warm-up, the canvas on the card throughout), stylizes a 2048 x 2048
+   synthetic line drawing (81 tiles) with each of the three stylizers, and
+   renders ``CanvasPaintEngine`` (the flagship with the canvas head) in its
+   four modes and one blended stroke; checks shapes, metadata, the mask's
+   growth, finiteness and K1's launches (6 per generator pass); then the
+   same requests at a smaller size on the card and on the CPU: strokes on a
+   512 x 512 canvas, each stylizer on a 472 x 472 drawing (4 tiles; the
+   card at the default batches of 16 and 32, the CPU at 2), the canvas
+   engine's modes.
+9. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
@@ -88,6 +103,16 @@ WARP_FWD_TOL, WARP_GRAD_TOL, WARP_ADJ_RTOL = 2e-5, 2e-4, 1e-4
 # losses within 1e-4 relative (f32 sums in another order through G and D).
 TRAIN_RTOL = 1e-4
 TRAIN_RES, TRAIN_BATCH, TRAIN_BATCHES, WARM_BATCHES = 128, 64, 33, 2
+# The paint path: a 1024-px canvas blended at level 2 (res/2 = 128 px,
+# 128 channels: a 128 MiB feature canvas), crop margin 10, a 2048-px drawing
+# (padded to 2144 px: 9 x 9 tiles at stride 236); the CPU comparison at 512 px
+# and on a 472-px drawing (2 x 2 tiles), where the card runs the wave
+# stylizers at their default batches (16 and 32) and the CPU at CMP_BATCH
+# (a chunk's padding repeats its last tile, so the batch does not change the
+# image).
+PAINT_CANVAS, PAINT_LEVEL, PAINT_CROP, PAINT_TIMED = 1024, 2, 10, 30
+STYLIZE_SIZE, STYLIZE_STROKES, STYLIZE_OVERLAP = 2048, 64, 10
+CMP_CANVAS, CMP_DRAWING, CMP_BATCH = 512, 472, 2
 
 
 def fail(msg):
@@ -268,7 +293,38 @@ def phase_kernel_vs_plain():
     print(f"[fir4] {n_off} off-vector-path cases within tolerance",
           flush=True)
 
-    # Times at the trainer's shapes (B = 64, C = 128, f32, noise and clamp).
+    # The paint path's batches at the 256-px shapes: B = 1 (a helper or
+    # session stroke) and B = 32 (an on-device stylize chunk; the batched
+    # stylizer's B = 16 is the table above), f32 with one noise plane per
+    # sample and the clamp, as the render sends them.  ``dispatch`` picks the
+    # strip and block per shape, so each batch is checked on its own.
+    n_paint = 0
+    for b in (1, 32):
+        for res in syn.block_resolutions[1:]:
+            c = syn.channels(res)
+            x = torch.randn((b, res + 3, res + 3, c), generator=gen,
+                            device="cuda") * 2
+            d = torch.rand((b, c), generator=gen, device="cuda") * 0.5 + 0.7
+            noise = torch.randn((b, res, res, 1), generator=gen,
+                                device="cuda")
+            bias = torch.randn((c,), generator=gen, device="cuda")
+            got = fe.fir4_epilogue(x, f, d, noise, bias, act_gain, 256.0)
+            want = fe.fir4_epilogue_plain(x, taps, d, noise, bias, act_gain,
+                                          256.0)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            check(got.shape == (b, res, res, c) and not bool(
+                (err > F32_RTOL * want.abs() + ATOL).any()),
+                f"kernel != plain at [{b},{res},{res},{c}] f32: max err "
+                f"{err.max().item():.3e}")
+            max_err[torch.float32] = max(max_err[torch.float32],
+                                         err.max().item())
+            n_paint += 1
+    print(f"[fir4] {n_paint} paint-path cases (B = 1 and 32) within "
+          f"tolerance", flush=True)
+
+    # The trainer's shapes (B = 64, C = 128, f32, noise and clamp): checked
+    # against the plain version, then timed.
     train_rows = []
     for res in flagship_generator_config(TRAIN_RES).synthesis \
             .block_resolutions[1:]:
@@ -279,6 +335,16 @@ def phase_kernel_vs_plain():
         noise = torch.randn((TRAIN_BATCH, res, res, 1), generator=gen,
                             device="cuda")
         bias = torch.randn((c,), generator=gen, device="cuda")
+        got = fe.fir4_epilogue(x, f, d, noise, bias, act_gain, 256.0)
+        want = fe.fir4_epilogue_plain(x, taps, d, noise, bias, act_gain,
+                                      256.0)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        check(not bool((err > F32_RTOL * want.abs() + ATOL).any()),
+              f"kernel != plain at [{TRAIN_BATCH},{res},{res},{c}] f32: max "
+              f"err {err.max().item():.3e}")
+        max_err[torch.float32] = max(max_err[torch.float32], err.max().item())
+        del got, want, err
         iters = 200 if res <= 32 else 30
         k_ms = cuda_ms(lambda: fe.fir4_epilogue(
             x, f, d, noise, bias, act_gain, 256.0), iters)
@@ -1035,6 +1101,352 @@ def phase_train(style_iter, geom_iter, card):
     return train
 
 
+def _quantiles(times):
+    deciles = statistics.quantiles(times, n=10)
+    return {"p10": deciles[0], "p50": statistics.median(times),
+            "p90": deciles[-1], "n": len(times)}
+
+
+def _full_strokes(n, canvas):
+    """``n`` overlapping full-patch origins (x, y) along a diagonal, each
+    reaching canvas the earlier ones did not; even, as level 2 aligns."""
+    step, drop = RES * 3 // 16, RES * 5 // 32
+    return [((i * step) % (canvas - RES) // 2 * 2,
+             (RES // 16 + i * drop) % (canvas - RES) // 2 * 2)
+            for i in range(n)]
+
+
+def _partial_strokes(canvas):
+    """(x, y, rows, cols) of smaller-than-patch strokes in corners the full
+    strokes leave blank, the last against the right edge."""
+    return [(int(fx * canvas), int(fy * canvas), int(fh * RES),
+             int(fw * RES)) for fx, fy, fh, fw in (
+                 (0.04, 0.76, 0.375, 0.5), (0.2, 0.88, 0.25, 0.25),
+                 (0.78, 0.04, 0.47, 0.625), (1 - 0.25 * RES / canvas, 0.3,
+                                             0.31, 0.25))]
+
+
+def _paint_helper_run(engine, strokes, canvas, checked):
+    """Paint ``strokes`` ((x, y, rows, cols)) through a PaintingHelper at
+    level 2 with crop margin 10; if ``checked``, hold each stroke's shape,
+    metadata, K1 launches and mask growth.  Returns (helper, images,
+    seconds per stroke)."""
+    import numpy as np
+    from brushstroke_engine_torch.engine.canvas import PaintingHelper
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    n_up = len(engine.gen_cfg.synthesis.block_resolutions) - 1
+    helper = PaintingHelper(engine, style_seed=SEED)
+    helper.make_new_canvas(canvas, canvas, feature_blending=PAINT_LEVEL)
+    opts = helper.default_brush_options()
+    patch = _stroke_patch(RES)
+    cm = PAINT_CROP
+    images, times, covered = [], [], 0
+    for i, (x, y, h, w) in enumerate(strokes):
+        before = fir4_epilogue.launches
+        opts.set_position(x, y)
+        t0 = time.perf_counter()
+        img, _, meta = helper.render_stroke(
+            np.roll(patch, 8 * i, 1)[:h, :w], None, opts,
+            meta={"x": x, "y": y, "crop_margin": cm})
+        times.append(time.perf_counter() - t0)
+        images.append((img, meta))
+        if not checked:
+            continue
+        tag = f"stroke {i} at ({x}, {y}) {h}x{w}"
+        check(img.shape == (RES - 2 * cm, RES - 2 * cm, 4)
+              and img.dtype == np.uint8, f"{tag}: image {img.shape}")
+        gx, gy = meta["x"] - cm, meta["y"] - cm
+        if (h, w) == (RES, RES):
+            check((gx, gy) == (x, y), f"{tag}: meta {meta}")
+        check(0 <= gx <= canvas - RES and 0 <= gy <= canvas - RES
+              and gx <= x and gx + RES >= x + w and gy <= y
+              and gy + RES >= y + h, f"{tag}: window {meta} misses it")
+        check(fir4_epilogue.launches - before == n_up,
+              f"{tag}: {fir4_epilogue.launches - before} K1 launches")
+        now = int(helper.feature_canvas.mask.sum())
+        check(now > covered, f"{tag}: the feature mask did not grow")
+        covered = now
+    return helper, images, times
+
+
+def _session_run(engine, positions, canvas, checked):
+    """DevicePaintSession strokes at ``positions``; if ``checked``, hold
+    shapes, metadata, K1 launches and that the canvas stays the same CUDA
+    tensors.  Returns (session, images, seconds per stroke)."""
+    import numpy as np
+    from brushstroke_engine_torch.engine.brush import GanBrushOptions
+    from brushstroke_engine_torch.engine.device_canvas import \
+        DevicePaintSession
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    n_up = len(engine.gen_cfg.synthesis.block_resolutions) - 1
+    session = DevicePaintSession(engine, canvas, canvas,
+                                 feature_blending_level=PAINT_LEVEL,
+                                 crop_margin=PAINT_CROP)
+    ptrs = (session.canvas.features.data_ptr(),
+            session.canvas.mask.data_ptr())
+    opts = GanBrushOptions()
+    opts.set_style(engine.random_style(11), style_id=11)
+    patch = _stroke_patch(RES)
+    images, times = [], []
+    for i, (x, y) in enumerate(positions):
+        before = fir4_epilogue.launches
+        t0 = time.perf_counter()
+        img, meta = session.render_stroke(np.roll(patch, 8 * i, 0), opts,
+                                          x=x, y=y)
+        times.append(time.perf_counter() - t0)
+        images.append((img, meta))
+        if not checked:
+            continue
+        c = session.canvas
+        check(img.shape == (RES - 2 * PAINT_CROP,) * 2 + (4,)
+              and meta == {"x": x + PAINT_CROP, "y": y + PAINT_CROP},
+              f"session stroke {i}: {img.shape} {meta}")
+        check(fir4_epilogue.launches - before == n_up,
+              f"session stroke {i}: {fir4_epilogue.launches - before} K1 "
+              f"launches")
+        check(c.features.is_cuda and c.mask.is_cuda and
+              (c.features.data_ptr(), c.mask.data_ptr()) == ptrs,
+              f"session stroke {i}: the canvas left the card or was "
+              f"reallocated")
+    return session, images, times
+
+
+def _stylizers(engine, geom, batch):
+    """name -> a call of that stylizer on ``geom`` with the paint phase's
+    margins and blending; ``batch`` None = each one's default."""
+    from brushstroke_engine_torch.engine.canvas import PaintingHelper
+    from brushstroke_engine_torch.engine import stylize as st
+    kw = dict(overlap_margin=STYLIZE_OVERLAP, crop_margin=PAINT_CROP,
+              feature_blending_level=PAINT_LEVEL)
+    bkw = {} if batch is None else {"batch_size": batch}
+    return {
+        "sequential": lambda o: st.stylize_image(
+            PaintingHelper(engine, style_seed=SEED), geom, o, **kw),
+        "batched": lambda o: st.stylize_image_batched(engine, geom, o,
+                                                      **kw, **bkw),
+        "ondevice": lambda o: st.stylize_image_ondevice(engine, geom, o,
+                                                        **kw, **bkw),
+    }
+
+
+def _style_opts(engine, seed):
+    from brushstroke_engine_torch.engine.brush import GanBrushOptions
+    opts = GanBrushOptions()
+    opts.set_style(engine.random_style(seed), style_id=seed)
+    return opts
+
+
+def _u8_err(a, b):
+    return int(abs(a.astype(int) - b.astype(int)).max())
+
+
+def phase_paint(card):
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.data.curves import line_drawing
+    from brushstroke_engine_torch.engine import stylize as st
+    from brushstroke_engine_torch.flagship import (
+        flagship_engine, flagship_trees,
+    )
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+
+    set_precision_mode("strict")
+    t_phase = time.time()
+    trees = flagship_trees(RES, SEED, NOISE_STRENGTH)
+    trees_c = flagship_trees(RES, SEED, NOISE_STRENGTH, "canvas")
+    engine = _engine(0, "cuda", trees)
+    cengine = flagship_engine(trees_c, RES, 0, "cuda", "canvas")
+    n_up = len(engine.gen_cfg.synthesis.block_resolutions) - 1
+    t0 = time.perf_counter()
+    drawing = line_drawing(STYLIZE_SIZE, STYLIZE_STROKES, SEED)
+    print(f"[paint] {STYLIZE_SIZE}^2 line drawing ({STYLIZE_STROKES} strokes) "
+          f"drawn on the host in {time.perf_counter() - t0:.2f} s", flush=True)
+    padded, stride = st.pad_geometry(drawing, RES, STYLIZE_OVERLAP)
+    crops = st.generate_stitching_crops(padded.shape, RES, STYLIZE_OVERLAP,
+                                        geom=padded)
+    # Generator passes per image: one per tile, or one per chunk of the
+    # wave renderers' default batches (16 and 32).
+    chunks = {"sequential": len(crops),
+              "batched": len(st._prepare_wave_chunks(crops, stride, 16)[0]),
+              "ondevice": len(st._prepare_wave_chunks(crops, stride, 32)[0])}
+    out = {"card": card}
+
+    fir4_epilogue.launches = 0            # the paint path starts here
+    passes = 0
+    # PaintingHelper: 12 overlapping full strokes and 4 partial patches,
+    # each checked, then PAINT_TIMED strokes on a new canvas of the same
+    # size; the first of those has nothing stored to blend, so its time is
+    # left out of the quantiles.
+    full = [(x, y, RES, RES) for x, y in _full_strokes(12, PAINT_CANVAS)]
+    helper, _, _ = _paint_helper_run(
+        engine, full + _partial_strokes(PAINT_CANVAS), PAINT_CANVAS, True)
+    passes += 16
+    feats = helper.feature_canvas.features
+    check(feats.is_cuda and tuple(feats.shape) == (
+        1, PAINT_CANVAS // 2, PAINT_CANVAS // 2,
+        engine.gen_cfg.synthesis.channels(RES // 2)),
+        f"feature canvas {tuple(feats.shape)} on {feats.device}")
+    check(bool(torch.isfinite(feats).all()), "non-finite feature canvas")
+    timed = [(x, y, RES, RES) for x, y in
+             _full_strokes(PAINT_TIMED, PAINT_CANVAS)]
+    _, _, times = _paint_helper_run(engine, timed, PAINT_CANVAS, False)
+    passes += PAINT_TIMED
+    out["helper_stroke_ms"] = _quantiles([t * 1e3 for t in times[1:]])
+    out["feature_canvas_mib"] = feats.numel() * feats.element_size() / 2 ** 20
+    print(f"[paint] PaintingHelper {PAINT_CANVAS}^2 level {PAINT_LEVEL}: 16 "
+          f"strokes checked (shapes, meta, mask growth, {n_up} K1 launches "
+          f"each); feature canvas {out['feature_canvas_mib']:.0f} MiB on "
+          f"the card; blended stroke ms p10/p50/p90 "
+          f"{out['helper_stroke_ms']['p10']:.3f} / "
+          f"{out['helper_stroke_ms']['p50']:.3f} / "
+          f"{out['helper_stroke_ms']['p90']:.3f} ({card})", flush=True)
+
+    # DevicePaintSession: 3 warm-up strokes, then PAINT_TIMED.
+    positions = [(x, y) for x, y, _, _ in timed[:3] + timed]
+    session, _, times = _session_run(engine, positions, PAINT_CANVAS, True)
+    passes += len(positions)
+    check(bool(torch.isfinite(session.canvas.features).all())
+          and session.canvas.mask.sum().item() > 0, "session canvas")
+    out["session_stroke_ms"] = _quantiles([t * 1e3 for t in times[3:]])
+    print(f"[paint] DevicePaintSession {PAINT_CANVAS}^2: {len(positions)} "
+          f"strokes checked, canvas on the card throughout; stroke ms "
+          f"p10/p50/p90 {out['session_stroke_ms']['p10']:.3f} / "
+          f"{out['session_stroke_ms']['p50']:.3f} / "
+          f"{out['session_stroke_ms']['p90']:.3f} ({card})", flush=True)
+    del helper, session
+
+    # The three stylizers on the 2048-px drawing: one warm-up call each,
+    # then one timed call.
+    out["stylize"] = {"size": STYLIZE_SIZE, "padded": list(padded.shape),
+                      "tiles": len(crops), "chunks": chunks}
+    results = {}
+    for name, fn in _stylizers(engine, drawing, None).items():
+        for rep in range(2):
+            before = fir4_epilogue.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            canvas = fn(_style_opts(engine, 7))
+            sec = time.perf_counter() - t0
+            passes += chunks[name]
+            check(fir4_epilogue.launches - before == n_up * chunks[name],
+                  f"{name}: {fir4_epilogue.launches - before} K1 launches "
+                  f"for {chunks[name]} generator passes")
+        check(canvas.shape == padded.shape + (4,) and canvas.dtype == np.uint8
+              and canvas[..., 3].max() > 0, f"{name}: canvas {canvas.shape}")
+        results[name] = canvas
+        out["stylize"][name] = {"seconds": sec, "tiles_per_s": len(crops) / sec}
+        print(f"[paint] {name} stylize {STYLIZE_SIZE}^2 ({len(crops)} tiles, "
+              f"{chunks[name]} generator passes): {sec:.3f} s, "
+              f"{len(crops) / sec:.1f} tiles/s ({card})", flush=True)
+    wave_err = _u8_err(results["batched"], results["ondevice"])
+    check(wave_err <= 1, f"batched vs ondevice waves: {wave_err} LSB")
+
+    # The canvas-format engine: its four modes, then one blended stroke.
+    cpatch = _stroke_patch(RES)
+    modes = {}
+    for mode in ("clear", "stroke", "canvas", "full"):
+        cengine.set_render_mode(mode)
+        opts = _stroke_opts(cengine)
+        opts.enable_uvs_mapping = False
+        before = fir4_epilogue.launches
+        u8, _ = cengine.render_stroke(cpatch, None, opts)
+        rgba = cengine._run_core(cengine.prepare_geom_input(cpatch),
+                                 opts)["rgba"][0].cpu().numpy()
+        passes += 2
+        check(fir4_epilogue.launches - before == 2 * n_up,
+              f"canvas engine {mode}: K1 launches")
+        check(u8.shape == (RES, RES, 4) and np.isfinite(rgba).all(),
+              f"canvas engine {mode}: output {u8.shape}")
+        # The generated canvas color is the head's raw output (no tanh), so
+        # only the stroke modes stay inside [0, 1] before the uint8 clip.
+        if mode in ("clear", "stroke"):
+            check(rgba.min() >= -1e-6 and rgba.max() <= 1 + 1e-6,
+                  f"canvas engine {mode}: RGBA outside [0, 1]")
+        if mode != "clear":
+            check(bool((rgba[..., 3] == 1).all()), f"{mode}: alpha != 1")
+        modes[mode] = (u8, rgba)
+    cengine.set_render_mode("clear")
+    chelper, cimgs, _ = _paint_helper_run(
+        cengine, [(0, 0, RES, RES), (RES // 4, RES // 8, RES, RES)],
+        CMP_CANVAS, True)
+    passes += 2
+    launches = fir4_epilogue.launches     # the paint path ends here
+    check(launches == n_up * passes,
+          f"{launches} K1 launches for {passes} generator passes")
+    out.update(launches=launches, passes=passes)
+    print(f"[paint] canvas engine: 4 modes + 2 blended strokes ok; paint "
+          f"path {passes} generator passes, {launches} fir4_epilogue "
+          f"launches ({n_up} per pass)", flush=True)
+
+    # CUDA against the CPU on smaller requests.
+    t_cpu = 0.0
+    cmp = {}
+    cpu_engine = _engine(0, "cpu", trees)
+    cpu_cengine = flagship_engine(trees_c, RES, 0, "cpu", "canvas")
+    strokes = [(0, 0, RES, RES), (RES * 3 // 8, RES // 4, RES, RES),
+               (CMP_CANVAS - RES * 3 // 4, CMP_CANVAS * 5 // 8,
+                RES * 3 // 8, RES * 5 // 16)]
+    pos = [(x, y) for x, y, _, _ in strokes[:2]] + [(CMP_CANVAS - RES,) * 2]
+    runs = {}
+    for dev, eng in (("cuda", engine), ("cpu", cpu_engine)):
+        t0 = time.time()
+        h, imgs, _ = _paint_helper_run(eng, strokes, CMP_CANVAS, False)
+        s, simgs, _ = _session_run(eng, pos, CMP_CANVAS, False)
+        runs[dev] = (h.feature_canvas, imgs, s.canvas, simgs)
+        if dev == "cpu":
+            t_cpu += time.time() - t0
+    (hc, ic, sc, sic), (hp, ip, sp, sip) = runs["cuda"], runs["cpu"]
+    cmp["helper_u8"] = max(_u8_err(a[0], b[0]) for a, b in zip(ic, ip))
+    check(all(a[1] == b[1] for a, b in zip(ic, ip)), "helper meta CUDA/CPU")
+    check(bool((hc.mask == hp.mask).all()), "helper mask CUDA vs CPU")
+    cmp["helper_features"] = (hc.features.cpu() - hp.features).abs().max() \
+        .item()
+    cmp["session_u8"] = max(_u8_err(a[0], b[0]) for a, b in zip(sic, sip))
+    check(torch.equal(sc.mask.cpu(), sp.mask), "session mask CUDA vs CPU")
+    cmp["session_features"] = (sc.features.cpu() - sp.features).abs().max() \
+        .item()
+    small = line_drawing(CMP_DRAWING, 6, SEED + 1, span=CMP_DRAWING // 2)
+    for name in ("sequential", "batched", "ondevice"):
+        a = _stylizers(engine, small, None)[name](_style_opts(engine, 7))
+        t0 = time.time()
+        b = _stylizers(cpu_engine, small, CMP_BATCH)[name](
+            _style_opts(cpu_engine, 7))
+        t_cpu += time.time() - t0
+        cmp[f"stylize_{name}_u8"] = _u8_err(a, b)
+    t0 = time.time()
+    cmode_err = 0.0
+    for mode, (u8, rgba) in modes.items():
+        cpu_cengine.set_render_mode(mode)
+        opts = _stroke_opts(cpu_cengine)
+        opts.enable_uvs_mapping = False
+        ref = cpu_cengine._run_core(cpu_cengine.prepare_geom_input(cpatch),
+                                    opts)["rgba"][0].numpy()
+        cmode_err = max(cmode_err, float(abs(ref - rgba).max()))
+        ref_u8 = np.clip(ref * 255.0, 0, 255).astype(np.uint8)
+        cmp[f"canvas_{mode}_u8"] = _u8_err(u8, ref_u8)
+    cpu_cengine.set_render_mode("clear")
+    _, cpu_cimgs, _ = _paint_helper_run(
+        cpu_cengine, [(0, 0, RES, RES), (RES // 4, RES // 8, RES, RES)],
+        CMP_CANVAS, False)
+    cmp["canvas_blended_u8"] = max(_u8_err(a[0], b[0])
+                                   for a, b in zip(cimgs, cpu_cimgs))
+    t_cpu += time.time() - t0
+    cmp["canvas_rgba"] = cmode_err
+    print("[paint] CUDA vs CPU (uint8 LSB, f32 max abs): " + json.dumps(cmp),
+          flush=True)
+    for k, v in cmp.items():
+        lim = 1 if k.endswith("_u8") else RENDER_ATOL
+        check(v <= lim, f"paint CUDA vs CPU {k}: {v} > {lim}")
+    out["cuda_vs_cpu"] = cmp
+    out["cpu_seconds"] = t_cpu
+    out["seconds"] = time.time() - t_phase
+    print(f"[paint] phase {out['seconds']:.1f} s (CPU references "
+          f"{t_cpu:.1f} s)", flush=True)
+    print("[paint] " + json.dumps(out), flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     card = phase_card()
@@ -1050,6 +1462,7 @@ def main():
     warp_rows, warp_err = phase_warp_vs_plain()
     main_stats = phase_main_path()
     train = phase_train(style_iter, geom_iter, card)
+    paint = phase_paint(card)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -1060,9 +1473,10 @@ def main():
         "source": "brushstroke_engine_torch/csrc/fir4_epilogue.cu",
         "replaces": "brushstroke_engine_tpu/ops/pallas_fir.py:85",
         "launches": main_stats["launches"]
-        + train["launches"]["fir4_epilogue"],
+        + train["launches"]["fir4_epilogue"] + paint["launches"],
         "launches_render_path": main_stats["launches"],
         "launches_training_path": train["launches"]["fir4_epilogue"],
+        "launches_paint_path": paint["launches"],
         "max_abs_err": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "backward_max_rel_err": fir_bwd["worst_rel_err"],
@@ -1096,6 +1510,7 @@ def main():
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched")
     print(json.dumps({"main_path": main_stats, "training_path": train,
+                      "paint_path": paint,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,598 @@
+"""The port's paint engine against the JAX package on the CPU: the area
+algebra, the feature canvas, PaintingHelper (feature blending at levels 0,
+1 and 2, seams, partial patches, crop margins, canvas edges), the
+device-resident canvas (``_blend_alpha``, ``render_stroke_step``,
+``DevicePaintSession``), the canvas-format head and ``color_w_channels``,
+brush libraries, the mapper's icon, color and remap helpers and the engine
+factory.
+
+Tolerances: f32 outputs and feature canvases within 1e-5 abs (the same f32
+math on one CPU, sums in another order); uint8 RGBA within 1 LSB (values
+that differ by ~1e-6 can round across a step); masks, areas and output
+metadata exactly equal.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from brushstroke_engine_tpu.engine import areas as jareas
+from brushstroke_engine_tpu.engine import brush as jbrush
+from brushstroke_engine_tpu.engine import canvas as jcanvas
+from brushstroke_engine_tpu.engine import device_canvas as jdev
+from brushstroke_engine_tpu.engine import library as jlib
+from brushstroke_engine_tpu.engine.render import render_core as jrender_core
+from brushstroke_engine_tpu.ops.precision import set_precision_mode as jset
+from brushstroke_engine_tpu.utils.checkpoint import EngineBundle, save_native
+from brushstroke_engine_torch.engine import areas as tareas
+from brushstroke_engine_torch.engine import brush as tbrush
+from brushstroke_engine_torch.engine import canvas as tcanvas
+from brushstroke_engine_torch.engine import device_canvas as tdev
+from brushstroke_engine_torch.engine import library as tlib
+from brushstroke_engine_torch.engine.render import render_core
+from brushstroke_engine_torch.ops.precision import set_precision_mode
+from tests.torch_helpers import small_model
+
+jset("strict")
+set_precision_mode("strict")
+
+F32_ATOL = 1e-5
+PW = 32
+
+
+def u8_close(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype == np.uint8
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+def engines(model, fmt="triad"):
+    jgen, jenc = model["jax_cfg"]
+    tgen, tenc = model["cfg"]
+    jcls = jbrush.TriadGanPaintEngine if fmt == "triad" \
+        else jbrush.CanvasPaintEngine
+    tcls = tbrush.TriadGanPaintEngine if fmt == "triad" \
+        else tbrush.CanvasPaintEngine
+    j = jcls(jgen, model["jax"]["gen_params"], model["jax"]["gen_state"],
+             jenc, model["jax"]["enc_params"], model["jax"]["enc_state"],
+             geom_inject_resolutions=(0, 1))
+    t = tcls(tgen, model["torch"]["gen_params"], model["torch"]["gen_state"],
+             tenc, model["torch"]["enc_params"], model["torch"]["enc_state"],
+             geom_inject_resolutions=(0, 1), device="cpu")
+    return j, t
+
+
+@pytest.fixture(scope="module")
+def model():
+    return small_model(seed=5)
+
+
+@pytest.fixture(scope="module")
+def pair(model):
+    return engines(model)
+
+
+def bar_patch(seed, w=PW):
+    """A horizontal bar at a random row (test_device_canvas.py's stroke)."""
+    rng = np.random.default_rng(seed)
+    patch = np.zeros((w, w, 4), np.uint8)
+    y = rng.integers(4, w - 12)
+    patch[y:y + 8, 4:w - 4, 3] = 255
+    return patch
+
+
+# ----- areas (cases of test_engine.py:38-66 and every helper) -----
+
+AREA_CASES = [
+    ("make_area", (3, 4, 10, 12)),
+    ("make_area_direct", (3, 4, 10, 12)),
+    ("compute_overlaps", ((0, 0, 10, 10), (5, 5, 10, 10))),
+    ("compute_overlaps", ((0, 0, 4, 4), (10, 10, 4, 4))),
+    ("compute_absolute_overlap", ((2, 3, 8, 8), (6, 1, 8, 8))),
+    ("position_delta", ((2, 3, 8, 8), (6, 1, 8, 8))),
+    ("offset_crop", ((2, 3, 20, 22), 4)),
+    ("offset_area", (jareas.Area(2, 3, 20, 22), 4)),
+    ("pad_area_bounded", (jareas.Area(5, 5, 15, 15), 4, 16)),
+    ("pad_area_bounded", (jareas.Area(5, 5, 15, 9), 10, 16)),
+    ("clip_area", (jareas.Area(-4, 60, 20, 70), 64, 64)),
+    ("make_area_relative", (jareas.Area(10, 12, 30, 40),
+                            jareas.Area(8, 16, 40, 48))),
+    ("expand_area", (jareas.Area(60, 60, 64, 64), 16, 64, 64)),
+    ("expand_area", (jareas.Area(0, 3, 4, 9), 16, 64, 64)),
+    ("expand_area", (jareas.Area(8, 8, 24, 24), 16, 64, 64)),
+]
+
+
+@pytest.mark.parametrize("name,args", AREA_CASES,
+                         ids=[f"{n}{i}" for i, (n, _) in
+                              enumerate(AREA_CASES)])
+def test_area_algebra(name, args):
+    assert getattr(tareas, name)(*args) == getattr(jareas, name)(*args)
+
+
+@pytest.mark.parametrize("alpha", [None, "ramp"])
+def test_area_composite(alpha):
+    rng = np.random.RandomState(0)
+    im1 = rng.rand(2, 16, 16, 3).astype(np.float32)
+    im2 = rng.rand(2, 16, 16, 3).astype(np.float32)
+    a1, a2 = jareas.make_area(2, 3, 6, 5), jareas.make_area(7, 9, 6, 5)
+    al = None if alpha is None else rng.rand(6, 5).astype(np.float32)
+    np.testing.assert_array_equal(tareas.composite(im1, im2, a1, a2, al),
+                                  jareas.composite(im1, im2, a1, a2, al))
+
+
+def test_area_overlapping_crop():
+    import random
+    crop = (40, 50, 32, 32)
+    got = [tareas.gen_overlapping_square_crop(128, crop, 4, 8,
+                                              random.Random(3))
+           for _ in range(5)]
+    want = [jareas.gen_overlapping_square_crop(128, crop, 4, 8,
+                                               random.Random(3))
+            for _ in range(5)]
+    assert got == want
+
+
+# ----- feature canvas and blend alpha -----
+
+@pytest.mark.parametrize("down", [1, 2])
+def test_feature_canvas_set_get_and_partial_update(down):
+    rng = np.random.RandomState(down)
+    jfc = jcanvas.FeatureCanvas(40, 36, down)
+    tfc = tcanvas.FeatureCanvas(40, 36, down)
+    assert (tfc.height, tfc.width) == (jfc.height, jfc.width)
+    assert tfc.get_features(jareas.make_area(0, 0, 4, 4)) == (None, None)
+    r = 16 // down
+    for i, (y, x) in enumerate([(0, 0), (4, 6), (8, 2)]):
+        area = jareas.make_area(y, x, r, r)
+        feats = rng.randn(1, r, r, 5).astype(np.float32)
+        upd = None if i == 0 else rng.rand(r, r) > 0.5
+        jfc.set_features(area, feats, upd)
+        tfc.set_features(area, torch.from_numpy(feats), upd)
+        assert tfc.down_area(jareas.make_area(8, 4, 16, 16)) == \
+            jfc.down_area(jareas.make_area(8, 4, 16, 16))
+    np.testing.assert_array_equal(tfc.mask, jfc.mask)
+    np.testing.assert_array_equal(tfc.features.numpy(), jfc.features)
+    jm, jf = jfc.get_features(jareas.make_area(2, 3, 10, 9))
+    tm, tf = tfc.get_features(jareas.make_area(2, 3, 10, 9))
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(tf.numpy(), jf)
+
+
+@pytest.mark.parametrize("area,width,margin,crop", [
+    ((0, 0, 32, 32), 32, 8, 0), ((0, 0, 32, 32), 32, 4, 3),
+    ((5, 7, 10, 12), 32, 8, 0), ((0, 0, 6, 32), 32, 4, 0),
+    ((20, 2, 12, 20), 32, 16, 2)])
+def test_generate_dirty_area_alpha(area, width, margin, crop):
+    a = jareas.make_area(*area)
+    np.testing.assert_array_equal(
+        tcanvas.generate_dirty_area_alpha(a, width, margin, crop),
+        jcanvas.generate_dirty_area_alpha(a, width, margin, crop))
+
+
+@pytest.mark.parametrize("kind", ["empty", "full", "random"])
+@pytest.mark.parametrize("blend,crop", [(4, 0), (8, 2), (16, 5)])
+def test_blend_alpha(kind, blend, crop):
+    rng = np.random.RandomState(blend + crop)
+    mask = {"empty": np.zeros((32, 32), np.float32),
+            "full": np.ones((32, 32), np.float32),
+            "random": (rng.rand(32, 32) > 0.4).astype(np.float32)}[kind]
+    ja, ju = jdev._blend_alpha(jnp.asarray(mask), blend, crop)
+    ta, tu = tdev._blend_alpha(torch.from_numpy(mask), blend, crop)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+
+
+@pytest.mark.parametrize("y", [17, 21, 25, 29])
+def test_wrapped_noise_positions(y):
+    """At 32-px noise in a 32-px generator, the JAX package's jitted
+    ``wrapped_const_noise`` on the CPU (jax 0.9) reads wrong texels when x
+    or y is 17, 21, 25 or 29 modulo 32 (off by up to 3.0), while its eager
+    form agrees with the formula.  The port follows the eager form; the
+    parity tests of the paint engine, which reach the jitted render, keep
+    off those positions.  The jitted form must still be off there (by more
+    than 1) and agree one position before, so that a change of the
+    reference shows here.
+    """
+    import jax
+    from brushstroke_engine_tpu.ops.noise import wrapped_const_noise as jnoise
+    from brushstroke_engine_torch.ops.noise import wrapped_const_noise
+    jitted = jax.jit(jnoise, static_argnums=2)
+    tex = np.random.RandomState(y).randn(PW, PW).astype(np.float32)
+    for shift, faulty in ((0, True), (-1, False)):
+        pos = np.array([[y + shift, 3], [2, y + shift + 32]], np.int32)
+        got = wrapped_const_noise(torch.from_numpy(tex),
+                                  torch.from_numpy(pos), PW).numpy()
+        eager = np.asarray(jnoise(jnp.asarray(tex), jnp.asarray(pos), PW))
+        np.testing.assert_allclose(got, eager, rtol=0, atol=F32_ATOL)
+        jit_err = np.abs(np.asarray(jitted(jnp.asarray(tex),
+                                           jnp.asarray(pos), PW)) - got)
+        assert (jit_err.max() > 1) == faulty, (shift, jit_err.max())
+
+
+@pytest.mark.parametrize("res", [8, 32, 256])
+def test_wrapped_noise_flagship_positions(res):
+    """The 256-px generator's noise layers (8, 32 and 256 px) at 512 canvas
+    positions, among them every y = 17, 21, 25, 29 (mod 32): the port equals
+    the JAX package's eager form within 1e-5, and its jitted form reads no
+    wrong texel there.  The jitted form is held within 1e-3: it rounds the
+    sampling coordinate in another order, which moves a value by far less
+    than a wrong texel does (the texels' spread, ~1).
+    """
+    import jax
+    from brushstroke_engine_tpu.ops.noise import wrapped_const_noise as jnoise
+    from brushstroke_engine_torch.ops.noise import wrapped_const_noise
+    tex = np.random.RandomState(res).randn(res, res).astype(np.float32)
+    ys = np.arange(512)
+    pos = np.stack([ys, ys * 7 % 512], 1).astype(np.int32)
+    got = wrapped_const_noise(torch.from_numpy(tex), torch.from_numpy(pos),
+                              256).numpy()
+    eager = np.asarray(jnoise(jnp.asarray(tex), jnp.asarray(pos), 256))
+    jitted = np.asarray(jax.jit(jnoise, static_argnums=2)(
+        jnp.asarray(tex), jnp.asarray(pos), 256))
+    np.testing.assert_allclose(got, eager, rtol=0, atol=F32_ATOL)
+    np.testing.assert_allclose(jitted, got, rtol=0, atol=1e-3)
+
+
+# ----- PaintingHelper -----
+
+# (x, y, crop_margin, patch rows, patch cols): full strokes, a seam (the
+# second overlaps the first), crop margins, partial patches in the middle
+# and against the bottom-right edge, and a full stroke against that edge.
+# No x or y is 17, 21, 25 or 29 modulo 32: see test_wrapped_noise_positions.
+STROKES = [(0, 0, 0, PW, PW), (16, 8, 4, PW, PW), (24, 24, 0, PW, PW),
+           (40, 36, 4, PW, PW), (50, 70, 2, 20, 12), (83, 78, 0, 13, 9),
+           (64, 64, 0, PW, PW), (10, 30, 3, 24, 24)]
+
+
+def paint(helper, brush, strokes, level, rows=96, cols=96):
+    helper.make_new_canvas(rows, cols, feature_blending=level)
+    opts = helper.default_brush_options()
+    out = []
+    for i, (x, y, cm, h, w) in enumerate(strokes):
+        opts.set_position(x, y)
+        patch = bar_patch(i)[:h, :w]
+        img, _, meta = helper.render_stroke(
+            patch, None, opts, meta={"x": x, "y": y, "crop_margin": cm})
+        out.append((img, meta))
+    return out
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_painting_helper_strokes(pair, level):
+    jeng, teng = pair
+    jh = jcanvas.PaintingHelper(jeng, style_seed=0)
+    th = tcanvas.PaintingHelper(teng, style_seed=0)
+    want = paint(jh, jbrush, STROKES, level)
+    got = paint(th, tbrush, STROKES, level)
+    for (gi, gm), (wi, wm) in zip(got, want):
+        assert gm == wm
+        u8_close(gi, wi)
+    np.testing.assert_array_equal(th.geom_canvas, jh.geom_canvas)
+    if level == 0:
+        assert th.feature_canvas is None
+        return
+    assert th.feature_canvas.down_factor == 2 ** (level - 1)
+    np.testing.assert_array_equal(th.feature_canvas.mask,
+                                  jh.feature_canvas.mask)
+    np.testing.assert_allclose(th.feature_canvas.features.numpy(),
+                               np.asarray(jh.feature_canvas.features),
+                               rtol=0, atol=F32_ATOL)
+
+
+def test_painting_helper_negative_and_overhanging_windows(pair):
+    """Level 0: a stroke at negative x/y and one past the bottom-right edge
+    render, and only their on-canvas part reaches the geometry canvas."""
+    jeng, teng = pair
+    strokes = [(-8, -8, 0, PW, PW), (80, 70, 2, PW, PW)]
+    jh = jcanvas.PaintingHelper(jeng, style_seed=1)
+    th = tcanvas.PaintingHelper(teng, style_seed=1)
+    for (gi, gm), (wi, wm) in zip(paint(th, tbrush, strokes, 0),
+                                  paint(jh, jbrush, strokes, 0)):
+        assert gm == wm
+        u8_close(gi, wi)
+    np.testing.assert_array_equal(th.geom_canvas, jh.geom_canvas)
+    g = np.arange(PW * PW, dtype=np.float32).reshape(PW, PW) / (PW * PW)
+    for h in (jh, th):
+        h.make_new_canvas(64, 64, feature_blending=0)
+        h._sync_geom_canvas(jareas.make_area(-8, -8, PW, PW), g, PW, PW)
+    np.testing.assert_array_equal(th.geom_canvas, jh.geom_canvas)
+    np.testing.assert_array_equal(th.geom_canvas[:PW - 8, :PW - 8],
+                                  g[8:, 8:])
+
+
+@pytest.mark.parametrize("level", [1, 3])
+def test_partial_patch_alignment(pair, level):
+    """The JAX edge cases (test_engine.py:409-440): the aligned generated
+    window covers the aligned dirty area, inside the canvas."""
+    jeng, teng = pair
+    jh = jcanvas.PaintingHelper(jeng, style_seed=0)
+    th = tcanvas.PaintingHelper(teng, style_seed=0)
+    for h in (jh, th):
+        h.make_new_canvas(128, 128, feature_blending=level)
+    for (y, x, hh, ww) in [(91, 91, 24, 24), (93, 93, 10, 10), (1, 1, 24, 24),
+                           (101, 3, 16, 16), (90, 90, 24, 24),
+                           (-5, 120, 12, 8)]:
+        geom = np.random.RandomState(x).rand(hh, ww).astype(np.float32)
+        orig = jareas.make_area(y, x, hh, ww)
+        jd, jg, jp = jh._expand_partial_patch(orig, geom, hh, ww)
+        td, tg, tp = th._expand_partial_patch(orig, geom, hh, ww)
+        assert (td, tg) == (jd, jg)
+        np.testing.assert_array_equal(tp, jp)
+        assert tp.shape == (1, PW, PW, 1)
+        assert td.rstart >= tg.rstart and td.rend <= tg.rend
+        assert td.cstart >= tg.cstart and td.cend <= tg.cend
+
+
+def test_painting_helper_rejects_small_canvas_and_mock_engine(pair):
+    jeng, teng = pair
+    for canvas, eng in ((jcanvas, jeng), (tcanvas, teng)):
+        with pytest.raises(ValueError, match="smaller than patch_width"):
+            canvas.PaintingHelper(eng, style_seed=0).make_new_canvas(20, 64)
+    outs = []
+    for canvas, brush in ((jcanvas, jbrush), (tcanvas, tbrush)):
+        h = canvas.PaintingHelper(brush.MockPaintEngine(PW), style_seed=0)
+        outs.append(h.render_stroke(bar_patch(0), None, brush.GanBrushOptions(),
+                                    meta={"x": 5, "y": 7}))
+    np.testing.assert_array_equal(outs[1][0], outs[0][0])
+    assert outs[1][2] == outs[0][2] == {"x": 5, "y": 7}
+
+
+# ----- device-resident canvas -----
+
+def session_strokes(sess, brush, eng):
+    opts = brush.GanBrushOptions()
+    opts.set_style(eng.random_style(5), 5)
+    out = []
+    # Repeated position, an overhanging window (right and bottom), then a
+    # color override.
+    for i, (x, y) in enumerate([(0, 0), (16, 8), (16, 8), (70, 80),
+                                (60, 50)]):
+        if i == 4:
+            opts.set_color(0, np.asarray([255, 0, 0], np.uint8))
+        out.append(sess.render_stroke(bar_patch(i), opts, x=x, y=y))
+    return out
+
+
+@pytest.mark.parametrize("level,crop", [(1, 0), (2, 2)])
+def test_device_session(pair, level, crop):
+    jeng, teng = pair
+    js = jdev.DevicePaintSession(jeng, 100, 90, feature_blending_level=level,
+                                 crop_margin=crop)
+    ts = tdev.DevicePaintSession(teng, 100, 90, feature_blending_level=level,
+                                 crop_margin=crop)
+    for (gi, gm), (wi, wm) in zip(session_strokes(ts, tbrush, teng),
+                                  session_strokes(js, jbrush, jeng)):
+        assert gm == wm
+        u8_close(gi, wi)
+    assert ts.canvas.features.device.type == "cpu"
+    np.testing.assert_array_equal(ts.canvas.mask.numpy(),
+                                  np.asarray(js.canvas.mask))
+    np.testing.assert_allclose(ts.canvas.features.numpy(),
+                               np.asarray(js.canvas.features),
+                               rtol=0, atol=F32_ATOL)
+
+
+def test_render_stroke_step_and_dispatch(pair, model):
+    """The plain-argument step against the JAX step (f32 RGBA, an
+    overhanging window); the packed session's dispatch/fetch split against
+    the step and against serial strokes."""
+    jeng, teng = pair
+    geom = teng.prepare_geom_input(bar_patch(4)).reshape(1, PW, PW, 1)
+    z = teng.random_style(5).astype(np.float32)
+    override = np.random.RandomState(2).rand(1, 3, 3).astype(np.float32)
+    cmask = np.array([[[1.0, 0.0, 1.0]]], np.float32)
+    ch = model["cfg"][0].synthesis.channels(16)
+    jstate = jdev.init_canvas_state(80, 72, 2, ch)
+    tstate = tdev.init_canvas_state(80, 72, 2, ch, device="cpu")
+    jparams = (jeng.gen_params, jeng.gen_state, jeng.enc_params,
+               jeng.enc_state)
+    for pos in ([64, 32], [70, 60]):
+        jrgba, jstate = jdev.render_stroke_step(
+            jeng.gen_cfg, jeng.enc_cfg, (0, 1), "clear", 16, 16, 2, jparams,
+            jstate, jnp.asarray(geom), jnp.asarray(pos), jnp.asarray(z),
+            None, jnp.asarray(override), jnp.asarray(cmask))
+        trgba, tstate = tdev.render_stroke_step(
+            teng.gen_cfg, teng.enc_cfg, (0, 1), "clear", 16, 16, 2,
+            (teng.gen_params, teng.gen_state, teng.enc_params,
+             teng.enc_state), tstate, geom, pos, z, None, override, cmask)
+        np.testing.assert_allclose(trgba.numpy(), np.asarray(jrgba),
+                                   rtol=0, atol=F32_ATOL)
+    np.testing.assert_array_equal(tstate.mask.numpy(),
+                                  np.asarray(jstate.mask))
+    np.testing.assert_allclose(tstate.features.numpy(),
+                               np.asarray(jstate.features), rtol=0,
+                               atol=F32_ATOL)
+
+    opts = tbrush.GanBrushOptions()
+    opts.set_style(teng.random_style(5), 5)
+    first = tdev.DevicePaintSession(teng, 80, 72, feature_blending_level=2)
+    ra, ma = first.render_stroke_dispatch(bar_patch(2), opts, x=32, y=32)
+    rb, mb = first.render_stroke_dispatch(bar_patch(3), opts, x=48, y=32)
+    serial = tdev.DevicePaintSession(teng, 80, 72, feature_blending_level=2)
+    sa, msa = serial.render_stroke(bar_patch(2), opts, x=32, y=32)
+    sb, msb = serial.render_stroke(bar_patch(3), opts, x=48, y=32)
+    assert (ma, mb) == (msa, msb)
+    np.testing.assert_array_equal(first.fetch(ra), sa)
+    np.testing.assert_array_equal(first.fetch(rb), sb)
+    fresh = tdev.init_canvas_state(80, 72, 2, ch, device="cpu")
+    rgba, _ = tdev.render_stroke_step(
+        teng.gen_cfg, teng.enc_cfg, (0, 1), teng.render_mode, 16, 16, 0,
+        serial._params, fresh, geom, [32, 32],
+        opts.style_z.astype(np.float32), None, None, None)
+    step_u8 = np.clip(rgba[0].numpy() * 255, 0, 255).astype(np.uint8)
+    single = tdev.DevicePaintSession(teng, 80, 72, feature_blending_level=2)
+    np.testing.assert_array_equal(
+        single.render_stroke(bar_patch(4), opts, x=32, y=32)[0], step_u8)
+
+
+# ----- canvas head, color_w_channels -----
+
+@pytest.fixture(scope="module")
+def canvas_model():
+    return small_model(seed=6, color_format="canvas")
+
+
+@pytest.mark.parametrize("mode", ["clear", "stroke", "canvas", "full"])
+def test_canvas_head_render_modes(canvas_model, mode):
+    rng = np.random.RandomState(13)
+    geom = (rng.rand(2, PW, PW, 1) > 0.5).astype(np.float32)
+    z = rng.randn(2, 16).astype(np.float32)
+    pos = np.array([[5, 70], [31, 13]], np.int32)
+    override = rng.rand(2, 3, 3).astype(np.float32)
+    mask = np.array([[[0.0, 1.0, 0.0]]], np.float32)
+    args = [(0, 1), mode, (), "canvas"]
+    want = jrender_core(
+        *canvas_model["jax_cfg"], *args,
+        *(canvas_model["jax"][k] for k in ("gen_params", "gen_state",
+                                           "enc_params", "enc_state")),
+        jnp.asarray(geom), jnp.asarray(z), None, jnp.asarray(pos), None,
+        jnp.asarray(override), jnp.asarray(mask), None, None)
+    got = render_core(
+        *canvas_model["cfg"], *args,
+        *(canvas_model["torch"][k] for k in ("gen_params", "gen_state",
+                                             "enc_params", "enc_state")),
+        geom, z, None, pos, None, override, mask, None, None, device="cpu")
+    for k in ("rgba", "uvs", "colors", "raw_img", "alpha_fg", "canvas"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=F32_ATOL, err_msg=k)
+
+
+def test_canvas_engine_blended_stroke(canvas_model):
+    jeng, teng = engines(canvas_model, "canvas")
+    assert teng.render_modes == jeng.render_modes
+    outs = []
+    for h, brush in ((jcanvas.PaintingHelper(jeng, style_seed=2), jbrush),
+                     (tcanvas.PaintingHelper(teng, style_seed=2), tbrush)):
+        h.set_render_mode("full")
+        outs.append(paint(h, brush, STROKES[:3], 2, 64, 64))
+    for (gi, gm), (wi, wm) in zip(outs[1], outs[0]):
+        assert gm == wm
+        u8_close(gi, wi)
+
+
+def test_color_w_channels_head():
+    m = small_model(seed=7, color_w_channels=8)
+    torgb = m["np"]["gen_params"]["synthesis"]["b32"]["torgb"]
+    assert torgb["color_affine"]["weight"].shape == (8, 9)
+    assert torgb["affine"]["weight"].shape == (16, 32)   # no color outputs
+    jeng, teng = engines(m)
+    outs = []
+    for eng, brush in ((jeng, jbrush), (teng, tbrush)):
+        opts = brush.GanBrushOptions()
+        opts.set_style(eng.random_style(9), 9)
+        opts.set_position(x=40, y=12)
+        outs.append(eng.render_stroke(bar_patch(1), None, opts)[0])
+    u8_close(outs[1], outs[0])
+
+
+# ----- libraries, mapper helpers, engine factory -----
+
+def test_libraries(tmp_path):
+    seed = (tlib.SeedBrushLibrary([3, 1, 2], 16),
+            jlib.SeedBrushLibrary([3, 1, 2], 16))
+    assert seed[0].get_style_ids() == seed[1].get_style_ids() == \
+        ["1", "2", "3"]
+    styles = {
+        "a": np.random.RandomState(0).randn(1, 12, 16),
+        "b": {"w": np.random.RandomState(1).randn(1, 12, 16),
+              "noise": {"b32.conv1.noise_const":
+                        np.random.RandomState(2).randn(32, 32)}},
+        "c": {"w": torch.from_numpy(np.random.RandomState(3).randn(12, 16))},
+    }
+    path = str(tmp_path / "lib.pkl")
+    tlib.WBrushLibrary(styles).save(path)
+    w = (tlib.BrushLibrary.from_file(path), jlib.BrushLibrary.from_file(path))
+    assert isinstance(w[0], tlib.WBrushLibrary)
+    rand = (tlib.BrushLibrary.from_arg("rand4", z_dim=8),
+            jlib.BrushLibrary.from_arg("rand4", z_dim=8))
+    assert isinstance(rand[0], tlib.RandomBrushLibrary)
+    csv = (tlib.BrushLibrary.from_arg("5,6,7", z_dim=8),
+           jlib.BrushLibrary.from_arg("5,6,7", z_dim=8))
+    for lib in (seed, w, rand, csv):
+        assert lib[0].get_style_ids() == lib[1].get_style_ids()
+        for a, b in [("1", "3"), ("b", "a"), ("b", "c"), ("rand0", "rand2"),
+                     ("5", "7")]:
+            if a not in lib[0].get_style_ids():
+                continue
+            got, want = tbrush.GanBrushOptions(), jbrush.GanBrushOptions()
+            lib[0].set_style(a, got)
+            lib[1].set_style(a, want)
+            for o, l in ((got, lib[0]), (want, lib[1])):
+                l.set_interpolated_style(a, b, 0.25, o)
+            assert got.style_id == want.style_id
+            for k in ("style_z", "style_ws"):
+                g, wv = getattr(got, k), getattr(want, k)
+                assert (g is None) == (wv is None)
+                if g is not None:
+                    np.testing.assert_array_equal(g, wv)
+            assert got.custom_args.keys() == want.custom_args.keys()
+    seeds_txt = tmp_path / "seeds.txt"
+    seeds_txt.write_text("# saved\n12 0.1 0.2 0.3\nbad line\n7 1 2 3\n")
+    assert tlib.read_zs(str(seeds_txt)) == jlib.read_zs(str(seeds_txt)) \
+        == ([12, 7], 3)
+    assert tlib.interp_style_id(3, "x", 0.5) == \
+        jlib.interp_style_id(3, "x", 0.5)
+
+
+@pytest.mark.parametrize("start", ["fresh", "corrupt"])
+def test_icon_store_reopen_and_recovery(tmp_path, start):
+    """Each put leaves a valid zip (a killed process never calls close), and
+    a corrupt cache is recreated, as in the JAX package's IconStore."""
+    path = str(tmp_path / "icons.zip")
+    if start == "corrupt":
+        with open(path, "wb") as f:
+            f.write(b"PK\x03\x04 truncated-not-a-zip")
+    tlib.IconStore(path).put("s1", np.full((8, 8, 3), 200, np.uint8))
+    fresh = tlib.IconStore(path)        # reopened without a close
+    assert fresh.get("s1").shape == (8, 8, 3)
+    assert fresh.get("missing") is None
+
+
+def test_icons_and_mapper_helpers(pair, tmp_path):
+    jeng, teng = pair
+    icons = []
+    for lib_mod, eng in ((jlib, jeng), (tlib, teng)):
+        lib = lib_mod.SeedBrushLibrary([4, 11], 16)
+        lib.set_icon_file(str(tmp_path / f"{lib_mod.__name__}.zip"))
+        lib.enable_dynamic_icons(eng.uvs_mapper)
+        icons.append([lib.get_style_icon("11"), lib.get_style_icon("11")])
+        opts = (jbrush if lib_mod is jlib else tbrush).GanBrushOptions()
+        lib.set_style("4", opts)
+        icons[-1].append(eng.uvs_mapper.get_colors(opts))
+        icons[-1].append(eng.uvs_mapper.get_colors_raw(opts))
+        uvs = np.random.RandomState(6).dirichlet(np.ones(3), (1, 4, 4))
+        icons[-1].append(eng.uvs_mapper.map_style(opts, uvs, None)[0])
+    (jicon, jcached, jchips, jraw, jmap), \
+        (ticon, tcached, tchips, traw, tmap) = icons
+    u8_close(ticon, jicon)
+    assert tcached.shape == (PW, PW, 3)      # read back from the JPEG cache
+    chips = [np.array(re.findall(r"\d+", c), int) for c in (tchips, jchips)]
+    assert tchips.count("rgb(") == 3 and chips[0].shape == (9,)
+    assert np.abs(chips[0] - chips[1]).max() <= 1
+    np.testing.assert_allclose(traw, jraw, rtol=0, atol=F32_ATOL)
+    np.testing.assert_allclose(tmap, jmap, rtol=0, atol=F32_ATOL)
+
+
+def test_engine_factory(canvas_model, tmp_path):
+    jgen, jenc = canvas_model["jax_cfg"]
+    path = str(tmp_path / "canvas.pkl")
+    save_native(path, EngineBundle(
+        gen_cfg=jgen, gen_params=canvas_model["jax"]["gen_params"],
+        gen_state=canvas_model["jax"]["gen_state"], enc_cfg=jenc,
+        enc_params=canvas_model["jax"]["enc_params"],
+        enc_state=canvas_model["jax"]["enc_state"], color_format="canvas",
+        geom_inject_resolutions=(0, 1)))
+    eng = tbrush.PaintEngineFactory.create(path, device="cpu")
+    assert isinstance(eng, tbrush.CanvasPaintEngine)
+    assert eng.supports_device_render and eng.patch_width == PW
+    mock = tbrush.PaintEngineFactory.create(None, device="cpu")
+    assert isinstance(mock, tbrush.MockPaintEngine)
+    assert not mock.supports_device_render
+    (tmp_path / "ref.pkl").write_bytes(b"not a bundle")
+    with pytest.raises(NotImplementedError, match="reference snapshot"):
+        tbrush.PaintEngineFactory.create(str(tmp_path / "ref.pkl"),
+                                         device="cpu")

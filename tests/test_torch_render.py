@@ -27,7 +27,13 @@ from brushstroke_engine_tpu.engine.render import render_core as jrender_core
 from brushstroke_engine_tpu.ops.precision import precision_mode
 from brushstroke_engine_tpu.utils.checkpoint import EngineBundle, save_native
 from brushstroke_engine_torch.engine import brush as tbrush
+from brushstroke_engine_torch.engine.canvas import PaintingHelper
+from brushstroke_engine_torch.engine.device_canvas import (
+    DevicePaintSession, init_canvas_state,
+)
 from brushstroke_engine_torch.engine.render import render_core
+from brushstroke_engine_torch.engine.stylize import stylize_image_ondevice
+from brushstroke_engine_torch.tools import paint_image
 from brushstroke_engine_torch.ops.precision import set_precision_mode
 from brushstroke_engine_torch.utils import checkpoint as tckpt
 from tests.torch_helpers import small_model
@@ -194,15 +200,41 @@ def test_entry_points_need_cuda_unless_cpu(model, monkeypatch, tmp_path):
                     np.ones((1, 32, 32, 1), np.float32),
                     np.zeros((1, 16), np.float32), None, None, None, None,
                     None, None, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbrush.PaintEngineFactory.create(str(tmp_path / "missing.pkl"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbrush.PaintEngineFactory.create(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_canvas_state(64, 64, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paint_image.main(["--gan_checkpoint", str(tmp_path / "b.pkl"),
+                          "--geo_image", str(tmp_path / "g.npy"),
+                          "--output_dir", str(tmp_path)])
     engine = tbrush.TriadGanPaintEngine(tgen, *trees[:2], tenc, *trees[2:],
+                                        geom_inject_resolutions=(0, 1),
                                         device="cpu")
     assert engine.device.type == "cpu"
+    # Sessions, helpers and stylizers run where their engine does.
+    session = DevicePaintSession(engine, 64, 64, feature_blending_level=2)
+    assert session.canvas.features.device.type == "cpu"
+    helper = PaintingHelper(engine, style_seed=0)
+    helper.make_new_canvas(64, 64, feature_blending=2)
+    opts = helper.default_brush_options()
+    helper.render_stroke(_stroke_patch(), None, opts, meta={"x": 0, "y": 0})
+    assert helper.feature_canvas.features.device.type == "cpu"
+    out = stylize_image_ondevice(engine, np.ones((40, 40), np.float32), opts,
+                                 overlap_margin=4, crop_margin=4,
+                                 feature_blending_level=2, batch_size=2)
+    assert out.shape == (56, 56, 4)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(
         brushstroke_engine_torch.__path__, "brushstroke_engine_torch.")]
-    for mod in ("engine.brush", "ops.warp", "models.discriminator",
+    for mod in ("engine.brush", "engine.areas", "engine.canvas",
+                "engine.device_canvas", "engine.library", "engine.mapper",
+                "engine.stylize", "tools.paint_image",
+                "ops.warp", "models.discriminator",
                 "train.augment", "train.dataset", "train.losses",
                 "train.loop", "train.state", "train.steps", "utils.img_proc",
                 "tools.profile_render", "tools.profile_train",

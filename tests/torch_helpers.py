@@ -14,7 +14,8 @@ from brushstroke_engine_torch.utils.checkpoint import (
 )
 
 
-def small_configs(img_resolution=32, inject_res=(0, 1)):
+def small_configs(img_resolution=32, inject_res=(0, 1), color_format="triad",
+                  color_w_channels=0):
     """The JAX package's ``tests.helpers.small_bundle`` configs (2-layer
     'sauto' encoder, 16-dim styles, <= 32 channels), without its init."""
     enc_cfg = GeoEncoderConfig(
@@ -28,18 +29,19 @@ def small_configs(img_resolution=32, inject_res=(0, 1)):
             for r in inject_res),
         geom_feature_channels=tuple(enc_cfg.feature_channels(r)
                                     for r in inject_res),
-        color_format="triad", channel_base=2048, channel_max=32)
+        color_format=color_format, color_w_channels=color_w_channels,
+        channel_base=2048, channel_max=32)
     return gen_cfg, enc_cfg
 
 
-def small_model(seed=0, noise_strength=0.4):
+def small_model(seed=0, noise_strength=0.4, **config):
     """Both packages' configs plus one set of weights for both.
 
     Weights: ``init_native_params`` (numpy, JAX layout), with non-zero noise
     strengths so the noise path counts and a non-zero ``w_avg`` so
-    truncation does.
+    truncation does.  ``config`` goes to :func:`small_configs`.
     """
-    jgen, jenc = small_configs()
+    jgen, jenc = small_configs(**config)
     tgen, tenc = configs_from_dicts(dataclasses.asdict(jgen),
                                     dataclasses.asdict(jenc))
     trees = init_native_params(tgen, tenc, seed=seed)
