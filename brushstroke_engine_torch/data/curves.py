@@ -148,6 +148,9 @@ def draw_stroke_into(canvas: np.ndarray, pts: np.ndarray, radius: float,
     h, w = canvas.shape
     reach = radius + soft_edge
     pts = np.asarray(pts, np.float64)
+    if pts.shape[0] == 1:
+        # One point is a dot, as in draw_stroke.
+        pts = np.concatenate([pts, pts + 1e-3], axis=0)
     for p, q in zip(pts[:-1], pts[1:]):
         y0 = max(int(np.floor(min(p[0], q[0]) - reach)), 0)
         y1 = min(int(np.ceil(max(p[0], q[0]) + reach)) + 1, h)

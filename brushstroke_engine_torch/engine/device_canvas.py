@@ -12,12 +12,15 @@ device, and each stroke
 so the only host traffic per stroke is the geometry in and the uint8 RGBA
 out.  Windows are clamped into the canvas as ``jax.lax.dynamic_slice``
 clamps them, while the generator's noise still sees the requested position.
-The pooled multi-session batcher is not ported.
+
+The pool (:class:`PoolState`, :func:`render_strokes_pool`,
+:class:`DeviceCanvasPool`) holds N sessions' canvases as slots of one
+stacked tensor and renders one stroke of each of them in one generator pass.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -54,8 +57,9 @@ def clamp_start(start: int, size: int, window: int) -> int:
 def _blend_alpha(mask_window, blend_margin: int, crop_margin: int):
     """Blend weight for stored features over a whole-tile dirty area
     (``canvas.generate_dirty_area_alpha`` specialised to the full-patch
-    case).  Returns (alpha ``[h,w,1]``, update ``[h,w]``)."""
-    h, w = mask_window.shape
+    case).  Returns (alpha ``[...,h,w,1]``, update ``[...,h,w]``) for a mask
+    window ``[...,h,w]``."""
+    h, w = mask_window.shape[-2:]
     dev = mask_window.device
     ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
@@ -129,24 +133,179 @@ def render_stroke_step(gen_cfg, enc_cfg, enc_res, render_mode: str,
     return out["rgba"], canvas
 
 
-def render_stroke_packed(gen_cfg, enc_cfg, enc_res, render_mode: str,
-                         blend_res: int, blend_margin: int, crop_margin: int,
-                         bundle_params, canvas: CanvasState,
-                         packed, z, ws, color_override, color_mask):
-    """:func:`render_stroke_step` behind the JAX package's one-vector
-    request layout: ``packed`` is float32 ``[pw*pw + 2]``, the geometry
-    patch followed by (y, x).  Returns (uint8 RGBA ``[pw, pw, 4]`` on the
-    canvas's device, ``canvas``)."""
-    packed = np.asarray(packed, np.float32)
-    pw = int(round((packed.shape[0] - 2) ** 0.5))
-    geom_patch = packed[:pw * pw].reshape(1, pw, pw, 1)
-    position = packed[pw * pw:].astype(np.int32)
-    rgba, canvas = render_stroke_step(
-        gen_cfg, enc_cfg, enc_res, render_mode, blend_res, blend_margin,
-        crop_margin, bundle_params, canvas, geom_patch, position, z, ws,
-        color_override, color_mask)
-    rgba_u8 = torch.clamp(rgba[0] * 255.0, 0, 255).to(torch.uint8)
-    return rgba_u8, canvas
+class PoolState(NamedTuple):
+    """S stacked session canvases: ``[S, H/d, W/d, C]`` features +
+    ``[S, H/d, W/d]`` mask.  Slot S-1 is scratch (the warm-up renders there
+    and no session reads it)."""
+    features: torch.Tensor
+    mask: torch.Tensor
+
+
+@torch.inference_mode()
+def render_strokes_pool(gen_cfg, enc_cfg, enc_res, render_mode: str,
+                        blend_res: int, blend_margin: int, crop_margin: int,
+                        bundle_params, pool: PoolState, slots: List[int],
+                        alpha_u8, pos, z, ws, color_override, color_mask):
+    """N sessions' strokes in one generator pass; ``pool`` is updated in
+    place.  Row i equals :func:`render_stroke_step` of that stroke on slot
+    ``slots[i]``'s canvas.
+
+    Args:
+      slots: N pool rows; real rows hold distinct slots (a flush takes at
+        most one stroke per session).
+      alpha_u8: ``[N, pw*pw]`` uint8 tensor on the pool's device: the
+        strokes' raw alpha as it arrives on the wire (one byte per pixel
+        crosses to the device); the inversion to geometry runs here.
+      pos: N (y, x) canvas coords (multiples of the down factor).
+      z / ws: ``[N, z_dim]`` or ``[N, num_ws, w_dim]`` tensors; one is None.
+      color_override / color_mask: ``[N, 3, 3]`` / ``[N, 1, 3]`` (a zero
+        mask row leaves that row's colors as they are).
+
+    Returns uint8 RGBA ``[N, pw, pw, 4]`` on the pool's device.
+    """
+    n = alpha_u8.shape[0]
+    pw = int(round(alpha_u8.shape[1] ** 0.5))
+    dev = pool.features.device
+    geom = 1.0 - alpha_u8.reshape(n, pw, pw, 1).float() / 255.0
+    down = pw // blend_res
+    _, fh, fw, _ = pool.features.shape
+    ar = np.arange(blend_res)
+    iy = np.stack([clamp_start(int(y) // down, fh, blend_res) + ar
+                   for y, _ in pos])
+    ix = np.stack([clamp_start(int(x) // down, fw, blend_res) + ar
+                   for _, x in pos])
+    si = torch.as_tensor(np.asarray(slots), device=dev)[:, None, None]
+    iy = torch.from_numpy(iy).to(dev)[:, :, None]
+    ix = torch.from_numpy(ix).to(dev)[:, None, :]
+    feats_win = pool.features[si, iy, ix]             # [N, R, R, C]
+    mask_win = pool.mask[si, iy, ix]                  # [N, R, R]
+    alpha, update = _blend_alpha(mask_win, max(blend_margin // down, 1),
+                                 crop_margin // down)
+    out = render_core(
+        gen_cfg, enc_cfg, enc_res,
+        "clear" if render_mode == "clear" else "full", (blend_res,), "triad",
+        *bundle_params, geom, z, ws, np.asarray(pos, np.int64), None,
+        color_override, color_mask, {blend_res: (feats_win, alpha)}, None,
+        device=dev)
+    new_feats = out[f"features{blend_res}"].to(pool.features.dtype)
+    upd = update[..., None]
+    # One scatter for all rows.  Real rows hold distinct slots, so no two
+    # of them write the same element; only the warm-up's rows share a slot,
+    # the scratch one, whose content no session reads.
+    pool.features[si, iy, ix] = feats_win * (1 - upd) + new_feats * upd
+    pool.mask[si, iy, ix] = torch.maximum(mask_win, update)
+    return torch.clamp(out["rgba"] * 255.0, 0, 255).to(torch.uint8)
+
+
+class DeviceCanvasPool:
+    """Slot allocator over one stacked canvas (:class:`PoolState`) on the
+    engine's device.
+
+    Sessions that share a canvas configuration (shape, blending level, crop)
+    draw from one pool; a cross-session flush renders one pending stroke of
+    each through :func:`render_strokes_pool`.  The last slot is scratch.
+    """
+
+    def __init__(self, engine, canvas_height: int, canvas_width: int,
+                 feature_blending_level: int = 2, blend_margin: int = 16,
+                 crop_margin: int = 0, capacity: int = 8):
+        self.engine = engine
+        self.level = feature_blending_level
+        self.down = 2 ** (feature_blending_level - 1)
+        self.blend_res = engine.patch_width // self.down
+        self.blend_margin = blend_margin
+        self.crop_margin = crop_margin
+        self.canvas_shape = (canvas_height, canvas_width)
+        self.channels = engine.gen_cfg.synthesis.channels(self.blend_res)
+        self._params = (engine.gen_params, engine.gen_state,
+                        engine.enc_params, engine.enc_state)
+        self._free = list(range(capacity))
+        self._capacity = capacity
+        h = -(-canvas_height // self.down)
+        w = -(-canvas_width // self.down)
+        # Made (and later changed) in inference mode, as the render that
+        # writes into it runs there.
+        with torch.inference_mode():
+            self.state = PoolState(
+                features=torch.zeros((capacity + 1, h, w, self.channels),
+                                     device=engine.device),
+                mask=torch.zeros((capacity + 1, h, w), device=engine.device))
+
+    @property
+    def scratch_slot(self) -> int:
+        return self.state.mask.shape[0] - 1
+
+    def acquire(self) -> int:
+        """Claim a slot (a fresh canvas: its mask is zeroed).  When none is
+        free the pool doubles: one reallocation and copy, the old scratch
+        row becoming a regular slot and the new last row the scratch."""
+        if not self._free:
+            grow = self._capacity
+            self._capacity *= 2
+            self._free = list(range(grow, self._capacity))
+            old = self.state
+            with torch.inference_mode():
+                self.state = PoolState(*(torch.cat(
+                    [t, t.new_zeros((grow,) + t.shape[1:])])
+                    for t in (old.features, old.mask)))
+        slot = self._free.pop(0)
+        self.reset_slot(slot)
+        return slot
+
+    def reset_slot(self, slot: int):
+        """New canvas for a session: invalidate its stored features."""
+        with torch.inference_mode():
+            self.state.mask[slot] = 0.0
+
+    def release(self, slot: int):
+        if slot not in self._free:
+            self._free.append(slot)
+
+    def render_batch(self, requests):
+        """Render N sessions' strokes in one generator pass.
+
+        Args:
+          requests: dicts with ``slot``, ``geom`` (the stroke's uint8 alpha
+            ``[pw*pw]`` as it came off the wire), ``x``, ``y`` (canvas ints,
+            aligned down here) and ``opts`` (GanBrushOptions; all rows z or
+            all rows W).
+
+        Returns (uint8 RGBA tensor ``[N, pw, pw, 4]`` on the device, N out
+        metas).  Cropping ``crop_margin`` is the caller's, after the copy.
+        """
+        eng = self.engine
+        n = len(requests)
+        use_ws = requests[0]["opts"].style_ws is not None
+        override = np.zeros((n, 3, 3), np.float32)
+        cmask = np.zeros((n, 1, 3), np.float32)
+        pos, style, metas = [], [], []
+        for i, req in enumerate(requests):
+            o = req["opts"]
+            o.prepare_style(1)
+            if (o.style_ws is not None) != use_ws:
+                raise ValueError("mixed z/ws rows in a pooled render batch")
+            x = (int(req["x"]) // self.down) * self.down
+            y = (int(req["y"]) // self.down) * self.down
+            pos.append((y, x))
+            style.append(o.style_ws[0] if use_ws else o.style_z[0])
+            ov, mk = o.color_override(1)
+            if ov is not None:
+                override[i] = ov[0]
+                cmask[i, 0] = mk[0, 0]
+            metas.append({"x": x + self.crop_margin,
+                          "y": y + self.crop_margin})
+        dev = eng.device
+        alpha = torch.from_numpy(np.stack(
+            [np.asarray(r["geom"], np.uint8) for r in requests])).to(dev)
+        style = torch.from_numpy(np.stack(style).astype(np.float32)).to(dev)
+        rgba = render_strokes_pool(
+            eng.gen_cfg, eng.enc_cfg, tuple(eng.enc_res), eng.render_mode,
+            self.blend_res, self.blend_margin, self.crop_margin,
+            self._params, self.state, [int(r["slot"]) for r in requests],
+            alpha, pos, None if use_ws else style, style if use_ws else None,
+            torch.from_numpy(override).to(dev),
+            torch.from_numpy(cmask).to(dev))
+        return rgba, metas
 
 
 class DevicePaintSession:
@@ -195,18 +354,19 @@ class DevicePaintSession:
         out meta).  The canvas advances at once, so the next stroke can be
         enqueued before this one's pixels are fetched."""
         eng = self.engine
-        geom = np.asarray(eng.prepare_geom_input(stroke_patch),
-                          np.float32).ravel()
+        pw = eng.patch_width
+        geom = eng.prepare_geom_input(stroke_patch).reshape(1, pw, pw, 1)
         x = (x // self.down) * self.down
         y = (y // self.down) * self.down
-        packed = np.concatenate([geom, np.asarray([y, x], np.float32)])
         z, ws, override, cmask = self._style_arrays(opts)
-        rgba, self.canvas = render_stroke_packed(
+        rgba, self.canvas = render_stroke_step(
             eng.gen_cfg, eng.enc_cfg, tuple(eng.enc_res),
             eng.render_mode, self.blend_res, self.blend_margin,
-            self.crop_margin, self._params, self.canvas, packed, z, ws,
+            self.crop_margin, self._params, self.canvas, geom, (y, x), z, ws,
             override, cmask)
-        return rgba, {"x": x + self.crop_margin, "y": y + self.crop_margin}
+        rgba_u8 = torch.clamp(rgba[0] * 255.0, 0, 255).to(torch.uint8)
+        return rgba_u8, {"x": x + self.crop_margin,
+                         "y": y + self.crop_margin}
 
     def fetch(self, rgba) -> np.ndarray:
         """Download one dispatched stroke's uint8 RGBA."""

@@ -132,22 +132,41 @@ def lerp_styles(a: Style, b: Style, alpha: float) -> Style:
     return Style(a.kind, a.vec * alpha + b.vec * (1 - alpha), noise)
 
 
+def _free_name(base: str) -> str:
+    """``base``, or ``base.1``, ``base.2``, ... : the first that names no
+    existing file."""
+    name, i = base, 0
+    while os.path.lexists(name):
+        i += 1
+        name = f"{base}.{i}"
+    return name
+
+
 class IconStore:
     """Zip-backed thumbnail cache (stores JPEG per style id)."""
 
     def __init__(self, path: str, extension: str = ".jpg"):
         self.path = path
         self.extension = extension
-        try:
-            self._zip = zipfile.ZipFile(path, mode="a")
-        except zipfile.BadZipFile:
-            # A server killed mid-session leaves an append-mode zip without
-            # its central directory (only close() writes it); recover by
-            # starting a fresh cache rather than failing icon caching for
-            # every future run.
-            logger.warning("Icon cache %s corrupt; recreating", path)
-            os.remove(path)
-            self._zip = zipfile.ZipFile(path, mode="a")
+        if os.path.lexists(path) and not os.path.isfile(path):
+            # A directory, a dangling link or a device: nothing a cache
+            # wrote, so nothing to move aside.
+            raise OSError(f"icon cache {path} is no regular file")
+        if os.path.isfile(path) and not zipfile.is_zipfile(path):
+            # A cache whose central directory was never written (only
+            # close() writes it, so a killed server leaves one), or a
+            # mistyped path naming someone's file.  Append mode would add a
+            # zip to its end: move it aside instead, never delete it, and
+            # start a fresh cache.
+            aside = _free_name(path + ".corrupt")
+            try:
+                os.rename(path, aside)
+            except OSError as e:
+                raise OSError(f"icon cache {path} is no zip and cannot be "
+                              f"moved aside: {e}") from e
+            logger.warning("Icon cache %s is no zip; moved to %s", path,
+                           aside)
+        self._zip = zipfile.ZipFile(path, mode="a")
 
     def get(self, style_id) -> Optional[np.ndarray]:
         name = str(style_id) + self.extension

@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -93,3 +94,10 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
         return lib
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` under a lock: kernels launch from serving
+    threads too, and an unlocked ``+=`` there can lose a count."""
+    with _count_lock:
+        fn.launches += 1

@@ -165,7 +165,7 @@ def _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp, alpha,
     if rc != 0:
         raise RuntimeError(f"fir4_epilogue kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")
-    fir4_epilogue.launches += 1
+    cuda_build.count_launch(fir4_epilogue)
     return out
 
 

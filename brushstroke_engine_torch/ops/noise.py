@@ -33,7 +33,12 @@ def wrapped_const_noise(noise_const, positions, img_resolution: int):
     r_l = int(noise_const.shape[0])
     p = r_l - 1
     pos = positions.to(device=noise_const.device, dtype=torch.float32)
-    norm = torch.remainder(pos, img_resolution) / float(img_resolution - 1)
+    # A true division, by a tensor on the same device: CUDA divides by a
+    # Python number as a product with its reciprocal, whose rounding moves
+    # ``shift`` across an integer at some positions (17, 21, 25, 29 mod 32
+    # at 32 px) and so reads another texel than the CPU.
+    norm = torch.remainder(pos, img_resolution) / torch.full_like(
+        pos, float(img_resolution - 1))
     shift = torch.remainder(norm, 1.0) * p          # [B, 2] (y, x) in [0, p)
     k = torch.floor(shift)
     frac = shift - k

@@ -197,10 +197,7 @@ def _launch(imgs, scalars, transposed: bool, band: int = 0):
     if rc != 0:
         raise RuntimeError(f"warp_twopass kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")
-    if transposed:
-        warp_twopass_t.launches += 1
-    else:
-        warp_twopass.launches += 1
+    cuda_build.count_launch(warp_twopass_t if transposed else warp_twopass)
     return out
 
 

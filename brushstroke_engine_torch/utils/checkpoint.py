@@ -3,7 +3,7 @@
 The native bundle (``brushstroke_engine_tpu.bundle.v1``) is one pickle of
 plain dicts: dataclass configs as dicts and numpy parameter trees in the JAX
 package's layouts.  :func:`params_from_jax` turns such a tree into the
-port's tensors:
+port's tensors (and :func:`params_to_jax` back, for :func:`save_native`):
 
   * FC weights   ``[in, out]``        -> ``[out, in]``
   * conv weights HWIO                 -> OIHW (transposed convs too; the geo
@@ -60,13 +60,34 @@ def _leaf_from_jax(key: str, a) -> torch.Tensor:
         a = a.T                                    # [in, out] -> [out, in]
     elif key == "const" and a.ndim == 3:
         a = np.transpose(a, (2, 0, 1))             # [4, 4, C] -> [C, 4, 4]
-    return torch.from_numpy(np.ascontiguousarray(a))
+    # ascontiguousarray lifts a 0-d leaf to [1]; keep its shape.
+    return torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
 
 
 def params_from_jax(tree) -> Dict:
     """JAX-layout numpy tree -> the port's CPU tensors (see module doc)."""
     return {k: params_from_jax(v) if isinstance(v, dict)
             else _leaf_from_jax(k, v) for k, v in tree.items()}
+
+
+def _leaf_to_jax(key: str, t) -> np.ndarray:
+    """Exact inverse of :func:`_leaf_from_jax` for the port's f32 leaves."""
+    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+    if key == "weight" and a.ndim == 4:
+        a = np.transpose(a, (2, 3, 1, 0))          # OIHW -> HWIO
+    elif key == "weight" and a.ndim == 2:
+        a = a.T                                    # [out, in] -> [in, out]
+    elif key == "const" and a.ndim == 3:
+        a = np.transpose(a, (1, 2, 0))             # [C, 4, 4] -> [4, 4, C]
+    return np.ascontiguousarray(a).reshape(a.shape)
+
+
+def params_to_jax(tree) -> Dict:
+    """The port's tensors -> a JAX-layout numpy tree (inverse of
+    :func:`params_from_jax`)."""
+    return {k: params_to_jax(v) if isinstance(v, dict)
+            else _leaf_to_jax(k, v) for k, v in tree.items()}
 
 
 def _tupled(d: Dict, keys) -> Dict:
@@ -106,6 +127,24 @@ def load_native(path: str, device="cuda") -> EngineBundle:
         color_format=payload["color_format"],
         geom_inject_resolutions=tuple(payload["geom_inject_resolutions"]),
         extra=payload.get("extra", {}))
+
+
+def save_native(path: str, bundle: EngineBundle) -> None:
+    """Write ``bundle`` (the port's configs and tensors) as a native bundle
+    in the JAX package's layout, which its ``load_native`` and this module's
+    :func:`load_native` both read."""
+    payload = {
+        "magic": NATIVE_MAGIC,
+        "gen_cfg": dataclasses.asdict(bundle.gen_cfg),
+        "enc_cfg": dataclasses.asdict(bundle.enc_cfg),
+        **{k: params_to_jax(getattr(bundle, k)) for k in
+           ("gen_params", "gen_state", "enc_params", "enc_state")},
+        "color_format": bundle.color_format,
+        "geom_inject_resolutions": tuple(bundle.geom_inject_resolutions),
+        "extra": bundle.extra,
+    }
+    with open(path, "wb") as f:
+        pickle.dump(payload, f, protocol=4)
 
 
 # ---------------------------------------------------------------------------

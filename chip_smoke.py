@@ -17,9 +17,9 @@ Phases, in order; any failure exits non-zero:
    memory bound.  Then shapes off the kernel's vector path (a channel count
    that is no multiple of the 16-byte vector, H != W, ragged strips, W
    narrower than a thread's column walk), every tile forced as well as the
-   kernel's own choice; then the paint path's batches (B = 1 and 32 at the
-   same six shapes, f32); then the trainer's shapes (B = 64, f32), checked
-   and timed.
+   kernel's own choice; then the paint and serving paths' batches (B = 1
+   to 8 and 32 at the same six shapes, f32); then the trainer's shapes
+   (B = 64, f32), checked and timed.
 4. The FIR-epilogue kernel's backward: gradients of x, dcoefs, noise and
    bias through the kernel path against autograd through the plain version
    at the 64-px and 128-px training shapes, and one double backward.
@@ -59,7 +59,21 @@ Phases, in order; any failure exits non-zero:
    512 x 512 canvas, each stylizer on a 472 x 472 drawing (4 tiles; the
    card at the default batches of 16 and 32, the CPU at 2), the canvas
    engine's modes.
-9. Prints the kernel table as JSON, then the final JSON line.
+9. The serve path: the flagship (strict f32) is written with the port's
+   ``save_native`` and served by ``ui.core.create_core(gan_checkpoint=...)``
+   (no transport: ``tools/bench_serve.py`` drives closed-loop painter
+   sessions on the core) through each image path -- helper, device canvas,
+   ``RenderBatcher`` (4 ms window), the pool (both) -- with 1 session and
+   with 8, whole 256-px patches at seeded positions on 1024 x 1024 canvases
+   at level 2, crop margin 10; every reply arrives, no fallback and no error
+   is counted, K1 launches 6 times per generator pass, the batched paths
+   render more than one row per pass at 8 sessions, every flush's batch
+   is one that phase 3 held K1 at, each served image
+   equals the same strokes replayed one by one on the card (every session
+   of the batched paths, session 0 of the others) within 1 LSB, and a
+   4-stroke session on a 512 x 512 canvas through each serial path equals
+   the same core on the CPU within 1 LSB.
+10. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
@@ -113,6 +127,20 @@ TRAIN_RES, TRAIN_BATCH, TRAIN_BATCHES, WARM_BATCHES = 128, 64, 33, 2
 PAINT_CANVAS, PAINT_LEVEL, PAINT_CROP, PAINT_TIMED = 1024, 2, 10, 30
 STYLIZE_SIZE, STYLIZE_STROKES, STYLIZE_OVERLAP = 2048, 64, 10
 CMP_CANVAS, CMP_DRAWING, CMP_BATCH = 512, 472, 2
+# The serve path: the client's defaults (positions on, render mode 'clear',
+# level 2, crop margin 10) on 1024-px canvases (512^2 x 128 f32 features,
+# 128 MiB per session), a 4 ms flush window; per path (sessions, timed
+# strokes, warm-up strokes) per session, then SERVE_TRACE strokes under the
+# profiler for the idle share.  The CPU comparison: 4 strokes at 512 px.
+SERVE_CANVAS, SERVE_WINDOW_MS = 1024, 4.0
+SERVE_RUNS = ((1, 24, 4), (8, 8, 2))
+SERVE_TRACE, SERVE_CMP_STROKES = 2, 4
+# K1 against its plain version at the 256-px shapes for every batch these
+# paths launch: B = 1 (a helper or session stroke), 2-8 (a cross-session
+# flush of that many of the at most 8 painters; the port pads no flush to a
+# bucket) and 32 (an on-device stylize chunk; the batched stylizer's B = 16
+# is the timing table).  The serve phase checks that no flush left this set.
+K1_PATH_BATCHES = (*range(1, 9), 32)
 
 
 def fail(msg):
@@ -293,13 +321,12 @@ def phase_kernel_vs_plain():
     print(f"[fir4] {n_off} off-vector-path cases within tolerance",
           flush=True)
 
-    # The paint path's batches at the 256-px shapes: B = 1 (a helper or
-    # session stroke) and B = 32 (an on-device stylize chunk; the batched
-    # stylizer's B = 16 is the table above), f32 with one noise plane per
-    # sample and the clamp, as the render sends them.  ``dispatch`` picks the
-    # strip and block per shape, so each batch is checked on its own.
+    # The paint and serve paths' batches (K1_PATH_BATCHES) at the 256-px
+    # shapes, f32 with one noise plane per sample and the clamp, as the
+    # render sends them.  ``dispatch`` picks the strip and block per shape,
+    # so each batch is checked on its own.
     n_paint = 0
-    for b in (1, 32):
+    for b in K1_PATH_BATCHES:
         for res in syn.block_resolutions[1:]:
             c = syn.channels(res)
             x = torch.randn((b, res + 3, res + 3, c), generator=gen,
@@ -320,8 +347,9 @@ def phase_kernel_vs_plain():
             max_err[torch.float32] = max(max_err[torch.float32],
                                          err.max().item())
             n_paint += 1
-    print(f"[fir4] {n_paint} paint-path cases (B = 1 and 32) within "
-          f"tolerance", flush=True)
+    print(f"[fir4] {n_paint} paint- and serve-path cases (B = "
+          f"{', '.join(map(str, K1_PATH_BATCHES))}) within tolerance",
+          flush=True)
 
     # The trainer's shapes (B = 64, C = 128, f32, noise and clamp): checked
     # against the plain version, then timed.
@@ -1447,6 +1475,149 @@ def phase_paint(card):
     return out
 
 
+def phase_serve(card):
+    """The drawing server's core on the card through its four image paths
+    (see the module doc, phase 9)."""
+    import numpy as np
+    from brushstroke_engine_torch.flagship import (
+        flagship_encoder_config, flagship_generator_config, flagship_trees,
+    )
+    from brushstroke_engine_torch.ops.cuda_build import BUILD_DIR
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+    from brushstroke_engine_torch.tools import bench_serve as bs
+    from brushstroke_engine_torch.ui.core import (
+        WARM_BATCHES, create_core, warmup_engine,
+    )
+    from brushstroke_engine_torch.utils.checkpoint import (
+        EngineBundle, params_from_jax, save_native,
+    )
+
+    set_precision_mode("strict")
+    t_phase = time.time()
+    trees = {k: params_from_jax(v) for k, v in
+             flagship_trees(RES, SEED, NOISE_STRENGTH).items()}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    bundle_path = os.path.join(BUILD_DIR, "serve_flagship.pkl")
+    save_native(bundle_path, EngineBundle(
+        flagship_generator_config(RES, (0, 1)), trees["gen_params"],
+        trees["gen_state"], flagship_encoder_config(), trees["enc_params"],
+        trees["enc_state"], geom_inject_resolutions=(0, 1)))
+    core = create_core(gan_checkpoint=bundle_path, device="cuda")
+    engine = core.engine
+    check(engine.device.type == "cuda" and engine.patch_width == RES,
+          f"served engine {engine.device} {engine.patch_width} px")
+    warmup_engine(engine)
+    n_up = len(engine.gen_cfg.synthesis.block_resolutions) - 1
+    kw = dict(canvas=SERVE_CANVAS, level=PAINT_LEVEL, crop=PAINT_CROP,
+              seed=SEED)
+    want_path = {"helper": "helper", "device_canvas": "device_canvas",
+                 "batched": "batched", "pooled": "device_batched"}
+    runs, launches, served, passes, worst = [], 0, 0, 0, 0
+    flush_batches = set()
+    for path in bs.PATHS:
+        for sessions, strokes, warm in SERVE_RUNS:
+            tag = f"{path} x{sessions}"
+            serving = bs.make_core(engine, path, SERVE_WINDOW_MS,
+                                   SERVE_CANVAS, PAINT_LEVEL, PAINT_CROP)
+            fir4_epilogue.launches = 0    # this serve run starts here
+            stats, painters = bs.serve(
+                serving, path, sessions, strokes, warm,
+                trace_strokes=SERVE_TRACE, keep_images=True, **kw)
+            n = fir4_epilogue.launches    # and ends here
+            serving.close()
+            # Every batch a flush of this run launched K1 at (warm-up
+            # included) was held against the plain version in phase 3.
+            flushed = {b for bt in (serving.batcher, serving.dev_batcher)
+                       if bt is not None for b in bt.batch_sizes}
+            check(flushed <= set(K1_PATH_BATCHES)
+                  and set(WARM_BATCHES) <= set(K1_PATH_BATCHES),
+                  f"{tag}: K1 launched at batches {sorted(flushed)}, "
+                  f"checked at {K1_PATH_BATCHES}")
+            flush_batches.update(flushed)
+            check(stats["k1_launches"] == n and n == n_up
+                  * stats["generator_passes"],
+                  f"{tag}: {n} K1 launches for "
+                  f"{stats['generator_passes']} generator passes")
+            check(stats["fallbacks"] == 0 and stats["errors"] == 0,
+                  f"{tag}: {stats['fallbacks']} fallbacks, "
+                  f"{stats['errors']} errors")
+            total = sessions * (warm + strokes + SERVE_TRACE)
+            check(stats["strokes_served"] == total
+                  and all(len(p.records) == warm + strokes + SERVE_TRACE
+                          for p in painters), f"{tag}: replies missing")
+            check(stats["timed_paths"] == [want_path[path]],
+                  f"{tag}: served by {stats['timed_paths']}")
+            batched = path in ("batched", "pooled")
+            if batched and sessions > 1:
+                check(stats["rows_per_pass"]["mean"] > 1,
+                      f"{tag}: {stats['rows_per_pass']} rows per pass")
+            run_worst = 0
+            for p in (painters if batched else painters[:1]):
+                replay = bs.serial_replay(engine, path, p, SERVE_CANVAS,
+                                          PAINT_LEVEL, PAINT_CROP)
+                for i, (r, (img, meta)) in enumerate(zip(p.records,
+                                                         replay)):
+                    err = _u8_err(r["image"], img)
+                    run_worst = max(run_worst, err)
+                    check(r["meta"] == meta and err <= 1,
+                          f"{tag}: stroke {i} served {r['meta']} vs serial "
+                          f"{meta}, {err} LSB")
+            for p in painters:
+                p.records = None          # the images are checked
+            launches += n
+            served += total
+            passes += stats["generator_passes"]
+            worst = max(worst, run_worst)
+            stats["replay_max_lsb"] = run_worst
+            runs.append(stats)
+            check(stats["device"] is not None, f"{tag}: no device trace")
+            idle = stats["device"]["idle_share"]
+            rows = stats["rows_per_pass"]
+            print(f"[serve] {tag}: client ms p50/p99 "
+                  f"{stats['client_ms']['p50']:.2f} / "
+                  f"{stats['client_ms']['p99']:.2f}, server_ms p50 "
+                  f"{stats['server_ms']['p50']:.2f}, render_ms p50 "
+                  f"{stats['render_ms']['p50']:.2f}, "
+                  f"{stats['strokes_per_s']:.1f} strokes/s, rows per pass "
+                  f"{rows['mean'] if rows else 1:.2f}, idle {idle:.3f}, "
+                  f"{n} K1 launches ({card})", flush=True)
+    core.close()
+
+    # Each serial path against the same core on the CPU.
+    t0 = time.time()
+    cpu_core = create_core(gan_checkpoint=bundle_path, device="cpu")
+    cmp = {}
+    for path in ("helper", "device_canvas"):
+        out = []
+        for eng in (engine, cpu_core.engine):
+            _, painters = bs.run_path(
+                eng, path, 1, SERVE_CMP_STROKES, 0, canvas=CMP_CANVAS,
+                level=PAINT_LEVEL, crop=PAINT_CROP, seed=SEED + 1,
+                trace_strokes=0, keep_images=True, warm_core=False)
+            out.append(painters[0].records)
+        check(len(out[0]) == len(out[1]) == SERVE_CMP_STROKES
+              and all(a["meta"] == b["meta"] for a, b in zip(*out)),
+              f"{path}: CUDA vs CPU replies")
+        cmp[f"{path}_u8"] = max(_u8_err(a["image"], b["image"])
+                                for a, b in zip(*out))
+        check(cmp[f"{path}_u8"] <= 1,
+              f"{path}: CUDA vs CPU {cmp[f'{path}_u8']} LSB")
+    cpu_core.close()
+    out = {"runs": runs, "launches": launches, "strokes_served": served,
+           "generator_passes": passes, "replay_max_lsb": worst,
+           "flush_batches": sorted(flush_batches),
+           "cuda_vs_cpu_u8": cmp, "cpu_seconds": time.time() - t0,
+           "seconds": time.time() - t_phase, "card": card}
+    print(f"[serve] {served} strokes served in {passes} generator passes, "
+          f"{launches} K1 launches ({n_up} per pass; flushes of "
+          f"{sorted(flush_batches)} rows); served vs serial "
+          f"replay max {worst} LSB; CUDA vs CPU {json.dumps(cmp)} (CPU "
+          f"{out['cpu_seconds']:.1f} s); phase {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     card = phase_card()
@@ -1463,6 +1634,7 @@ def main():
     main_stats = phase_main_path()
     train = phase_train(style_iter, geom_iter, card)
     paint = phase_paint(card)
+    serve = phase_serve(card)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -1473,10 +1645,12 @@ def main():
         "source": "brushstroke_engine_torch/csrc/fir4_epilogue.cu",
         "replaces": "brushstroke_engine_tpu/ops/pallas_fir.py:85",
         "launches": main_stats["launches"]
-        + train["launches"]["fir4_epilogue"] + paint["launches"],
+        + train["launches"]["fir4_epilogue"] + paint["launches"]
+        + serve["launches"],
         "launches_render_path": main_stats["launches"],
         "launches_training_path": train["launches"]["fir4_epilogue"],
         "launches_paint_path": paint["launches"],
+        "launches_serve_path": serve["launches"],
         "max_abs_err": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "backward_max_rel_err": fir_bwd["worst_rel_err"],
@@ -1510,7 +1684,7 @@ def main():
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched")
     print(json.dumps({"main_path": main_stats, "training_path": train,
-                      "paint_path": paint,
+                      "paint_path": paint, "serve_path": serve,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,6 +13,7 @@ setup(
     package_data={
         "brushstroke_engine_tpu.ui": ["static/*", "templates/*"],
         "brushstroke_engine_torch": ["csrc/*.cu"],
+        "brushstroke_engine_torch.ui": ["static/*", "templates/*"],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -12,7 +12,9 @@ FIR-epilogue gradients: 1e-4 of the largest gradient entry (its backward
 re-runs the plain chain, so only the forward value it is handed differs).
 The two-pass warp: 2e-5 forward (the same f32 weights, the taps summed in
 another order), 2e-4 for first and second-order gradients, 1e-4 relative for
-the adjoint identity.
+the adjoint identity.  Then the card against the CPU where the render picks
+texels (the wrapped noise: 1e-6, the same IEEE operations) and the batched
+serving paths against serial replays (uint8 within 1 LSB).
 """
 
 import numpy as np
@@ -399,3 +401,82 @@ def test_warp_transpose_large_n_tiles():
     with pytest.raises(RuntimeError):           # beyond the tile's limit
         big = torch.zeros((1, 6000, 6000, 8), device="cuda")
         tw.warp_twopass_t(big, sc)
+
+
+def _small_engine(device):
+    """A 32-px triad engine with random weights from a numpy seed (the
+    parity tests' small configuration, built without JAX)."""
+    from brushstroke_engine_torch.engine.brush import TriadGanPaintEngine
+    from brushstroke_engine_torch.models.generator import \
+        make_generator_config
+    from brushstroke_engine_torch.models.geo_encoder import GeoEncoderConfig
+    from brushstroke_engine_torch.utils.checkpoint import (
+        init_native_params, params_from_jax,
+    )
+    enc = GeoEncoderConfig(
+        kind="sauto", in_channels=1, out_channels=1, preproc="-11inverse",
+        pre_filters=8, down_filters=(16, 16), post_filters=(8,),
+        up_filters=(16, 8))
+    gen = make_generator_config(
+        z_dim=16, w_dim=16, img_resolution=32,
+        geom_feature_resolutions=tuple(enc.featuremap_resolution(32, r)
+                                       for r in (0, 1)),
+        geom_feature_channels=tuple(enc.feature_channels(r) for r in (0, 1)),
+        channel_base=2048, channel_max=32)
+    trees = init_native_params(gen, enc, seed=3)
+    for block in trees["gen_params"]["synthesis"].values():
+        for name in ("conv0", "conv1"):
+            if name in block:
+                block[name]["noise_strength"] = np.float32(0.4)
+    t = {k: params_from_jax(v) for k, v in trees.items()}
+    return TriadGanPaintEngine(gen, t["gen_params"], t["gen_state"], enc,
+                               t["enc_params"], t["enc_state"],
+                               geom_inject_resolutions=(0, 1), device=device)
+
+
+@pytest.mark.parametrize("path", ["batched", "pooled"])
+def test_batched_serving_on_the_card(path):
+    """Three closed-loop painters through a batched path of the serving core
+    on the card: every reply arrives, K1 launches 6 times per generator
+    pass, passes hold several rows, and each served image equals the
+    session's strokes replayed one by one on the card (1 LSB) and on the
+    CPU (1 LSB)."""
+    from brushstroke_engine_torch.tools import bench_serve as bs
+    eng = _small_engine("cuda")
+    n_up = len(eng.gen_cfg.synthesis.block_resolutions) - 1
+    core = bs.make_core(eng, path, canvas=96, level=2, crop=4)
+    before = fe.fir4_epilogue.launches
+    stats, painters = bs.serve(core, path, 3, 4, 1, canvas=96, level=2,
+                               crop=4, trace_strokes=1, keep_images=True)
+    core.close()
+    assert fe.fir4_epilogue.launches - before == stats["k1_launches"] \
+        == n_up * stats["generator_passes"]
+    assert stats["fallbacks"] == 0 and stats["errors"] == 0
+    assert stats["rows_per_pass"]["max"] > 1
+    assert stats["device"]["busy_ms"] > 0
+    cpu = _small_engine("cpu")
+    for p in painters:
+        assert len(p.records) == 6
+        for eng_r in (eng, cpu):
+            replay = bs.serial_replay(eng_r, path, p, 96, 2, 4)
+            for r, (img, meta) in zip(p.records, replay):
+                assert r["meta"] == meta
+                assert np.abs(r["image"].astype(int)
+                              - img.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("img_res,layer_res", [(32, 32), (32, 8), (128, 128),
+                                               (128, 16), (256, 256)])
+def test_wrapped_noise_on_the_card_equals_the_cpu(img_res, layer_res):
+    """Every canvas position modulo the image size, on the card and on the
+    CPU: the same texels (a division by a Python number on CUDA rounds as a
+    product with the reciprocal and picked other texels at 17, 21, 25, 29
+    mod 32, and at 9, 13, 18, ... mod 128)."""
+    from brushstroke_engine_torch.ops.noise import wrapped_const_noise
+    rng = np.random.RandomState(img_res + layer_res)
+    tex = torch.from_numpy(rng.randn(layer_res, layer_res).astype(np.float32))
+    p = np.arange(img_res)
+    pos = torch.from_numpy(np.stack([p, p[::-1]], axis=1).astype(np.int64))
+    want = wrapped_const_noise(tex, pos, img_res)
+    got = wrapped_const_noise(tex.cuda(), pos.cuda(), img_res).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

@@ -33,7 +33,9 @@ from brushstroke_engine_torch.engine.device_canvas import (
 )
 from brushstroke_engine_torch.engine.render import render_core
 from brushstroke_engine_torch.engine.stylize import stylize_image_ondevice
-from brushstroke_engine_torch.tools import paint_image
+from brushstroke_engine_torch.tools import bench_serve, paint_image
+from brushstroke_engine_torch.ui import core as ui_core
+from brushstroke_engine_torch.ui import server as ui_server
 from brushstroke_engine_torch.ops.precision import set_precision_mode
 from brushstroke_engine_torch.utils import checkpoint as tckpt
 from tests.torch_helpers import small_model
@@ -210,6 +212,13 @@ def test_entry_points_need_cuda_unless_cpu(model, monkeypatch, tmp_path):
         paint_image.main(["--gan_checkpoint", str(tmp_path / "b.pkl"),
                           "--geo_image", str(tmp_path / "g.npy"),
                           "--output_dir", str(tmp_path)])
+    # The server: its core, the tornado shell, its CLI and the bench.
+    for make in (lambda: ui_core.create_core(),
+                 lambda: ui_server.create_server(None, None),
+                 lambda: ui_server.run_main(["--no_warmup"]),
+                 lambda: bench_serve.main(["--paths", "helper"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     engine = tbrush.TriadGanPaintEngine(tgen, *trees[:2], tenc, *trees[2:],
                                         geom_inject_resolutions=(0, 1),
                                         device="cpu")
@@ -226,6 +235,10 @@ def test_entry_points_need_cuda_unless_cpu(model, monkeypatch, tmp_path):
                                  overlap_margin=4, crop_margin=4,
                                  feature_blending_level=2, batch_size=2)
     assert out.shape == (56, 56, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ui_core.create_core(paint_engine=engine)
+    assert ui_core.create_core(paint_engine=engine,
+                               device="cpu").engine is engine
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -238,7 +251,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "train.augment", "train.dataset", "train.losses",
                 "train.loop", "train.state", "train.steps", "utils.img_proc",
                 "tools.profile_render", "tools.profile_train",
-                "tools.tune_kernels", "flagship"):
+                "tools.tune_kernels", "flagship", "ui.core", "ui.protocol",
+                "ui.server", "tools.bench_serve"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

@@ -1,0 +1,257 @@
+"""The port's train state and training loop on the CPU, strict f32: the JAX
+train state converted leaf by leaf, the FIR-epilogue kernel's backward with
+the launch stood in for, and ``TrainingLoop`` over a few batches.
+
+Small shapes: 32 px, B = 4, <= 32 channels.  Tolerances: converted trees
+and the networks they drive 2e-5 abs; phase stats 1e-4 relative (+1e-5
+abs); the FIR-epilogue gradients as stated in that test.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from brushstroke_engine_tpu.models import discriminator as jdisc
+from brushstroke_engine_tpu.train import steps as jsteps
+from brushstroke_engine_torch.models import discriminator as tdisc
+from brushstroke_engine_torch.ops import fir_epilogue as fe
+from brushstroke_engine_torch.ops.filters import setup_filter
+from brushstroke_engine_torch.train import state as tstate
+from brushstroke_engine_torch.train.loop import TrainingLoop
+from brushstroke_engine_torch.utils.checkpoint import (
+    params_from_jax, train_state_from_jax,
+)
+from brushstroke_engine_torch.utils.util import tree_leaves
+from tests.torch_train_helpers import (  # noqa: F401 (_strict: autouse)
+    _strict, RES, B, _np_tree, _train_cfgs, _jax_state, _batch,
+)
+
+
+# ---------------------------------------------------------------------------
+# State conversion
+# ---------------------------------------------------------------------------
+
+def test_train_state_from_jax_round_trip():
+    """A JAX train state after one Dmain and one Gmain step (non-zero Adam
+    moments) converts leaf by leaf with the layout rules, and the converted
+    trees drive the port's networks to the JAX package's outputs."""
+    m, jcfg, tcfg = _train_cfgs()
+    real, geom, truth, zs = _batch(1)
+    state = _jax_state(m, jcfg)
+    feats = jsteps.encode_geometry(jcfg, m["jax"]["enc_params"],
+                                   m["jax"]["enc_state"], jnp.asarray(geom))
+    state, _ = jsteps.d_main_step(jcfg, state, jnp.asarray(real), feats,
+                                  jnp.asarray(zs[0]), jax.random.PRNGKey(1))
+    state, _ = jsteps.g_main_step(jcfg, state, feats, jnp.asarray(truth),
+                                  jnp.asarray(zs[1]), jax.random.PRNGKey(2),
+                                  jnp.float32(0.5))
+    snap = _np_tree(state)
+    got = train_state_from_jax(snap, device="cpu")
+
+    assert set(got) == set(snap)
+    for k in ("g_opt", "d_opt"):
+        assert got[k]["count"] == 1 and isinstance(got[k]["count"], int)
+    assert got["geom_opt"]["count"] == 0
+    for k in ("g_params", "d_params", "g_ema", "noise"):
+        want = params_from_jax(snap[k])
+        for a, b in zip(tree_leaves(got[k]), tree_leaves(want)):
+            assert torch.equal(a, b)
+    adam = state["d_opt"][0]
+    for name in ("mu", "nu"):
+        want = params_from_jax(_np_tree(getattr(adam, name)))
+        for a, b, p in zip(tree_leaves(got["d_opt"][name]),
+                           tree_leaves(want), tree_leaves(got["d_params"])):
+            assert torch.equal(a, b) and a.shape == p.shape
+    assert float(got["d_opt"]["nu"]["b4"]["fc"]["weight"].abs().sum()) > 0
+    # b4.fc: only the [in, out] -> [out, in] transpose (both flatten NHWC).
+    np.testing.assert_array_equal(
+        got["d_params"]["b4"]["fc"]["weight"].numpy(),
+        snap["d_params"]["b4"]["fc"]["weight"].T)
+    for k in ("w_avg", "pl_mean", "ada_p", "ada_signs", "ada_count"):
+        np.testing.assert_array_equal(got[k].numpy(), snap[k])
+    img = np.random.RandomState(5).randn(B, RES, RES, 3).astype(np.float32)
+    np.testing.assert_allclose(
+        tdisc.discriminator_apply(tcfg.disc_cfg, got["d_params"],
+                                  torch.from_numpy(img)).numpy(),
+        np.asarray(jdisc.discriminator_apply(jcfg.disc_cfg,
+                                             state["d_params"],
+                                             jnp.asarray(img))),
+        rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The FIR-epilogue kernel's backward, with the launch stood in for
+# ---------------------------------------------------------------------------
+
+def test_fir_epilogue_function_backward_and_double_backward(monkeypatch):
+    """``_Fir4EpilogueFn`` wraps a launch whose result has no history.  With
+    the launch replaced by the (detached) plain version on the CPU, its
+    first and second derivatives must equal autograd through
+    ``fir4_epilogue_plain``: before the repair the kernel path returned a
+    tensor without ``grad_fn`` and every ``conv0`` layer cut the gradient."""
+    def fake_launch(x, taps, d, noise, bias, act_gain, clamp, alpha, dt):
+        return fe.fir4_epilogue_plain(x, taps, d, noise, bias, act_gain,
+                                      clamp, alpha, dt).detach()
+
+    monkeypatch.setattr(fe, "_launch_kernel", fake_launch)
+    rng = np.random.RandomState(0)
+    b, h, c = 2, 6, 5
+    taps = fe.correlation_taps(setup_filter([1, 3, 3, 1]))
+
+    def leaves():
+        rs = np.random.RandomState(1)
+        return [torch.from_numpy(a.astype(np.float32)).requires_grad_(True)
+                for a in (rs.randn(b, h + 3, h + 3, c), rs.rand(b, c) + 0.5,
+                          rs.randn(b, h, h, 1), rs.randn(c))]
+
+    cot = torch.from_numpy(rng.randn(b, h, h, c).astype(np.float32))
+    results = []
+    for use_fn in (True, False):
+        x, d, noise, bias = leaves()
+        # A non-linear pre-map so second derivatives are not trivially 0.
+        xin = torch.tanh(x) * 3
+        if use_fn:
+            y = fe._Fir4EpilogueFn.apply(xin, d, noise, bias, taps, 1.4, 2.0,
+                                         0.2, torch.float32)
+            assert y.grad_fn is not None
+        else:
+            y = fe.fir4_epilogue_plain(xin, taps, d, noise, bias, 1.4, 2.0,
+                                       0.2, torch.float32)
+        g1 = torch.autograd.grad((y * cot).sum(), [x, d, noise, bias],
+                                 create_graph=True)
+        penalty = sum(g.square().sum() for g in g1)
+        g2 = torch.autograd.grad(penalty, [x, d, noise, bias],
+                                 allow_unused=True)
+        results.append((y.detach(), g1, g2))
+    (y_a, g1_a, g2_a), (y_b, g1_b, g2_b) = results
+    torch.testing.assert_close(y_a, y_b, rtol=0, atol=0)
+    for a, b_ in zip(g1_a, g1_b):
+        torch.testing.assert_close(a.detach(), b_.detach(), rtol=1e-6,
+                                   atol=1e-6)
+    for a, b_ in zip(g2_a, g2_b):
+        assert (a is None) == (b_ is None)
+        if a is not None:
+            torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5)
+    assert g2_a[0] is not None and g2_a[0].abs().max() > 0
+    # Under no_grad nothing is recorded.
+    with torch.no_grad():
+        x, d, noise, bias = leaves()
+        y = fe._Fir4EpilogueFn.apply(x, d, noise, bias, taps, 1.4, 2.0, 0.2,
+                                     torch.float32)
+    assert y.grad_fn is None and not y.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# The loop
+# ---------------------------------------------------------------------------
+
+class _Const:
+    def __init__(self, batch):
+        self.batch = batch
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.batch
+
+
+def _loop(tmp_path, name, **kw):
+    m, _, tcfg = _train_cfgs(
+        "bgc", noise_mode="random", style_mixing_prob=0.9, d_reg_interval=2,
+        g_reg_interval=2, geom_interval=2, ada_interval=1,
+        kimg_per_tick=B / 1000.0, **kw)
+    rng = np.random.RandomState(4)
+    style = rng.randint(0, 256, (B, RES, RES, 3)).astype(np.uint8)
+    tri = rng.randint(0, 256, (B, RES + 8, RES + 8, 3)).astype(np.uint8)
+    loop = TrainingLoop(tcfg, m["torch"]["enc_params"],
+                        m["torch"]["enc_state"], _Const(style), _Const(tri),
+                        run_dir=str(tmp_path / name), seed=5, device="cpu")
+    return loop, tcfg
+
+
+def _read_stats(loop):
+    with open(loop.stats_path) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_training_loop_three_batches_on_cpu(tmp_path):
+    loop, cfg = _loop(tmp_path, "a", geom_warmstart_kimg=0)
+    p0 = [t.clone() for t in tree_leaves(loop.state["g_params"])]
+    d0 = [t.clone() for t in tree_leaves(loop.state["d_params"])]
+    ticks = []
+    loop.run(total_kimg=3 * B / 1000.0,
+             progress_fn=lambda cur, total: ticks.append(cur))
+    assert loop.batch_idx == 3 and loop.cur_nimg == 3 * B
+    assert ticks == [0, B, 2 * B, 3 * B]
+    rows = _read_stats(loop)
+    assert len(rows) == 3
+    for row in rows:
+        assert all(np.isfinite(v) for v in row.values())
+        assert row["Progress/ada_p"] >= 0
+    # Batch 0 and 2 run every phase; batch 1 only Dmain and Gmain.
+    for k in ("Loss/D/loss", "Loss/D/reg", "Loss/G/loss", "Loss/G/reg",
+              "Loss/forger/Ggeom/total", "Loss/forger/Gmain/iou_inv_uvs"):
+        assert k in rows[0] and k in rows[2], k
+    assert "Loss/D/reg" not in rows[1] and "Loss/G/reg" not in rows[1]
+    assert any(not torch.equal(a, b) for a, b in
+               zip(p0, tree_leaves(loop.state["g_params"])))
+    assert any(not torch.equal(a, b) for a, b in
+               zip(d0, tree_leaves(loop.state["d_params"])))
+    assert loop.state["g_opt"]["count"] == 5       # 3 Gmain + 2 Gpl
+    assert loop.state["d_opt"]["count"] == 5
+    assert loop.state["geom_opt"]["count"] == 2
+
+    # Same seed, same numbers.
+    loop2, _ = _loop(tmp_path, "b", geom_warmstart_kimg=0)
+    loop2.run(total_kimg=3 * B / 1000.0)
+    for a, b in zip(tree_leaves(loop.state["g_params"]),
+                    tree_leaves(loop2.state["g_params"])):
+        assert torch.equal(a, b)
+
+
+def test_training_loop_warm_start_and_unported_options(tmp_path):
+    loop, cfg = _loop(tmp_path, "w", geom_warmstart_kimg=2 * B / 1000.0)
+    assert loop.in_warmstart()
+    d0 = [t.clone() for t in tree_leaves(loop.state["d_params"])]
+    loop.run(total_kimg=1.0, exit_after_warmstart=True)
+    assert loop.batch_idx == 2 and not loop.in_warmstart()
+    rows = _read_stats(loop)
+    assert all("Loss/forger/Ggeom-warm/total" in r for r in rows)
+    assert all("Loss/D/loss" not in r for r in rows)
+    for a, b in zip(d0, tree_leaves(loop.state["d_params"])):
+        assert torch.equal(a, b)
+    assert loop.state["geom_opt"]["count"] == 2
+    for method in (loop.save_snapshot, loop.save_train_state,
+                   loop.load_train_state):
+        with pytest.raises(NotImplementedError):
+            method()
+    # No ramp-up in this configuration: beta follows the half-life.
+    assert loop._ema_beta() == pytest.approx(
+        0.5 ** (B / (cfg.ema_kimg * 1000.0)), rel=1e-6)
+
+    for kw in (dict(use_fused=True), dict(device_banks=object()),
+               dict(steps_per_dispatch=4), dict(mesh=object()),
+               dict(profile_dir="x"), dict(auto_resume=True)):
+        with pytest.raises(NotImplementedError):
+            TrainingLoop(cfg, {}, {}, None, None, run_dir=str(tmp_path / "n"),
+                         device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="stitch"):
+        TrainingLoop(dataclasses.replace(
+            cfg, stitch_interval=4, stitch_phase_losses="1.0*l1(patch)"),
+            {}, {}, None, None, run_dir=str(tmp_path / "n"), device="cpu")
+
+
+def test_training_loop_needs_cuda_unless_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, _, cfg = _train_cfgs()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainingLoop(cfg, {}, {}, None, None, run_dir=str(tmp_path / "c"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstate.init_train_state(cfg)
