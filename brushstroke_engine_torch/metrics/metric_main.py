@@ -1,0 +1,234 @@
+"""Metric evaluation loops: per-style stroke metrics and FID.
+
+Counterpart of ``brushstroke_engine_tpu/metrics/metric_main.py``: per style,
+Lab color control, transparency, background uniformity and across-geometry
+LPIPS; FID from real style images against strokes painted in 'full' mode
+over dataset geometry.
+
+Random draws: :func:`paint_engine_metric_loop` makes each batch's patch
+corners and permutations in one place (:func:`metric_draws`) from a CPU
+``torch.Generator`` seeded like the JAX package's key; its ``draws``
+argument takes them from the caller instead.
+
+Not ported yet, and raising where asked for: the stitching metrics
+(``stitching_metric_loop`` and the loop's ``stitcher``), which need
+``train/stitching.py``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from brushstroke_engine_torch.metrics import color as color_metric
+from brushstroke_engine_torch.metrics import fid as fid_lib
+from brushstroke_engine_torch.metrics import geom as geom_metric
+from brushstroke_engine_torch.models.mapping import mapping_apply
+
+logger = logging.getLogger(__name__)
+
+
+def update_sum_dict(total: Dict, new: Dict):
+    for k, v in new.items():
+        total[k] = total.get(k, 0.0) + float(v)
+
+
+def normalize_sum_dict(total: Dict, denom: float):
+    for k in total:
+        total[k] = total[k] / denom
+
+
+def to_file_line(values, do_strip=True) -> str:
+    parts = []
+    for v in values:
+        parts.append("{:<15}".format(
+            v if isinstance(v, str) else "%0.4f" % float(v)))
+    return " ".join(parts).rstrip() + "\n" if do_strip else \
+        " ".join(parts) + "\n"
+
+
+def ordered_dict_values(d: Dict, keys):
+    return [d[k] for k in keys]
+
+
+def metric_draws(rng: torch.Generator, batch: int, width: int) -> Dict:
+    """One batch's draws: the patch corners of the two background-uniformity
+    metrics (``"bg_multicolor"``, ``"bg_same"`` with its permutation) and
+    the across-geometry permutation (``"across_geo"``)."""
+    pw = geom_metric.uniform_bg_patch_width(width)
+    return {
+        "bg_multicolor": geom_metric.uniform_bg_draws(
+            rng, batch, width, width, pw, same_style=False),
+        "bg_same": geom_metric.uniform_bg_draws(
+            rng, batch, width, width, pw, same_style=True),
+        "across_geo": geom_metric.across_geo_perm(rng, batch),
+    }
+
+
+def paint_engine_metric_loop(generator, style_library, nbatches_per_style,
+                             fullres_geom_iterator=None, stitcher=None,
+                             geom_input_channel: int = 1,
+                             eval_output_dir: Optional[str] = None,
+                             files_prefix: str = "",
+                             draws: Optional[Iterable[Dict]] = None
+                             ) -> Dict[str, float]:
+    """Per-style metric loop; returns the metrics averaged over styles.
+    ``draws``: per-batch :func:`metric_draws` dicts, in batch order."""
+    if stitcher is not None:
+        raise NotImplementedError(
+            "stitching metrics need train/stitching.py, which is not "
+            "ported yet")
+    generator.set_render_mode("clear")
+    if draws is None:
+        rng = torch.Generator().manual_seed(
+            generator.random_state.seed or 0)
+        w = generator.engine.patch_width
+        draws = iter(lambda: metric_draws(rng, generator.batch_size, w),
+                     None)
+    else:
+        draws = iter(draws)
+    style_ofile = summary_ofile = None
+    if eval_output_dir is not None:
+        os.makedirs(eval_output_dir, exist_ok=True)
+        style_ofile = open(os.path.join(
+            eval_output_dir, f"{files_prefix}style_metrics.txt"), "w")
+        summary_ofile = open(os.path.join(
+            eval_output_dir, f"{files_prefix}summary_metrics.txt"), "w")
+
+    ordered_keys = None
+    summary_losses: Dict[str, float] = {}
+    style_ws = {}
+    nprocessed = 0
+    eng = generator.engine
+
+    for style_id in style_library.get_style_ids():
+        seed_str = "{:<15}".format(style_id)
+        style_library.set_style(style_id, generator.brush_options)
+
+        # Record the style's W for library export.
+        opts = generator.brush_options
+        if opts.style_ws is not None:
+            style_ws[seed_str] = np.asarray(opts.style_ws)
+        elif opts.style_z is not None:
+            ws = mapping_apply(
+                eng.gen_cfg.mapping, eng.gen_params["mapping"],
+                torch.as_tensor(np.asarray(opts.style_z, np.float32),
+                                device=eng.device),
+                w_avg=eng.gen_state.get("w_avg"))
+            style_ws[seed_str] = ws.cpu().numpy()
+
+        style_losses: Dict[str, float] = {}
+        for _ in range(nbatches_per_style):
+            d = next(draws)
+            colors = generator.random_colors()
+            generator.set_new_geom()
+            generator.set_new_primary_color(colors)
+            render = generator.generate()
+            geom = torch.as_tensor(generator.geom, device=render.device)
+
+            batch_losses = color_metric.compute_lab_metrics(
+                colors, render, geom)
+            batch_losses.update(
+                geom_metric.compute_transparency_metrics(render, geom))
+            batch_losses.update(geom_metric.compute_uniform_bg_lpips_metric(
+                render, geom, same_style=False, draws=d["bg_multicolor"],
+                key_suffix="multicolor"))
+
+            generator.unset_colors()
+            render = generator.generate()
+            batch_losses.update(geom_metric.compute_uniform_bg_lpips_metric(
+                render, geom, same_style=True, draws=d["bg_same"]))
+            batch_losses.update(geom_metric.compute_lpips_across_geo(
+                render, perm=d["across_geo"]))
+            update_sum_dict(style_losses, batch_losses)
+
+        if ordered_keys is None:
+            ordered_keys = sorted(style_losses.keys())
+            header = "SEED            " + to_file_line(ordered_keys)
+            if style_ofile:
+                style_ofile.write(header)
+            if summary_ofile:
+                summary_ofile.write(to_file_line(ordered_keys))
+
+        normalize_sum_dict(style_losses, float(nbatches_per_style))
+        update_sum_dict(summary_losses, style_losses)
+        line = seed_str + " " + to_file_line(
+            ordered_dict_values(style_losses, ordered_keys), do_strip=False)
+        if style_ofile:
+            style_ofile.write(line)
+            style_ofile.flush()
+        logger.debug("%d: %s", nprocessed, line.strip())
+        nprocessed += 1
+
+    normalize_sum_dict(summary_losses, float(max(nprocessed, 1)))
+    if style_ofile:
+        style_ofile.close()
+    if summary_ofile:
+        summary_ofile.write(to_file_line(
+            ordered_dict_values(summary_losses, ordered_keys or []),
+            do_strip=False))
+        summary_ofile.close()
+    if eval_output_dir is not None:
+        with open(os.path.join(eval_output_dir,
+                               f"{files_prefix}style_ws.pkl"), "wb") as f:
+            pickle.dump(style_ws, f)
+    return summary_losses
+
+
+def stitching_metric_loop(generator, fullres_geom_iterator, num_batches,
+                          stitcher=None, geom_input_channel: int = 1):
+    raise NotImplementedError(
+        "stitching_metric_loop needs train/stitching.py, which is not "
+        "ported yet")
+
+
+def forger_compute_fid(generator, real_batches: Iterable,
+                       num_items: int = 50000,
+                       fade_canvas: bool = False) -> float:
+    """FID between real style images and strokes painted in 'full' mode
+    ('fadecanvas' composites over a blurred copy of the stroke)."""
+    generator.set_render_mode("full")
+    device = generator.engine.device
+    stats_real = fid_lib.FeatureStats(num_items)
+    stats_gen = fid_lib.FeatureStats(num_items)
+
+    for batch in real_batches:
+        stats_real.append(fid_lib.extract_features(batch, device=device))
+        if stats_real.is_full:
+            break
+
+    while not stats_gen.is_full:
+        generator.set_new_geom()
+        generator.set_new_styles(generator.get_random_styles())
+        generator.set_random_colors()
+        render = generator.generate()
+        rgb = render[..., :3]
+        if fade_canvas:
+            blur = geom_metric.gaussian_smoothing(rgb)
+            alpha = render[..., 3:4]
+            rgb = alpha * rgb + (1 - alpha) * blur
+        img = (rgb * 255).clamp(0, 255).to(torch.uint8)
+        stats_gen.append(fid_lib.extract_features(img, device=device))
+
+    return fid_lib.compute_fid_from_feature_stats(stats_real, stats_gen)
+
+
+def summary_losses_to_file(fname, losses, step=None, do_print=False):
+    """Append a metrics line (with a header line when the file is new)."""
+    ordered_keys = sorted(losses.keys())
+    exists = os.path.isfile(fname)
+    with open(fname, "a") as f:
+        if not exists:
+            head = ("STEP " if step is not None else "") + \
+                to_file_line(ordered_keys)
+            f.write(head)
+        line = (("%d " % step) if step is not None else "") + to_file_line(
+            ordered_dict_values(losses, ordered_keys), do_strip=False)
+        f.write(line)
+    if do_print:
+        print(line.strip())

@@ -1,16 +1,17 @@
 """Where a training batch's time goes on the GPU.
 
 Traces the canonical training configuration (``flagship_train_config``:
-128 px, batch 64, strict f32, ADA 'bgc', random weights from a seed,
-synthetic data) with ``torch.profiler`` (CPU and CUDA activities) over a few
+128 px, batch 64, strict f32 -- or G and D in bf16 at the N highest
+resolutions with ``--num_bf16_res N``, 4 being the training CLI's default --,
+ADA 'bgc', random weights from a seed, synthetic data) with ``torch.profiler`` (CPU and CUDA activities) over a few
 steady batches of ``TrainingLoop.run``, and prints the wall time per batch,
 the device's busy time and idle share, and the kernels that take the most
 device time; the hand-written kernels are listed apart.  The full table goes
-to ``<out_dir>/profile_train[_shapes][_cudnn_benchmark].txt`` (default
-``build/profile``).
+to ``<out_dir>/profile_train[_bf16N][_shapes][_cudnn_benchmark].txt``
+(default ``build/profile``).
 
     python3 -m brushstroke_engine_torch.tools.profile_train [--batches N]
-        [--out_dir DIR] [--shapes] [--cudnn_benchmark]
+        [--out_dir DIR] [--shapes] [--cudnn_benchmark] [--num_bf16_res N]
 
 ``--shapes`` also lists the convolution calls that take the most device time
 by input shape (recording shapes adds host time, so the wall time and idle
@@ -26,6 +27,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -53,8 +55,11 @@ def main(argv=None):
     p.add_argument("--out_dir", default="build/profile")
     p.add_argument("--shapes", action="store_true")
     p.add_argument("--cudnn_benchmark", action="store_true")
+    p.add_argument("--num_bf16_res", type=int, default=0)
     args = p.parse_args(argv)
-    tag = "train" + ("_shapes" if args.shapes else "") \
+    nb = args.num_bf16_res
+    tag = "train" + (f"_bf16{nb}" if nb else "") \
+        + ("_shapes" if args.shapes else "") \
         + ("_cudnn_benchmark" if args.cudnn_benchmark else "")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -67,6 +72,10 @@ def main(argv=None):
     cfg = flagship_train_config(RES, BATCH, geom_warmstart_kimg=0,
                                 geom_interval=8,
                                 kimg_per_tick=BATCH / 1000.0)
+    cfg = dataclasses.replace(
+        cfg, gen_cfg=dataclasses.replace(cfg.gen_cfg, synthesis=(
+            dataclasses.replace(cfg.gen_cfg.synthesis, num_bf16_res=nb))),
+        disc_cfg=dataclasses.replace(cfg.disc_cfg, num_bf16_res=nb))
     state, enc_p, enc_s = flagship_train_setup(cfg, 0, 0.1, "cuda")
     state["ada_p"] = torch.full((), 0.5, device="cuda")
     style_iter, geom_iter = synthetic_data_iters(RES, BATCH, 0)
@@ -74,6 +83,9 @@ def main(argv=None):
     try:
         loop = TrainingLoop(cfg, enc_p, enc_s, style_iter, geom_iter, run_dir,
                             seed=0, resume_state=state, device="cuda")
+        # The trace measures the batches: the snapshot and train state each
+        # run() writes when it ends are left out.
+        loop.save_snapshot = loop.save_train_state = lambda *a, **k: None
         loop.run(total_kimg=(WARMUP_BATCHES * BATCH - 0.5) / 1000.0)
         torch.cuda.synchronize()
         n = args.batches
@@ -108,7 +120,8 @@ def main(argv=None):
                     if "convolution" in e.key and device_us(e) > 0),
                    key=lambda e: -device_us(e))[:10] if args.shapes else []
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
-    result = {"config": "train_128px_b64_f32", "card": card, "batches": n,
+    result = {"config": "train_128px_b64_" + (f"bf16x{nb}" if nb else "f32"),
+              "card": card, "batches": n,
               "cudnn_benchmark": args.cudnn_benchmark,
               "record_shapes": args.shapes,
               "first_batch": WARMUP_BATCHES, "wall_ms_per_batch": wall_ms,

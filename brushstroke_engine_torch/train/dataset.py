@@ -23,7 +23,8 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from brushstroke_engine_torch.data.curves import (
-    random_spline_stroke, triband_from_stroke,
+    draw_stroke_into, random_spline_points, sample_radius,
+    triband_from_stroke,
 )
 from brushstroke_engine_torch.utils.img_proc import resize_bilinear
 
@@ -136,8 +137,13 @@ class SyntheticGeometryDataset:
         return self.size
 
     def __getitem__(self, idx: int) -> np.ndarray:
+        # random_spline_stroke's draws, in its order, drawn by
+        # draw_stroke_into (near each segment only) on a fresh canvas.
         rng = np.random.default_rng(self.seed * 1000003 + idx)
-        stroke = random_spline_stroke(rng, self.resolution)
+        radius = sample_radius(rng)
+        pts = random_spline_points(rng, self.resolution)
+        stroke = np.ones((self.resolution, self.resolution), np.float32)
+        draw_stroke_into(stroke, pts, radius)
         tri = triband_from_stroke(stroke)
         return np.clip(tri * 255, 0, 255).astype(np.uint8)
 

@@ -1,4 +1,4 @@
-"""Host-side training loop: phase scheduling, data feed, ticks.
+"""Host-side training loop: phase scheduling, data feed, ticks, snapshots.
 
 Counterpart of the unfused single-device branch of
 ``brushstroke_engine_tpu/train/loop.py``: the same phase machine --
@@ -6,14 +6,23 @@ Dmain(1), Dreg(d_reg_interval), Gmain(1), Greg(g_reg_interval) and
 Ggeom(geom_interval), with a separate Ggeom-warm schedule during the
 warm-start kimg -- driving the phase functions of ``train/steps.py``.  This
 loop only feeds fixed-shape numpy batches, applies the schedule, updates
-ADA p and handles ticks (``stats.jsonl``, the ``on_tick`` hook).
+ADA p and handles ticks: ``stats.jsonl`` (and TensorBoard events where the
+package is installed), the ``on_tick`` hook, and every ``snapshot_ticks``
+ticks (and at the end) a network snapshot, the resumable train state and
+the ``on_snapshot`` hook.
 
 Per-batch loss scalars stay on the device until the tick boundary: reading
 them every batch would stall the launch queue once per scalar.
 
+The train state file (``train_state.pkl``) is the port's own: the state
+tree as numpy leaves in the port's layouts (0-d leaves stay 0-d, Adam
+counts stay ints), the counters, and both random streams -- the host numpy
+generator and the device ``torch.Generator`` -- so that a resumed run goes
+on as the uninterrupted one would.
+
 Not ported yet, and raising where asked for: the fused step, device-resident
-data banks, multi-batch dispatch, a device mesh, profiling, snapshots and
-resumable train state, and the stitch phase.
+data banks, multi-batch dispatch, a device mesh, profiling, the Orbax
+train-state backend and the stitch phase.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import pickle
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
@@ -34,9 +44,13 @@ from brushstroke_engine_torch.train.dataset import (
 )
 from brushstroke_engine_torch.train.state import TrainConfig, \
     init_train_state
+from brushstroke_engine_torch.utils.checkpoint import EngineBundle, \
+    save_native
 from brushstroke_engine_torch.utils.util import (
     resolve_device, tree_map, tree_to,
 )
+
+TRAIN_STATE_MAGIC = "brushstroke_engine_torch.train_state.v1"
 
 logger = logging.getLogger(__name__)
 
@@ -45,6 +59,15 @@ logger = logging.getLogger(__name__)
 class LoopHooks:
     """Optional callbacks invoked at tick time."""
     on_tick: Optional[Callable] = None          # (loop, stats_dict)
+    on_snapshot: Optional[Callable] = None      # (loop, snapshot_path)
+
+
+def _to_numpy(t):
+    """A state leaf for the train-state file: tensors become numpy arrays
+    of their own shape (0-d stays 0-d), ints stay ints."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", copy=True).numpy()
+    return t
 
 
 class TrainingLoop:
@@ -55,12 +78,11 @@ class TrainingLoop:
                  profile_phases: bool = False,
                  use_fused: bool = False, mesh=None, device_banks=None,
                  steps_per_dispatch: int = 1, profile_dir=None,
-                 device="cuda"):
+                 snapshot_ticks: int = 1, device="cuda"):
         for name, asked in (("use_fused", use_fused), ("mesh", mesh),
                             ("device_banks", device_banks),
                             ("steps_per_dispatch", steps_per_dispatch != 1),
-                            ("profile_dir", profile_dir),
-                            ("auto_resume", auto_resume)):
+                            ("profile_dir", profile_dir)):
             if asked:
                 raise NotImplementedError(
                     f"TrainingLoop({name}=...) is not ported yet")
@@ -92,11 +114,29 @@ class TrainingLoop:
         self.warm_step = train_steps.make_geom_step(cfg, warmstart=True) \
             if cfg.geom_warmstart_kimg > 0 else None
 
+        # Network snapshot and train state every snapshot_ticks ticks (the
+        # final tick always persists).
+        self.snapshot_ticks = max(int(snapshot_ticks), 1)
         self.cur_nimg = 0
         self.batch_idx = 0
         self.cur_tick = 0
         self.stats_path = os.path.join(run_dir, "stats.jsonl")
+        # TensorBoard events beside stats.jsonl, where the package is
+        # installed.
+        self.tb_writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self.tb_writer = SummaryWriter(log_dir=run_dir)
+        except ImportError:
+            logger.info("TensorBoard unavailable; writing stats.jsonl only")
         self._last_stats: Dict[str, float] = {}
+        self._last_snapshot_sec: Optional[float] = None
+        # Eval-hook failures, reported in the tick stats as
+        # Eval/<name>_failures, so a broken metric or viz path shows in
+        # stats.jsonl and not only in the log.
+        self.hook_failure_counts: Dict[str, int] = {}
+        if auto_resume and resume_state is None:
+            self.load_train_state()
 
         # Clarity finetune: fake_orig losses compare against the FROZEN
         # original generator (a real copy, taken after any resume).
@@ -114,17 +154,78 @@ class TrainingLoop:
 
     # ------------------------------------------------------------------
 
-    def save_train_state(self, path=None):
-        raise NotImplementedError(
-            "resumable train state (save_train_state) is not ported yet")
+    def save_train_state(self, path: Optional[str] = None,
+                         backend: str = "pickle",
+                         next_tick: Optional[int] = None) -> str:
+        """Write the whole resumable state (see the module doc) to ``path``
+        (default ``run_dir/train_state.pkl``), atomically.  ``next_tick``:
+        the tick a resumed run starts at (default ``cur_tick``; the save at
+        the end of a tick passes the one after it, so a resumed run does
+        not repeat a tick's number)."""
+        if backend != "pickle":
+            raise NotImplementedError(
+                f"the {backend!r} train-state backend is not ported yet")
+        path = path or os.path.join(self.run_dir, "train_state.pkl")
+        payload = {
+            "magic": TRAIN_STATE_MAGIC,
+            "state": tree_map(_to_numpy, self.state),
+            "rng_state": {
+                "np_rng": self.rng.bit_generator.state,
+                "device_rng": self.device_rng.get_state().numpy()},
+            "cur_nimg": self.cur_nimg, "batch_idx": self.batch_idx,
+            "cur_tick": self.cur_tick if next_tick is None else next_tick,
+        }
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(payload, f, protocol=4)
+        os.replace(tmp, path)
+        return path
 
-    def load_train_state(self, path=None):
-        raise NotImplementedError(
-            "resumable train state (load_train_state) is not ported yet")
+    def load_train_state(self, path: Optional[str] = None,
+                         backend: str = "pickle") -> bool:
+        """Restore what :meth:`save_train_state` wrote; False if there is no
+        file."""
+        if backend != "pickle":
+            raise NotImplementedError(
+                f"the {backend!r} train-state backend is not ported yet")
+        path = path or os.path.join(self.run_dir, "train_state.pkl")
+        if not os.path.isfile(path):
+            return False
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        if payload.get("magic") != TRAIN_STATE_MAGIC:
+            raise ValueError(f"not a train state of this package: {path}")
+        self.state = tree_map(
+            lambda a: torch.as_tensor(a, device=self.device)
+            if isinstance(a, np.ndarray) else a, payload["state"])
+        self.cur_nimg = payload["cur_nimg"]
+        self.batch_idx = payload["batch_idx"]
+        self.cur_tick = payload["cur_tick"]
+        self.rng.bit_generator.state = payload["rng_state"]["np_rng"]
+        self.device_rng.set_state(
+            torch.from_numpy(payload["rng_state"]["device_rng"]))
+        logger.info("Resumed training state at %d kimg",
+                    self.cur_nimg // 1000)
+        return True
 
-    def save_snapshot(self):
-        raise NotImplementedError(
-            "network snapshots (save_snapshot) are not ported yet")
+    def save_snapshot(self) -> str:
+        """A self-contained engine bundle of G_ema and the geometry encoder
+        (``network-snapshot-<kimg>.pkl``), through ``save_native``."""
+        path = os.path.join(
+            self.run_dir,
+            f"network-snapshot-{self.cur_nimg // 1000:06d}.pkl")
+        save_native(path, EngineBundle(
+            gen_cfg=self.cfg.gen_cfg,
+            gen_params=self.state["g_ema"],
+            gen_state={"w_avg": self.state["w_avg"],
+                       "noise": self.state["noise"]},
+            enc_cfg=self.cfg.enc_cfg,
+            enc_params=self.enc_params,
+            enc_state=self.enc_state,
+            color_format=self.cfg.gen_cfg.synthesis.color_format,
+            geom_inject_resolutions=self.cfg.enc_res,
+            extra={"cur_nimg": self.cur_nimg}))
+        return path
 
     def _data(self, x):
         return torch.as_tensor(np.asarray(x), device=self.device)
@@ -274,8 +375,19 @@ class TrainingLoop:
             stats["Timing/sec_per_tick"] = tick_time
             stats["Timing/sec_per_kimg"] = tick_time / max(
                 (self.cur_nimg - tick_start_nimg) / 1000.0, 1e-8)
+            if self._last_snapshot_sec is not None:
+                # The previous persisting tick's cost (it runs after the
+                # stats are written, so it is reported one tick late).
+                stats["Timing/snapshot_sec"] = self._last_snapshot_sec
+                self._last_snapshot_sec = None
+            for name, cnt in self.hook_failure_counts.items():
+                stats[f"Eval/{name}_failures"] = cnt
             with open(self.stats_path, "a") as f:
                 f.write(json.dumps(stats) + "\n")
+            if self.tb_writer is not None:
+                for k, v in stats.items():
+                    self.tb_writer.add_scalar(k, v, self.cur_nimg)
+                self.tb_writer.flush()
             logger.info("tick %d kimg %.1f %s", self.cur_tick,
                         self.cur_nimg / 1e3,
                         {k: round(v, 4) for k, v in list(stats.items())[:6]})
@@ -287,8 +399,19 @@ class TrainingLoop:
                 logger.info("Aborting at user request (abort_fn)")
                 done = True
 
+            if done or self.cur_tick % self.snapshot_ticks == 0:
+                t_snap = time.time()
+                snap_path = self.save_snapshot()
+                self.save_train_state(next_tick=self.cur_tick + 1)
+                self._last_snapshot_sec = time.time() - t_snap
+                if self.hooks.on_snapshot is not None:
+                    self.hooks.on_snapshot(self, snap_path)
+
             self.cur_tick += 1
             tick_start_nimg = self.cur_nimg
             tick_start_time = time.time()
             if done:
+                if self.tb_writer is not None:
+                    # Ends the writer's thread; a later run() reopens it.
+                    self.tb_writer.close()
                 return self.state

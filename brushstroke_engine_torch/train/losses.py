@@ -11,9 +11,8 @@ lpips, bce, bgstd, bgl2, fgl4gt.  Components: canvas, uvs, u, alpha,
 fake_img, color_0..2, fake_orig, fake_composite, patch, fake.
 
 All compute functions are torch ops over a ``debug_data`` dict (NHWC).  The
-two LPIPS-based losses (``lpips``, ``plpips``) parse but raise
-``NotImplementedError`` when computed: they need ``metrics/lpips.py`` and
-its weights, which are not ported.
+two LPIPS-based losses (``lpips``, ``plpips``) use the default LPIPS model
+of their input's device (``metrics/lpips.py``).
 
 Random crops take explicit draws: ``rng`` is an object with numpy's
 ``Generator.integers(low, high)`` (the training loop passes its host
@@ -204,16 +203,19 @@ def _hsv_loss(item, dd, geom_truth, rng):
     return res
 
 
-def _needs_lpips(name):
-    raise NotImplementedError(
-        f"the {name!r} loss needs metrics/lpips.py and its weights, which "
-        f"are not ported yet")
-
-
 @register_loss("plpips")
 def _plpips_loss(item, dd, geom_truth, rng):
     """Patch-LPIPS uniformity of the background/canvas (losses.py:435)."""
-    _needs_lpips("plpips")
+    from brushstroke_engine_torch.metrics.lpips import lpips_batched
+    if item.component == "canvas":
+        images = dd["canvas"]
+    else:
+        bg = get_background(dd, item.component)
+        images = bg[..., None].expand(*bg.shape, 3) * 2 - 1
+    assert rng is not None, "plpips needs crop draws"
+    p0 = random_patches(rng, images)
+    p1 = random_patches(rng, images)
+    return lpips_batched(p0, p1).mean()
 
 
 @register_loss("iou")
@@ -280,7 +282,17 @@ def _gan_loss(item, dd, geom_truth, rng):
 
 @register_loss("lpips")
 def _lpips_loss(item, dd, geom_truth, rng):
-    _needs_lpips("lpips")
+    from brushstroke_engine_torch.metrics.lpips import lpips_batched
+    c = item.component
+    if c == "fake_composite":
+        target, source = dd["fake"], dd["fake_composite"]
+    elif c == "fake_orig":
+        target, source = dd["fake_orig"].detach(), dd["fake_img"]
+    elif c == "patch":
+        target, source = dd["patch1"], dd["patch2"]
+    else:
+        raise ValueError(f"lpips: unsupported component {c}")
+    return lpips_batched(target, source).mean()
 
 
 @register_loss("bce")

@@ -13,7 +13,8 @@ port's tensors (and :func:`params_to_jax` back, for :func:`save_native`):
 
 The discriminator's ``b4.fc`` weight needs only the FC transpose: both
 packages flatten the 4x4 map as NHWC.  :func:`train_state_from_jax` applies
-the same rules to a whole JAX train state, optimizer moments included.
+the same rules to a whole JAX train state, optimizer moments included, and
+:func:`train_state_to_jax` back.
 
 :func:`init_native_params` builds flagship-shaped random trees in the JAX
 layout from a numpy seed, so a run needs no checkpoint and no JAX.
@@ -319,3 +320,19 @@ def train_state_from_jax(state, device="cuda") -> Dict:
     for k in ("g_opt", "d_opt", "geom_opt"):
         out[k] = _adam_from_jax(state[k])
     return tree_to(out, dev)
+
+
+def train_state_to_jax(state) -> Dict:
+    """The port's train state -> numpy trees in the JAX package's layouts
+    (inverse of :func:`train_state_from_jax`); each Adam state becomes
+    ``{"count": int32, "mu": tree, "nu": tree}``, the fields of optax's
+    ``ScaleByAdamState``."""
+    out = {k: params_to_jax(state[k])
+           for k in ("g_params", "d_params", "g_ema", "noise")}
+    for k in ("w_avg", "pl_mean", "ada_p", "ada_signs", "ada_count"):
+        out[k] = np.array(state[k].detach().cpu(), np.float32)
+    for k in ("g_opt", "d_opt", "geom_opt"):
+        out[k] = {"count": np.int32(state[k]["count"]),
+                  "mu": params_to_jax(state[k]["mu"]),
+                  "nu": params_to_jax(state[k]["nu"])}
+    return out

@@ -1,8 +1,13 @@
-"""Numpy image helpers of the training data pipeline and the stylize tool
-(the port's copy of what it needs from
-``brushstroke_engine_tpu/utils/img_proc.py``)."""
+"""Numpy image helpers of the training data pipeline, the stylize tool and
+the visualizer (the port's copy of what it needs from
+``brushstroke_engine_tpu/utils/img_proc.py``, and a PNG writer that needs no
+Pillow)."""
 
 from __future__ import annotations
+
+import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -50,3 +55,34 @@ def threshold_otsu(gray: np.ndarray, nbins: int = 256) -> float:
         between = w0 * w1 * (mu0 - mu1) ** 2
     between[~np.isfinite(between)] = -1
     return float(centers[int(np.argmax(between))])
+
+
+_PNG_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}   # channels -> PNG color type
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write a uint8 ``[H, W]`` or ``[H, W, C]`` (C = 1..4: gray, gray +
+    alpha, RGB, RGBA) image as an 8-bit PNG with ``zlib`` alone (filter 0
+    on every row).  Creates the parent directory."""
+    a = np.asarray(img)
+    if a.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8, got {a.dtype}")
+    if a.ndim == 2:
+        a = a[..., None]
+    if a.ndim != 3 or a.shape[2] not in _PNG_COLOR_TYPE:
+        raise ValueError(f"write_png takes [H, W] or [H, W, 1..4], got "
+                         f"{a.shape}")
+    h, w, c = a.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(a).reshape(h, w * c)], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    header = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPE[c], 0, 0, 0)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))

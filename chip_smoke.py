@@ -19,10 +19,13 @@ Phases, in order; any failure exits non-zero:
    narrower than a thread's column walk), every tile forced as well as the
    kernel's own choice; then the paint and serving paths' batches (B = 1
    to 8 and 32 at the same six shapes, f32); then the trainer's shapes
-   (B = 64, f32), checked and timed.
+   (B = 64, f32), checked and timed; then the CLI training run's bf16 rows
+   (``--num_bf16_res 4``: 16-128 px, B = 64 and 32, C = 128, noise and
+   clamp), checked, the B = 64 rows timed.
 4. The FIR-epilogue kernel's backward: gradients of x, dcoefs, noise and
    bias through the kernel path against autograd through the plain version
-   at the 64-px and 128-px training shapes, and one double backward.
+   at the 64-px and 128-px training shapes, and one double backward; then
+   bf16 at the 64- and 128-px training shapes (B = 64, C = 128).
 5. The ADA two-pass warp kernels W and W^T against their plain versions:
    the five transform classes and 64 matrices of the ADA pipe at p = 1, at
    [64,128,128,3] and [8,64,64,3], antialias on and off, values, two calls
@@ -73,7 +76,27 @@ Phases, in order; any failure exits non-zero:
    of the batched paths, session 0 of the others) within 1 LSB, and a
    4-stroke session on a 512 x 512 canvas through each serial path equals
    the same core on the CPU within 1 LSB.
-10. Prints the kernel table as JSON, then the final JSON line.
+10. The training run as ``neube_train.sh train`` runs it:
+    ``tools/train.py:main`` in process with the lines of ``train_flags.txt``
+    (128 px, batch 64, ``--num_bf16_res`` 4 and ``--metrics fid,forger`` at
+    their defaults), cut only in length, warm start, Ggeom interval and
+    snapshot cadence (``CLI_CUTS``); checks the files it leaves (options,
+    finite stats, the snapshot and train state, the three viz sheets, the
+    forger metrics), that no eval hook failed, and K1's, W's and W^T's
+    launches against the schedule with the hooks' generator passes.  Then
+    resume (a loop resumed from the run's train state takes RESUME_N
+    batches and saves; a new loop resumed from that save takes the same
+    RESUME_M batches as the first: bitwise equal, with cuDNN's
+    deterministic algorithms), the clarity finetune (train + finetune
+    flags, ``--resume`` the snapshot: the LPIPS term finite and non-zero,
+    G_orig the frozen snapshot, a snapshot written), FID of the snapshot's
+    engine against 256 seeded noise style images, LPIPS and the detector
+    features of one batch on the card against the CPU, and the snapshot
+    loaded by ``PaintEngineFactory`` (within 1 LSB of the loop's engine) and
+    served by ``ui.core.create_core``.  Prints s/batch and images/s per
+    phase, ``Timing/snapshot_sec``, the hooks', FID's and the finetune
+    step's seconds and peak memory.
+11. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
@@ -109,6 +132,10 @@ RENDER_ATOL = 1e-3
 # each gradient (the backward re-runs the plain chain on the saved inputs;
 # only rounding of the f32 sums differs).
 FIR_GRAD_RTOL = 1e-4
+# The same with a bf16 input and cotangent (the CLI run's --num_bf16_res 4):
+# 2^-7 of the largest entry -- the backward re-runs the plain chain on the
+# same bf16 inputs, so the bound is one bf16 rounding of a summed product.
+FIR_GRAD_BF16_RTOL = 2.0 ** -7
 # Two-pass warp, kernel vs plain: 2e-5 forward (the same f32 weights, taps
 # summed in another order), 2e-4 for W^T and the second-order gradient
 # (relative to the largest entry), 1e-4 relative for <Wx, g> = <x, W^T g>.
@@ -117,6 +144,8 @@ WARP_FWD_TOL, WARP_GRAD_TOL, WARP_ADJ_RTOL = 2e-5, 2e-4, 1e-4
 # losses within 1e-4 relative (f32 sums in another order through G and D).
 TRAIN_RTOL = 1e-4
 TRAIN_RES, TRAIN_BATCH, TRAIN_BATCHES, WARM_BATCHES = 128, 64, 33, 2
+# The conv0 layers the CLI run's --num_bf16_res 4 puts in bf16 at 128 px.
+TRAIN_BF16_RES = (16, 32, 64, 128)
 # The paint path: a 1024-px canvas blended at level 2 (res/2 = 128 px,
 # 128 channels: a 128 MiB feature canvas), crop margin 10, a 2048-px drawing
 # (padded to 2144 px: 9 x 9 tiles at stride 236); the CPU comparison at 512 px
@@ -135,6 +164,28 @@ CMP_CANVAS, CMP_DRAWING, CMP_BATCH = 512, 472, 2
 SERVE_CANVAS, SERVE_WINDOW_MS = 1024, 4.0
 SERVE_RUNS = ((1, 24, 4), (8, 8, 2))
 SERVE_TRACE, SERVE_CMP_STROKES = 2, 4
+# Phase 10, the CLI training run: train_flags.txt with only these cut --
+# the length (2 kimg: 32 batches of 64), the warm start (4 batches), the Ggeom
+# interval (200 batches would never come in 32: 8 runs it after the warm
+# start) and the snapshot and image cadence (every tick: the run is one
+# tick) -- then RESUME_N + RESUME_M batches of the resume check, the clarity
+# finetune for FINETUNE_WARM_KIMG (3 batches), FID over FID_ITEMS items at
+# B = FID_BATCH, and SNAP_SERVE_STROKES strokes served from the snapshot.
+# The hooks' generator passes: the visualizer's fakes and geometry sheets
+# and one per VIZ_COLORS entry; two per METRIC_STYLES style of the metric
+# loop.  Card vs CPU for LPIPS and the detector features: METRIC_RTOL
+# (cuDNN's and the CPU's f32 sums in other orders, TF32 off).
+CLI_CUTS = ["--kimg", "2", "--geom_warmstart_kimg", "0.256",
+            "--geom_interval", "8", "--snap", "1", "--image_snap", "1"]
+RESUME_N, RESUME_M = 1, 4
+FINETUNE_WARM_KIMG = 0.192
+FID_ITEMS, FID_BATCH = 256, 8
+SNAP_SERVE_STROKES = 4
+VIZ_COLORS, METRIC_STYLES = 5, 8
+METRIC_RTOL = 1e-4
+FORGER_KEYS = {"BG_CLARITY_MEAN", "FG_OPACITY_MEDIAN", "LAB_E%", "LAB_L2",
+               "LPIPS_ACROSS_GEO", "LPIPS_UNIFORM_BG",
+               "LPIPS_UNIFORM_BG_multicolor"}
 # K1 against its plain version at the 256-px shapes for every batch these
 # paths launch: B = 1 (a helper or session stroke), 2-8 (a cross-session
 # flush of that many of the at most 8 painters; the port pads no flush to a
@@ -385,6 +436,52 @@ def phase_kernel_vs_plain():
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
         train_rows.append(row)
         print("[fir4-train] " + json.dumps(row), flush=True)
+
+    # The CLI training run's bf16 rows (--num_bf16_res 4: the 16-128 px
+    # conv0 layers; B = 64, and B = 32 for the path-length phase; C = 128,
+    # noise and clamp): checked against the plain version, the B = 64 rows
+    # timed.
+    bf16_rows = []
+    syn = flagship_generator_config(TRAIN_RES).synthesis
+    for b in (TRAIN_BATCH, TRAIN_BATCH // 2):
+        for res in TRAIN_BF16_RES:
+            c = syn.channels(res)
+            x = (torch.randn((b, res + 3, res + 3, c), generator=gen,
+                             device="cuda") * 2).to(torch.bfloat16)
+            d = torch.rand((b, c), generator=gen, device="cuda") + 0.5
+            noise = torch.randn((b, res, res, 1), generator=gen,
+                                device="cuda")
+            bias = torch.randn((c,), generator=gen, device="cuda")
+            got = fe.fir4_epilogue(x, f, d, noise, bias, act_gain, 256.0)
+            want = fe.fir4_epilogue_plain(x, taps, d, noise, bias, act_gain,
+                                          256.0)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            check(got.dtype == torch.bfloat16 and not bool(
+                (err > BF16_RTOL * want.float().abs() + ATOL).any()),
+                f"kernel != plain at [{b},{res},{res},{c}] bf16: max err "
+                f"{err.max().item():.3e}")
+            max_err[torch.bfloat16] = max(max_err[torch.bfloat16],
+                                          err.max().item())
+            del got, want, err
+            if b != TRAIN_BATCH:
+                continue
+            iters = 200 if res <= 32 else 30
+            k_ms = cuda_ms(lambda: fe.fir4_epilogue(
+                x, f, d, noise, bias, act_gain, 256.0), iters)
+            p_ms = cuda_ms(lambda: fe.fir4_epilogue_plain(
+                x, taps, d, noise, bias, act_gain, 256.0), iters)
+            nbytes = 2 * (x.numel() + b * res * res * c) + 4 * (
+                noise.numel() + d.numel() + bias.numel())
+            row = {"shape": [b, res, res, c], "dtype": "bfloat16",
+                   "kernel_ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bytes": nbytes}
+            bf16_rows.append(row)
+            print("[fir4-train-bf16] " + json.dumps(row), flush=True)
+    print(f"[fir4] the trainer's bf16 rows (B = {TRAIN_BATCH} and "
+          f"{TRAIN_BATCH // 2}, {', '.join(map(str, TRAIN_BF16_RES))} px) "
+          f"within tolerance", flush=True)
     return rows, max_err
 
 
@@ -448,6 +545,38 @@ def phase_fir_backward():
           f"(B={b}, C={c}, f32) within {FIR_GRAD_RTOL:g} of the largest "
           f"gradient; worst {worst:.3e}", flush=True)
 
+    # bf16 at the 64- and 128-px training shapes (B = 64, C = 128), as the
+    # CLI run's --num_bf16_res 4 differentiates them.
+    worst_bf16 = 0.0
+    for res in (64, 128):
+        x = torch.randn((TRAIN_BATCH, res + 3, res + 3, c), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        d = torch.rand((TRAIN_BATCH, c), generator=gen, device="cuda") + 0.5
+        noise = torch.randn((TRAIN_BATCH, res, res, 1), generator=gen,
+                            device="cuda")
+        bias = torch.randn((c,), generator=gen, device="cuda")
+        cot = torch.randn((TRAIN_BATCH, res, res, c), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        before = fe.fir4_epilogue.launches
+        got = grads(True, (x, d, noise, bias), cot, False)
+        check(fe.fir4_epilogue.launches == before + 1,
+              "the bf16 gradient case did not launch the kernel once")
+        want = grads(False, (x, d, noise, bias), cot, False)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("x", "dcoefs", "noise", "bias"), got, want):
+            check(a.dtype == w.dtype and w.abs().max().item() > 0,
+                  f"bf16 {name}: gradient dtype or zero")
+            err = ((a.float() - w.float()).abs().max()
+                   / w.float().abs().max()).item()
+            worst_bf16 = max(worst_bf16, err)
+            check(err <= FIR_GRAD_BF16_RTOL,
+                  f"fir4_epilogue bf16 d/d{name} res {res}: rel err "
+                  f"{err:.3e}")
+        del got, want, x, cot
+    print(f"[fir4-bwd] bf16 first-order at [{TRAIN_BATCH},64,64,{c}] and "
+          f"[{TRAIN_BATCH},128,128,{c}] within {FIR_GRAD_BF16_RTOL:g} of the "
+          f"largest gradient; worst {worst_bf16:.3e}", flush=True)
+
     # The kernel's time at the training shape (B=64, 128 px, C=128, f32).
     x = torch.randn((TRAIN_BATCH, 131, 131, c), generator=gen, device="cuda")
     d = torch.rand((TRAIN_BATCH, c), generator=gen, device="cuda") + 0.5
@@ -464,7 +593,8 @@ def phase_fir_backward():
            "kernel_ms": k_ms, "plain_ms": p_ms,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
     print("[fir4-train] " + json.dumps(row), flush=True)
-    return {"worst_rel_err": worst, "train_shape": row}
+    return {"worst_rel_err": worst, "worst_rel_err_bf16": worst_bf16,
+            "train_shape": row}
 
 
 def _class_mats(batch):
@@ -988,10 +1118,11 @@ def phase_train(style_iter, geom_iter, card):
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     n = TRAIN_BATCHES
     try:
+        # Every batch is a tick here; the loops persist only when done.
         loop = TrainingLoop(cfg, enc_p, enc_s, style_iter, geom_iter,
                             run_dir, seed=SEED, hooks=hooks,
                             resume_state=state, profile_phases=True,
-                            device="cuda")
+                            snapshot_ticks=10 ** 9, device="cuda")
         fir4_epilogue.launches = 0        # the training path starts here
         tw.warp_twopass.launches = 0
         tw.warp_twopass_t.launches = 0
@@ -1008,7 +1139,7 @@ def phase_train(style_iter, geom_iter, card):
             warm_cfg, enc_p, enc_s, style_iter, geom_iter, run_dir,
             seed=SEED + 1, resume_state=loop.state, profile_phases=True,
             hooks=LoopHooks(on_tick=lambda lp, st: warm_rows.append(dict(st))),
-            device="cuda")
+            snapshot_ticks=10 ** 9, device="cuda")
         check(warm.in_warmstart(), "the second loop is not in warm start")
         warm.run(total_kimg=(WARM_BATCHES * TRAIN_BATCH - 0.5) / 1000.0)
         torch.cuda.synchronize()
@@ -1127,6 +1258,456 @@ def phase_train(style_iter, geom_iter, card):
           f"{time.time() - t0:.1f} s)", flush=True)
     train["cuda_vs_cpu_worst_rel_err"] = worst
     return train
+
+
+class _PhaseClock:
+    """Times each training phase of a run it does not construct (the CLI's
+    loop): while active it wraps the phase functions of ``train/steps.py``
+    that ``TrainingLoop`` calls, synchronising around each call as the
+    loop's ``profile_phases`` does.  ``seconds[phase]`` lists the calls."""
+
+    NAMES = {"d_main_step": "Dmain", "d_reg_step": "Dreg",
+             "g_main_step": "Gmain", "g_reg_step": "Greg",
+             "ada_update": "ada"}
+
+    def __init__(self):
+        from brushstroke_engine_torch.train import steps
+        self.steps = steps
+        self.seconds = {}
+        self.saved = {}
+
+    def _timed(self, phase, fn):
+        import torch
+
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.setdefault(phase, []).append(
+                time.perf_counter() - t0)
+            return out
+        return call
+
+    def __enter__(self):
+        for name, phase in self.NAMES.items():
+            self.saved[name] = getattr(self.steps, name)
+            setattr(self.steps, name, self._timed(phase, self.saved[name]))
+        make = self.saved["make_geom_step"] = self.steps.make_geom_step
+        setattr(self.steps, "make_geom_step", lambda cfg, warmstart: (
+            self._timed("Ggeom-warm" if warmstart else "Ggeom",
+                        make(cfg, warmstart))))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.steps, name, fn)
+
+
+def _timed_eval_hooks(seconds):
+    """Patches ``train.eval_hooks.make_eval_hooks`` so that the hooks it
+    builds add their seconds to ``seconds["on_tick"]`` and
+    ``seconds["on_snapshot"]``; returns the restore function."""
+    from brushstroke_engine_torch.train import eval_hooks
+    make = eval_hooks.make_eval_hooks
+
+    def timed(fn, key):
+        def call(*a):
+            import torch
+            t0 = time.perf_counter()
+            fn(*a)
+            torch.cuda.synchronize()
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+        return call
+
+    def patched(*a, **k):
+        hooks = make(*a, **k)
+        hooks.on_tick = timed(hooks.on_tick, "on_tick")
+        hooks.on_snapshot = timed(hooks.on_snapshot, "on_snapshot")
+        return hooks
+
+    eval_hooks.make_eval_hooks = patched
+    return lambda: setattr(eval_hooks, "make_eval_hooks", make)
+
+
+def _flag_lines(name):
+    """A flag file's lines that do not start with '#', as neube_train.sh
+    reads them."""
+    with open(os.path.join(REPO, name)) as f:
+        return [ln.strip() for ln in f
+                if ln.strip() and not ln.startswith("#")]
+
+
+def _finite_stats(path):
+    import numpy as np
+    with open(path) as f:
+        rows = [json.loads(ln) for ln in f]
+    check(rows, f"{path}: no stats")
+    for i, row in enumerate(rows):
+        bad = [k for k, v in row.items() if not np.isfinite(v)]
+        check(not bad, f"{path} row {i}: non-finite {bad}")
+    return rows
+
+
+def phase_train_cli(style_iter, geom_iter, card):
+    """The training run as neube_train.sh runs it, through the port's CLI
+    (see the module doc, phase 10)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.engine.brush import PaintEngineFactory
+    from brushstroke_engine_torch.metrics import fid as fid_lib
+    from brushstroke_engine_torch.metrics import lpips as lpips_lib
+    from brushstroke_engine_torch.metrics.metric_main import \
+        forger_compute_fid
+    from brushstroke_engine_torch.metrics.stroke_generator import (
+        PaintStrokeGenerator, RandomState,
+    )
+    from brushstroke_engine_torch.ops import warp as tw
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+    from brushstroke_engine_torch.tools import bench_serve as bs
+    from brushstroke_engine_torch.tools import train as cli
+    from brushstroke_engine_torch.train.dataset import NoiseStyleDataset
+    from brushstroke_engine_torch.train.eval_hooks import _engine_from_loop
+    from brushstroke_engine_torch.train.loop import LoopHooks, TrainingLoop
+    from brushstroke_engine_torch.ui.core import create_core
+    from brushstroke_engine_torch.utils.checkpoint import load_native
+    from brushstroke_engine_torch.utils.util import tree_leaves
+
+    set_precision_mode("strict")       # what a fresh CLI process runs in
+    t_phase = time.time()
+    train_flags = _flag_lines("train_flags.txt")
+    cuts = CLI_CUTS
+    print(f"[cli] train_flags.txt with these cuts: {' '.join(cuts)} (no "
+          f"--data: seeded noise styles; no --geom_data: synthetic "
+          f"geometry; --num_bf16_res {cli.build_parser().get_default('num_bf16_res')} "
+          f"and --metrics {cli.build_parser().get_default('metrics')} "
+          f"at their defaults)", flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    out = {"card": card, "cuts": cuts}
+    try:
+        # ---- 1. the CLI run -------------------------------------------
+        hook_s = {}
+        restore = _timed_eval_hooks(hook_s)
+        try:
+            with _PhaseClock() as clock:
+                fir4_epilogue.launches = 0   # the CLI run starts here
+                tw.warp_twopass.launches = 0
+                tw.warp_twopass_t.launches = 0
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loop = cli.main(["--outdir", root, "--device", "cuda"]
+                                + train_flags + cuts)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {"fir4_epilogue": fir4_epilogue.launches,
+                            "warp_twopass": tw.warp_twopass.launches,
+                            "warp_twopass_t": tw.warp_twopass_t.launches}
+                # the CLI run ends here
+                peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            restore()
+        cfg, run = loop.cfg, loop.run_dir
+        check(cfg.gen_cfg.synthesis.num_bf16_res == 4
+              and cfg.disc_cfg.num_bf16_res == 4
+              and cfg.disc_cfg.architecture == "orig",
+              "the CLI run is not the canonical bf16 'orig'-D configuration")
+        n = loop.batch_idx
+        warm = int(np.ceil(cfg.geom_warmstart_kimg * 1000 / cfg.batch_size))
+        check(n == max(1, int(np.ceil(cfg.total_kimg * 1000
+                                      / cfg.batch_size))),
+              f"{n} batches for {cfg.total_kimg} kimg")
+
+        # ---- 2. what the run leaves -----------------------------------
+        snap = os.path.join(run, f"network-snapshot-"
+                                 f"{loop.cur_nimg // 1000:06d}.pkl")
+        for name in ("training_options.json", "stats.jsonl",
+                     "train_state.pkl", snap, "summary_metrics.txt"):
+            check(os.path.isfile(os.path.join(run, name)),
+                  f"the CLI run left no {name}")
+        tag = f"{loop.cur_nimg // 1000:06d}"
+        sheets = sorted(os.listdir(os.path.join(run, "viz")))
+        check(sheets == [f"{k}_{tag}.png" for k in
+                         ("color_control", "fakes", "geom_control")],
+              f"viz sheets {sheets}")
+        for name in sheets:
+            with open(os.path.join(run, "viz", name), "rb") as f:
+                check(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{name}: no PNG")
+        rows = _finite_stats(os.path.join(run, "stats.jsonl"))
+        with open(os.path.join(run, "summary_metrics.txt")) as f:
+            head, line = f.read().splitlines()[:2]
+        forger = dict(zip(head.split()[1:], map(float, line.split()[1:])))
+        check(set(forger) == FORGER_KEYS and all(
+            np.isfinite(v) for v in forger.values()),
+            f"summary_metrics.txt: {forger}")
+
+        # ---- 3. no hook failed ----------------------------------------
+        failures = {k: v for r in rows for k, v in r.items()
+                    if k.startswith("Eval/")}
+        check(not loop.hook_failure_counts and not any(failures.values()),
+              f"eval hooks failed: {loop.hook_failure_counts} {failures}")
+
+        # ---- 4. launches against the schedule -------------------------
+        main = n - warm
+        sched = {"warm": warm, "Dmain": main, "Gmain": main,
+                 "Dr1": sum(1 for i in range(warm, n)
+                            if i % cfg.d_reg_interval == 0),
+                 "Gpl": sum(1 for i in range(warm, n)
+                            if i % cfg.g_reg_interval == 0),
+                 "Ggeom": sum(1 for i in range(warm, n)
+                              if i % cfg.geom_interval == 0)}
+        timed = {k: len(v) for k, v in clock.seconds.items()}
+        check(all(timed.get(k if k != "warm" else "Ggeom-warm", 0) == v
+                  for k, v in (("Dmain", sched["Dmain"]),
+                               ("Gmain", sched["Gmain"]),
+                               ("Dreg", sched["Dr1"]),
+                               ("Greg", sched["Gpl"]),
+                               ("Ggeom", sched["Ggeom"]),
+                               ("warm", sched["warm"]))),
+              f"phases ran {timed}, the schedule says {sched}")
+        check(sched["Dr1"] and sched["Gpl"] and sched["Ggeom"]
+              and timed.get("ada", 0) > 0,
+              f"a phase never ran after the warm start: {sched} {timed}")
+        n_up = len(cfg.gen_cfg.synthesis.block_resolutions) - 1
+        # Generator passes of the hooks: the visualizer's fakes and geometry
+        # sheets and one per color of its color sheet; the metric loop's two
+        # renders per style.
+        viz_passes = 2 + VIZ_COLORS
+        metric_passes = 2 * METRIC_STYLES
+        want = {"fir4_epilogue": n_up * (
+                    sched["warm"] + sched["Dmain"] + sched["Gmain"]
+                    + sched["Gpl"] + sched["Ggeom"] + viz_passes
+                    + metric_passes),
+                "warp_twopass": 2 * sched["Dmain"] + 2 * sched["Dr1"]
+                + sched["Gmain"],
+                "warp_twopass_t": sched["Dr1"] + sched["Gmain"]}
+        print(f"[cli] launches {json.dumps(launches)} over {n} batches "
+              f"{json.dumps(sched)} + {viz_passes} viz and {metric_passes} "
+              f"metric generator passes (K1's backward re-runs the plain "
+              f"chain: no launch)", flush=True)
+        check(launches == want, f"CLI run launches {launches}, schedule "
+              f"says {want}")
+
+        def med(phase):
+            v = clock.seconds.get(phase, [])
+            return statistics.median(v[1:] if len(v) > 2 else v), len(v)
+
+        phases = {}
+        for phase in ("Ggeom-warm", "Dmain", "Dreg", "Gmain", "Greg",
+                      "Ggeom"):
+            if phase not in clock.seconds:
+                continue
+            sec, cnt = med(phase)
+            batch = cfg.batch_size // cfg.pl_batch_shrink \
+                if phase == "Greg" else cfg.batch_size
+            phases[phase] = {"median_s": sec, "calls": cnt,
+                             "images_per_s": batch / sec}
+        train_s = sum(sum(v) for v in clock.seconds.values())
+        out.update({
+            "batches": n, "warm_batches": warm, "wall_s": wall,
+            "train_phases_s": train_s,
+            "sec_per_batch": train_s / n,
+            "images_per_s": n * cfg.batch_size / train_s,
+            "phases": phases, "peak_memory_gib": peak_gb,
+            "snapshot_sec": loop._last_snapshot_sec,
+            "hooks_s": hook_s, "launches": launches, "schedule": sched,
+            "forger": forger})
+        print("[cli] " + json.dumps(out), flush=True)
+        for phase, v in phases.items():
+            print(f"[cli] {phase}: {v['median_s'] * 1e3:.1f} ms median of "
+                  f"{v['calls']} calls, {v['images_per_s']:.1f} images/s, "
+                  f"bf16 at 16-128 px ({card})", flush=True)
+        print(f"[cli] {n} batches: {out['sec_per_batch']:.3f} s/batch in the "
+              f"phases, {wall:.1f} s wall with the data, the eval hooks "
+              f"({json.dumps(hook_s)}) and Timing/snapshot_sec "
+              f"{out['snapshot_sec']:.2f}; peak {peak_gb:.1f} GiB ({card})",
+              flush=True)
+
+        # ---- 5. resume ------------------------------------------------
+        # X resumes the CLI run's train state, takes N batches, saves, and
+        # takes M more; Y resumes X's save in the same directory and takes
+        # the same M batches.  Bitwise, with cuDNN's deterministic
+        # algorithms (every other op of the step is deterministic).
+        t0 = time.time()
+        rcfg = dataclasses.replace(cfg,
+                                   kimg_per_tick=cfg.batch_size / 1000.0)
+        batches = [(next(style_iter), next(geom_iter))
+                   for _ in range(RESUME_N + RESUME_M)]
+
+        xdir = os.path.join(root, "resume")
+        os.makedirs(xdir)
+        shutil.copy(os.path.join(run, "train_state.pkl"), xdir)
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        xs, ys = [], []
+        try:
+            def make(start, rows):
+                return TrainingLoop(
+                    rcfg, loop.enc_params, loop.enc_state,
+                    iter([b[0] for b in batches[start:]]),
+                    iter([b[1] for b in batches[start:]]), xdir,
+                    seed=SEED + 5, auto_resume=True,
+                    hooks=LoopHooks(on_tick=lambda lp, st: rows.append(
+                        dict(st))),
+                    snapshot_ticks=10 ** 9, device="cuda")
+            x = make(0, xs)
+            check((x.cur_nimg, x.batch_idx) == (loop.cur_nimg, n),
+                  "X did not resume the CLI run's state")
+            x.run(total_kimg=(x.cur_nimg + RESUME_N * cfg.batch_size)
+                  / 1000.0)
+            x.save_train_state()
+            y = make(RESUME_N, ys)
+            check(y.batch_idx == n + RESUME_N, "Y did not resume X's save")
+            end = (x.cur_nimg + RESUME_M * cfg.batch_size) / 1000.0
+            x.run(total_kimg=end)
+            y.run(total_kimg=end)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = det
+        for i, row in enumerate(xs + ys):
+            bad = [k for k, v in row.items() if not np.isfinite(v)]
+            check(not bad, f"resume row {i}: non-finite {bad}")
+
+        def strip(rs):
+            return [{k: v for k, v in r.items() if not k.startswith(
+                "Timing/")} for r in rs]
+        stats_equal = strip(xs[-RESUME_M:]) == strip(ys[-RESUME_M:])
+        leaves = [(a, b) for a, b in zip(tree_leaves(x.state),
+                                         tree_leaves(y.state))
+                  if isinstance(a, torch.Tensor)]
+        params_equal = all(torch.equal(a, b) for a, b in leaves)
+        ran = {k for r in xs[-RESUME_N - RESUME_M:] for k in r
+               if k.startswith("Loss/")}
+        print(f"[cli] resume: X {RESUME_N} + {RESUME_M} batches from the CLI "
+              f"state (batch {n} on), Y resumed after {RESUME_N}: stats "
+              f"equal {stats_equal}, {len(leaves)} state tensors equal "
+              f"{params_equal} (bitwise, cudnn.deterministic); phases "
+              f"{sorted(ran)}; {time.time() - t0:.1f} s", flush=True)
+        check(stats_equal and params_equal and x.state["d_opt"]["count"]
+              == y.state["d_opt"]["count"],
+              "a resumed run is not bitwise the uninterrupted one")
+        out["resume_bitwise"] = True
+
+        # ---- 6. the clarity finetune ----------------------------------
+        finetune = train_flags + _flag_lines("finetune_flags.txt") + [
+            "--resume", snap, "--geom_warmstart_kimg",
+            str(FINETUNE_WARM_KIMG)]
+        check("--exit_after_warmstart" in finetune,
+              "finetune_flags.txt lost --exit_after_warmstart")
+        clock = _PhaseClock()
+        hook_ft = {}
+        restore = _timed_eval_hooks(hook_ft)
+        try:
+            with clock:
+                ft = cli.main(["--outdir", root, "--device", "cuda"]
+                              + finetune)
+        finally:
+            restore()
+        bundle = load_native(snap, device="cuda")
+        check(ft.g_orig_params is not None and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves(ft.g_orig_params),
+                tree_leaves(bundle.gen_params))),
+              "the finetune's G_orig is not the frozen resumed snapshot")
+        ft_rows = _finite_stats(ft.stats_path)
+        lp = [r.get("Loss/forger/Ggeom-warm/lpips_fake_orig") for r in
+              ft_rows]
+        check(all(v is not None and np.isfinite(v) and v > 0 for v in lp),
+              f"finetune LPIPS term {lp}")
+        ft_snaps = [f for f in os.listdir(ft.run_dir)
+                    if f.startswith("network-snapshot-")]
+        check(ft_snaps and ft.batch_idx == int(np.ceil(
+            FINETUNE_WARM_KIMG * 1000 / cfg.batch_size)),
+            f"finetune: {ft.batch_idx} batches, snapshots {ft_snaps}")
+        ft_step = clock.seconds["Ggeom-warm"]
+        out["finetune"] = {
+            "batches": ft.batch_idx, "lpips_fake_orig": lp,
+            "step_s_median": statistics.median(ft_step[1:] or ft_step),
+            "step_s": ft_step, "hooks_s": hook_ft}
+        print("[cli] finetune " + json.dumps(out["finetune"]), flush=True)
+
+        # ---- 7. FID ---------------------------------------------------
+        engine = PaintEngineFactory.create(snap, device="cuda")
+        style_ds = NoiseStyleDataset(cfg.gen_cfg.img_resolution)
+        real = [np.stack([style_ds[j] for j in range(i, i + 16)])
+                for i in range(0, FID_ITEMS, 16)]
+
+        def fid_geometry():
+            while True:
+                g = next(geom_iter)
+                for i in range(0, g.shape[0], FID_BATCH):
+                    yield g[i:i + FID_BATCH]
+
+        gen = PaintStrokeGenerator(FID_BATCH, engine, RandomState(0))
+        gen.set_geometry_source_from_iterator(fid_geometry(), FID_BATCH)
+        fir_before = fir4_epilogue.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fid = forger_compute_fid(gen, real, num_items=FID_ITEMS)
+        torch.cuda.synchronize()
+        fid_s = time.perf_counter() - t0
+        check(np.isfinite(fid) and fid > 0, f"FID {fid}")
+        check(fir4_epilogue.launches - fir_before
+              == n_up * FID_ITEMS // FID_BATCH, "FID: K1 launches")
+        # One fixed batch on the card and on the CPU.
+        imgs = torch.as_tensor(real[0][:8], device="cuda")
+        rend = gen.generate()[..., :3] * 2 - 1
+        lp_gpu = lpips_lib.lpips_batched(imgs.float() / 127.5 - 1, rend)
+        lp_cpu = lpips_lib.lpips_batched(imgs.cpu().float() / 127.5 - 1,
+                                         rend.cpu())
+        f_gpu = fid_lib.extract_features(imgs)
+        f_cpu = fid_lib.extract_features(imgs.cpu())
+        lp_err = ((lp_gpu.cpu() - lp_cpu).abs() / lp_cpu.abs()).max().item()
+        f_err = ((f_gpu.cpu() - f_cpu).abs().max()
+                 / f_cpu.abs().max()).item()
+        check(lp_err <= METRIC_RTOL and f_err <= METRIC_RTOL,
+              f"card vs CPU: LPIPS rel err {lp_err:.3e}, detector "
+              f"features {f_err:.3e}")
+        out["fid"] = {"value": fid, "items": FID_ITEMS, "batch": FID_BATCH,
+                      "seconds": fid_s,
+                      "detector": fid_lib.default_detector_kind("cuda"),
+                      "lpips_card_vs_cpu": lp_err,
+                      "features_card_vs_cpu": f_err}
+        print("[cli] fid " + json.dumps(out["fid"]), flush=True)
+
+        # ---- 8. the snapshot serves -----------------------------------
+        live = _engine_from_loop(loop)
+        geom = _stroke_patch(cfg.gen_cfg.img_resolution)
+        worst = 0
+        for mode, seed in (("clear", 1), ("clear", 2), ("full", 3)):
+            imgs = []
+            for eng in (engine, live):
+                eng.set_render_mode(mode)
+                opts = _stroke_opts(eng)
+                opts.set_style(eng.random_style(seed))
+                imgs.append(eng.render_stroke(geom, None, opts)[0])
+            worst = max(worst, _u8_err(*imgs))
+        check(worst <= 1, f"the loaded snapshot renders {worst} LSB off "
+              f"the training loop's engine")
+        core = create_core(gan_checkpoint=snap, device="cuda")
+        try:
+            stats, painters = bs.serve(
+                core, "helper", 1, SNAP_SERVE_STROKES, 1, canvas=512,
+                level=PAINT_LEVEL, crop=PAINT_CROP, seed=SEED,
+                trace_strokes=0)
+        finally:
+            core.close()
+        check(stats["fallbacks"] == 0 and stats["errors"] == 0
+              and stats["strokes_served"] == SNAP_SERVE_STROKES + 1,
+              f"serving the snapshot: {stats['strokes_served']} strokes, "
+              f"{stats['fallbacks']} fallbacks, {stats['errors']} errors")
+        out["serve"] = {"loaded_vs_live_lsb": worst,
+                        "strokes": stats["strokes_served"],
+                        "client_ms_p50": stats["client_ms"]["p50"]}
+        print("[cli] snapshot serve " + json.dumps(out["serve"]), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    print(f"[cli] phase {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def _quantiles(times):
@@ -1635,6 +2216,7 @@ def main():
     train = phase_train(style_iter, geom_iter, card)
     paint = phase_paint(card)
     serve = phase_serve(card)
+    train_cli = phase_train_cli(style_iter, geom_iter, card)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -1646,14 +2228,16 @@ def main():
         "replaces": "brushstroke_engine_tpu/ops/pallas_fir.py:85",
         "launches": main_stats["launches"]
         + train["launches"]["fir4_epilogue"] + paint["launches"]
-        + serve["launches"],
+        + serve["launches"] + train_cli["launches"]["fir4_epilogue"],
         "launches_render_path": main_stats["launches"],
         "launches_training_path": train["launches"]["fir4_epilogue"],
         "launches_paint_path": paint["launches"],
         "launches_serve_path": serve["launches"],
+        "launches_train_run": train_cli["launches"]["fir4_epilogue"],
         "max_abs_err": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "backward_max_rel_err": fir_bwd["worst_rel_err"],
+        "backward_max_rel_err_bf16": fir_bwd["worst_rel_err_bf16"],
         "ms": top["kernel_ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],
@@ -1671,7 +2255,10 @@ def main():
             "source": "brushstroke_engine_torch/csrc/warp_twopass.cu",
             "replaces": "brushstroke_engine_tpu/ops/pallas_warp.py:"
                         + ("125" if fn == "_fwd_kernel" else "156"),
-            "launches": train["launches"][name],
+            "launches": train["launches"][name]
+            + train_cli["launches"][name],
+            "launches_training_path": train["launches"][name],
+            "launches_train_run": train_cli["launches"][name],
             "max_abs_err": warp_err[key],
             "ms": warp[f"{key}_ms"],
             "plain_ms": warp[f"{key}_plain_ms"],
@@ -1685,6 +2272,7 @@ def main():
         check(k["launches"] > 0, f"{k['name']} was never launched")
     print(json.dumps({"main_path": main_stats, "training_path": train,
                       "paint_path": paint, "serve_path": serve,
+                      "train_run": train_cli,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

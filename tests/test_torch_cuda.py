@@ -480,3 +480,133 @@ def test_wrapped_noise_on_the_card_equals_the_cpu(img_res, layer_res):
     want = wrapped_const_noise(tex, pos, img_res)
     got = wrapped_const_noise(tex.cuda(), pos.cuda(), img_res).cpu()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The training slice on the card: the metric models, K1 at the trainer's
+# bf16 rows, and the train state with CUDA tensors and generator.
+# ---------------------------------------------------------------------------
+
+def test_lpips_and_detectors_on_the_card_equal_the_cpu():
+    """LPIPS, the random FID detector and Inception-v3 (random weights from
+    one seed) on the card and on the CPU, TF32 off: 1e-4 relative (cuDNN's
+    and the CPU's f32 sums in other orders).  The default models are kept
+    per device."""
+    from brushstroke_engine_torch.metrics import fid as tfid
+    from brushstroke_engine_torch.metrics import inception as tinc
+    from brushstroke_engine_torch.metrics import lpips as tlpips
+    rng = np.random.RandomState(30)
+    x = rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32)
+    y = rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32)
+    u8 = rng.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8)
+    cpu = tlpips.lpips_batched(torch.from_numpy(x), torch.from_numpy(y),
+                               tlpips.get_default_model("cpu"))
+    gpu = tlpips.lpips_batched(torch.from_numpy(x).cuda(),
+                               torch.from_numpy(y).cuda())
+    assert gpu.device.type == "cuda"
+    assert tlpips.get_default_model("cuda").device.type == "cuda"
+    assert tlpips.get_default_model("cpu").device.type == "cpu"
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-4, atol=1e-6)
+    for make in (tfid.InceptionFeatures.random_init,
+                 tinc.InceptionV3.random_init):
+        fc = tfid.extract_features(u8, make(0, device="cpu"))
+        fg = tfid.extract_features(u8, make(0, device="cuda"))
+        assert fg.device.type == "cuda"
+        torch.testing.assert_close(fg.cpu(), fc, rtol=1e-4,
+                                   atol=1e-4 * float(fc.abs().max()))
+    fd = tfid.extract_features(torch.from_numpy(u8).cuda())
+    assert fd.device.type == "cuda" and \
+        tfid.get_default_extractor("cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("b", [64, 32])
+@pytest.mark.parametrize("res", [16, 32, 64, 128])
+def test_kernel_bf16_at_the_trainer_rows(b, res):
+    """K1 in bf16 at the canonical training run's rows (--num_bf16_res 4:
+    the 16-128 px conv0 layers, C = 128, B = 64 and B = 32 for the
+    path-length phase, noise and clamp) against the plain version: 2^-7
+    relative + 1e-5 (one bf16 ulp)."""
+    x, d, noise, bias = _inputs(res + b, b, res, res, 128, b)
+    x = (x * 2).to(torch.bfloat16)
+    got = fe.fir4_epilogue(x, F, d, noise, bias, 2 ** 0.5, 256.0)
+    want = fe.fir4_epilogue_plain(x, fe.correlation_taps(F), d, noise, bias,
+                                  2 ** 0.5, 256.0)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("res", [64, 128])
+def test_kernel_bf16_backward_at_the_trainer_rows(res):
+    """K1's backward with a bf16 input at the 64- and 128-px training
+    shapes (B = 8 of the B = 64 rows): every gradient within 2^-7 of its
+    largest entry (the backward re-runs the plain chain on the same bf16
+    inputs; the bound allows one bf16 rounding of a summed product)."""
+    x, d, noise, bias = _inputs(res, 8, res, res, 128, 8)
+    cot = torch.randn((8, res, res, 128), device="cuda")
+    grads = []
+    for use_kernel in (True, False):
+        ins = [t.detach().clone().requires_grad_(True)
+               for t in (x.to(torch.bfloat16), d, noise, bias)]
+        if use_kernel:
+            y = fe.fir4_epilogue(ins[0], F, *ins[1:3], ins[3], 2 ** 0.5,
+                                 256.0)
+            assert y.grad_fn is not None
+        else:
+            y = fe.fir4_epilogue_plain(ins[0], fe.correlation_taps(F),
+                                       *ins[1:], 2 ** 0.5, 256.0)
+        grads.append(torch.autograd.grad((y.float() * cot).sum(), ins))
+    for name, a, w in zip(("x", "dcoefs", "noise", "bias"), *grads):
+        assert a.dtype == w.dtype
+        scale = float(w.float().abs().max())
+        assert scale > 0, name
+        err = float((a.float() - w.float()).abs().max()) / scale
+        assert err <= 2 ** -7, (name, err)
+
+
+def _small_train_loop(run_dir, seed=0):
+    from brushstroke_engine_torch.models.discriminator import \
+        DiscriminatorConfig
+    from brushstroke_engine_torch.train.augment import AugmentConfig
+    from brushstroke_engine_torch.train.loop import TrainingLoop
+    from brushstroke_engine_torch.train.state import TrainConfig
+    eng = _small_engine("cpu")
+    cfg = TrainConfig(
+        gen_cfg=eng.gen_cfg, enc_cfg=eng.enc_cfg, enc_res=(0, 1),
+        disc_cfg=DiscriminatorConfig(
+            c_dim=0, img_resolution=32, img_channels=3, architecture="orig",
+            channel_base=2048, channel_max=32),
+        batch_size=4, augment=AugmentConfig.from_spec("bgc"),
+        d_reg_interval=2, g_reg_interval=2, geom_interval=2, ada_interval=1,
+        geom_warmstart_kimg=0, kimg_per_tick=0.004)
+    rng = np.random.RandomState(31)
+
+    def batches(shape):
+        while True:
+            yield rng.randint(0, 256, shape).astype(np.uint8)
+    return TrainingLoop(cfg, eng.enc_params, eng.enc_state,
+                        batches((4, 32, 32, 3)), batches((4, 40, 40, 3)),
+                        run_dir=str(run_dir), seed=seed, device="cuda")
+
+
+def test_train_state_round_trips_on_the_card(tmp_path):
+    """save_train_state / load_train_state with CUDA tensors and the CUDA
+    generator: every leaf back on the card, equal; the restored generator
+    draws what the saved one draws next."""
+    from brushstroke_engine_torch.utils.util import tree_leaves
+    loop = _small_train_loop(tmp_path / "a")
+    loop.run(total_kimg=0.008)
+    path = loop.save_train_state(str(tmp_path / "ts.pkl"))
+    other = _small_train_loop(tmp_path / "b", seed=7)
+    assert other.load_train_state(path)
+    assert (other.cur_nimg, other.batch_idx) == (8, 2)
+    assert other.state["g_opt"]["count"] == loop.state["g_opt"]["count"] > 0
+    for a, b in zip(tree_leaves(other.state), tree_leaves(loop.state)):
+        if isinstance(a, torch.Tensor):
+            assert a.device.type == "cuda" and a.shape == b.shape
+            assert torch.equal(a, b)
+    assert torch.equal(torch.randn(64, device="cuda",
+                                   generator=other.device_rng),
+                       torch.randn(64, device="cuda",
+                                   generator=loop.device_rng))

@@ -27,6 +27,20 @@ def test_synthetic_geometry_is_the_jax_package_s(idx):
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_synthetic_geometry_192px_is_exactly_the_jax_package_s(seed,
+                                                               monkeypatch):
+    """The port draws each item with ``draw_stroke_into`` (near each segment
+    only); the JAX package's numpy path draws the whole canvas.  Equal
+    uint8 items over 16 indices at the training size (128 px + 64)."""
+    from brushstroke_engine_tpu import native
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    want = jds.SyntheticGeometryDataset(192, size=100, seed=seed)
+    got = tds.SyntheticGeometryDataset(192, size=100, seed=seed)
+    for idx in range(16):
+        np.testing.assert_array_equal(got[idx], want[idx], err_msg=str(idx))
+
+
 def test_stroke_and_triband_helpers_match():
     for seed in (0, 5):
         a = jcurves.random_spline_stroke(np.random.default_rng(seed), 40)

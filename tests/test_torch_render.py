@@ -9,10 +9,12 @@ of one uvs entry); uint8 patches within 1 LSB (rounding of values that
 differ by ~1e-6 can flip the last bit).
 """
 
+import dataclasses
 import os
 import pkgutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -33,7 +35,16 @@ from brushstroke_engine_torch.engine.device_canvas import (
 )
 from brushstroke_engine_torch.engine.render import render_core
 from brushstroke_engine_torch.engine.stylize import stylize_image_ondevice
+from brushstroke_engine_torch.metrics import fid as tfid
+from brushstroke_engine_torch.metrics import inception as tinc
+from brushstroke_engine_torch.metrics import lpips as tlpips
+from brushstroke_engine_torch.metrics.stroke_generator import \
+    PaintStrokeGenerator
 from brushstroke_engine_torch.tools import bench_serve, paint_image
+from brushstroke_engine_torch.tools import train as ttrain
+from brushstroke_engine_torch.train.eval_hooks import make_eval_hooks
+from brushstroke_engine_torch.train.loop import TrainingLoop
+from brushstroke_engine_torch.viz.visualize import TrainingVisualizer
 from brushstroke_engine_torch.ui import core as ui_core
 from brushstroke_engine_torch.ui import server as ui_server
 from brushstroke_engine_torch.ops.precision import set_precision_mode
@@ -240,6 +251,43 @@ def test_entry_points_need_cuda_unless_cpu(model, monkeypatch, tmp_path):
     assert ui_core.create_core(paint_engine=engine,
                                device="cpu").engine is engine
 
+    # Training: the CLI, the loop, the metric models and the stroke
+    # generator.  The eval hooks and the visualizer run where the loop's
+    # engine does: a CUDA loop without CUDA fails its hook (counted), a CPU
+    # engine renders the sheets on the CPU.
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrain.main(["--outdir", str(tmp_path / "runs"), "--dry-run"])
+    cfg = ttrain.setup_config(ttrain.build_parser().parse_args(
+        ["--outdir", "x", "--output_resolution", "32"]))[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainingLoop(cfg, {}, {}, None, None, run_dir=str(tmp_path / "t"))
+    for make in (tlpips.get_default_model, tlpips.LPIPSModel.random_init,
+                 tfid.get_default_extractor,
+                 tfid.InceptionFeatures.random_init,
+                 tinc.InceptionV3.random_init,
+                 lambda: tfid.extract_features(
+                     np.zeros((1, 8, 8, 3), np.uint8)),
+                 lambda: PaintStrokeGenerator.create(
+                     None, str(tmp_path / "missing.pkl"), 4, seed=0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert tlpips.get_default_model("cpu").device.type == "cpu"
+
+    cuda_loop = types.SimpleNamespace(
+        device=torch.device("cuda"),
+        cfg=dataclasses.replace(cfg, gen_cfg=tgen, enc_cfg=tenc),
+        state={"g_ema": trees[0], "w_avg": trees[1]["w_avg"],
+               "noise": trees[1]["noise"]},
+        enc_params=trees[2], enc_state=trees[3],
+        run_dir=str(tmp_path / "h"), cur_tick=0, cur_nimg=0,
+        hook_failure_counts={})
+    make_eval_hooks(image_snapshot_ticks=1).on_tick(cuda_loop, {})
+    assert cuda_loop.hook_failure_counts == {"viz": 1}
+    viz = TrainingVisualizer(width=32)
+    viz.init(tgen.z_dim)
+    viz.do_visualize(str(tmp_path / "viz"), engine, "000000")
+    assert len(os.listdir(tmp_path / "viz")) == 3
+
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(
@@ -252,7 +300,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "train.loop", "train.state", "train.steps", "utils.img_proc",
                 "tools.profile_render", "tools.profile_train",
                 "tools.tune_kernels", "flagship", "ui.core", "ui.protocol",
-                "ui.server", "tools.bench_serve"):
+                "ui.server", "tools.bench_serve", "metrics.lpips",
+                "metrics.color", "metrics.geom", "metrics.inception",
+                "metrics.fid", "metrics.stroke_generator",
+                "metrics.metric_main", "viz.visualize", "train.eval_hooks",
+                "tools.train", "tools.compare_smoke", "utils.weights"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

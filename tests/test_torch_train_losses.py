@@ -162,12 +162,29 @@ def test_losses_match_jax(spec, triband):
 
 @pytest.mark.parametrize("spec", ["0.5*lpips(fake_orig)", "1.0*plpips(canvas)"])
 def test_lpips_losses_parse_but_are_not_ported(spec):
+    """The two LPIPS losses (ported since the name was given): they parse as
+    in JAX and compute JAX's value, plpips on the patches JAX's key picks
+    (item 0 draws from fold_in(key, 0): the first patch from it, the second
+    from fold_in(.., 7); each (y, x) as ``random_patches`` draws them).
+    Tolerance 1e-4 relative (the LPIPS convolutions; test_torch_metrics)."""
     fl = tlosses.ForgerLosses.create_from_string(spec)
+    jl = jlosses.ForgerLosses.create_from_string(spec)
     assert tlosses.split_loss_string(spec) == jlosses.split_loss_string(spec)
     dd, truth = _debug_data()
-    with pytest.raises(NotImplementedError, match="metrics/lpips.py"):
-        fl.compute({k: torch.from_numpy(v) for k, v in dd.items()},
-                   torch.from_numpy(truth))
+    key = jax.random.PRNGKey(4)
+    want, _ = jl.compute({k: jnp.asarray(v) for k, v in dd.items()},
+                         jnp.asarray(truth), rng=key)
+    sub = jax.random.fold_in(key, 0)
+    crops = []
+    for k in (sub, jax.random.fold_in(sub, 7)):
+        crops += [int(jax.random.randint(k, (), 0, 16 - 4 + 1)),
+                  int(jax.random.randint(jax.random.fold_in(k, 1), (), 0,
+                                         16 - 4 + 1))]
+    got, items = fl.compute({k: torch.from_numpy(v) for k, v in dd.items()},
+                            torch.from_numpy(truth),
+                            rng=_ReplayIntegers(crops))
+    assert float(got) > 0
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("bad", ["1.0*nope(uvs)", "1.0*iou(wrong)",
