@@ -166,6 +166,7 @@ def _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp, alpha,
         raise RuntimeError(f"fir4_epilogue kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")
     cuda_build.count_launch(fir4_epilogue)
+    fir4_epilogue.shapes.add((b, h, w, c, str(x.dtype)))
     return out
 
 
@@ -214,7 +215,8 @@ def fir4_epilogue(x, f, dcoefs, noise, bias, act_gain: float,
     kernel writes only x's dtype).
 
     A CUDA tensor launches the kernel (and counts the launch in
-    ``fir4_epilogue.launches``); a CPU tensor takes the plain version.  Both
+    ``fir4_epilogue.launches`` and its ``(B, H, W, C, dtype)`` in
+    ``fir4_epilogue.shapes``); a CPU tensor takes the plain version.  Both
     are differentiable to second order.
     """
     taps = cached_taps(f, fir_gain)
@@ -236,3 +238,4 @@ def fir4_epilogue(x, f, dcoefs, noise, bias, act_gain: float,
 
 
 fir4_epilogue.launches = 0
+fir4_epilogue.shapes = set()

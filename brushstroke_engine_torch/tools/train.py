@@ -220,9 +220,10 @@ def setup_config(args):
     return cfg, enc_cfg, enc_params, enc_state
 
 
-def main(argv=None):
-    """Run the CLI; returns the finished ``TrainingLoop`` (None for
-    ``--dry-run``)."""
+def build(argv=None):
+    """Parse ``argv``, write the run directory's options and build the
+    ``TrainingLoop`` with its data and eval hooks; returns ``(loop, args)``
+    (None for ``--dry-run``).  :func:`main` runs it."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level)
     from brushstroke_engine_torch.utils.util import resolve_device
@@ -298,8 +299,18 @@ def main(argv=None):
                         run_dir=run_dir, seed=args.seed, hooks=hooks,
                         resume_state=resume_state, snapshot_ticks=args.snap,
                         device=device)
+    return loop, args
+
+
+def main(argv=None):
+    """Run the CLI; returns the finished ``TrainingLoop`` (None for
+    ``--dry-run``)."""
+    built = build(argv)
+    if built is None:
+        return None
+    loop, args = built
     loop.run(exit_after_warmstart=args.exit_after_warmstart)
-    print(f"Training finished; run dir: {run_dir}")
+    print(f"Training finished; run dir: {loop.run_dir}")
     return loop
 
 

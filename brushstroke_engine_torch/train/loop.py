@@ -33,7 +33,7 @@ import os
 import pickle
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -90,7 +90,11 @@ class TrainingLoop:
             raise NotImplementedError(
                 "the stitch phase (train/stitching.py) is not ported yet")
         self.device = resolve_device(device)
+        # profile_phases: synchronise after each phase, report its seconds
+        # as Timing/<phase> in the tick stats and keep every call's seconds
+        # in phase_seconds[<phase>].
         self.profile_phases = profile_phases
+        self.phase_seconds: Dict[str, List[float]] = {}
         self.cfg = cfg
         self.enc_params = tree_to(enc_params, self.device)
         self.enc_state = tree_to(enc_state, self.device)
@@ -155,16 +159,15 @@ class TrainingLoop:
     # ------------------------------------------------------------------
 
     def save_train_state(self, path: Optional[str] = None,
-                         backend: str = "pickle",
-                         next_tick: Optional[int] = None) -> str:
+                         backend: str = "pickle") -> str:
         """Write the whole resumable state (see the module doc) to ``path``
-        (default ``run_dir/train_state.pkl``), atomically.  ``next_tick``:
-        the tick a resumed run starts at (default ``cur_tick``; the save at
-        the end of a tick passes the one after it, so a resumed run does
-        not repeat a tick's number)."""
+        (default ``run_dir/train_state.pkl``), atomically."""
         if backend != "pickle":
             raise NotImplementedError(
                 f"the {backend!r} train-state backend is not ported yet")
+        return self._write_train_state(path, self.cur_tick)
+
+    def _write_train_state(self, path: Optional[str], cur_tick: int) -> str:
         path = path or os.path.join(self.run_dir, "train_state.pkl")
         payload = {
             "magic": TRAIN_STATE_MAGIC,
@@ -173,7 +176,7 @@ class TrainingLoop:
                 "np_rng": self.rng.bit_generator.state,
                 "device_rng": self.device_rng.get_state().numpy()},
             "cur_nimg": self.cur_nimg, "batch_idx": self.batch_idx,
-            "cur_tick": self.cur_tick if next_tick is None else next_tick,
+            "cur_tick": cur_tick,
         }
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
@@ -305,6 +308,8 @@ class TrainingLoop:
                         torch.cuda.synchronize(self.device)
                     now = time.time()
                     stats[f"Timing/{phase}"] = now - phase_t0[0]
+                    self.phase_seconds.setdefault(phase, []).append(
+                        now - phase_t0[0])
                     phase_t0[0] = now
 
             ema_beta = self._ema_beta()
@@ -352,6 +357,7 @@ class TrainingLoop:
                     self.state = train_steps.ada_update(
                         cfg, self.state,
                         float(cfg.batch_size * cfg.ada_interval))
+                    note({}, "ada")
 
             self.cur_nimg += cfg.batch_size
             self.batch_idx += 1
@@ -402,7 +408,9 @@ class TrainingLoop:
             if done or self.cur_tick % self.snapshot_ticks == 0:
                 t_snap = time.time()
                 snap_path = self.save_snapshot()
-                self.save_train_state(next_tick=self.cur_tick + 1)
+                # A resumed run starts at the next tick, so that it does not
+                # repeat this tick's number.
+                self._write_train_state(None, self.cur_tick + 1)
                 self._last_snapshot_sec = time.time() - t_snap
                 if self.hooks.on_snapshot is not None:
                     self.hooks.on_snapshot(self, snap_path)

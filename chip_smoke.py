@@ -20,8 +20,9 @@ Phases, in order; any failure exits non-zero:
    kernel's own choice; then the paint and serving paths' batches (B = 1
    to 8 and 32 at the same six shapes, f32); then the trainer's shapes
    (B = 64, f32), checked and timed; then the CLI training run's bf16 rows
-   (``--num_bf16_res 4``: 16-128 px, B = 64 and 32, C = 128, noise and
-   clamp), checked, the B = 64 rows timed.
+   (``--num_bf16_res 4``: 16-128 px, C = 128, noise and clamp) at every
+   batch phase 10 launches them at (B = 64, 32 and 1-8), checked, the
+   B = 64 rows timed.
 4. The FIR-epilogue kernel's backward: gradients of x, dcoefs, noise and
    bias through the kernel path against autograd through the plain version
    at the 64-px and 128-px training shapes, and one double backward; then
@@ -93,9 +94,11 @@ Phases, in order; any failure exits non-zero:
     engine against 256 seeded noise style images, LPIPS and the detector
     features of one batch on the card against the CPU, and the snapshot
     loaded by ``PaintEngineFactory`` (within 1 LSB of the loop's engine) and
-    served by ``ui.core.create_core``.  Prints s/batch and images/s per
-    phase, ``Timing/snapshot_sec``, the hooks', FID's and the finetune
-    step's seconds and peak memory.
+    served by ``ui.core.create_core``; every (B, H, W, C, dtype) that K1
+    launched at in this phase is one that phase 3 held against the plain
+    version.  Prints s/batch and images/s per phase (the loop's
+    ``profile_phases``), ``Timing/snapshot_sec``, the hooks', FID's and the
+    finetune step's seconds and peak memory.
 11. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
@@ -192,6 +195,12 @@ FORGER_KEYS = {"BG_CLARITY_MEAN", "FG_OPACITY_MEDIAN", "LAB_E%", "LAB_L2",
 # bucket) and 32 (an on-device stylize chunk; the batched stylizer's B = 16
 # is the timing table).  The serve phase checks that no flush left this set.
 K1_PATH_BATCHES = (*range(1, 9), 32)
+# K1 in bf16 at the CLI run's 16-128 px shapes for every batch phase 10
+# launches it at: B = 64 (the training phases), 32 (Gpl), 1-8 (the
+# visualizer's sheets, the forger metric loop's B = 4, FID's B = 8, the
+# loaded snapshot's strokes and the served ones).  Phase 10 checks that
+# every shape it launched K1 at was held in phase 3.
+K1_BF16_BATCHES = (TRAIN_BATCH, *K1_PATH_BATCHES)
 
 
 def fail(msg):
@@ -282,6 +291,9 @@ def phase_kernel_vs_plain():
     act_gain = 2 ** 0.5
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    # Every (B, H, W, C, dtype) held against the plain version through the
+    # kernel's own tile choice; phase 10 checks its launches against it.
+    held = set()
     rows = []
     for res in syn.block_resolutions[1:]:
         c = syn.channels(res)
@@ -306,6 +318,7 @@ def phase_kernel_vs_plain():
                           f"batch {noise_batch} clamp={clamp}: max err "
                           f"{err.max().item():.3e}")
                     max_err[dtype] = max(max_err[dtype], err.max().item())
+                    held.add((BATCH, res, res, c, str(dtype)))
             # Timing in the render's configuration: noise and clamp on.
             x, d, noise, bias = _fir_inputs(res, c, dtype, BATCH, gen)
             taps_w = torch.as_tensor(taps, device="cuda").to(dtype)[
@@ -368,6 +381,8 @@ def phase_kernel_vs_plain():
                     f"kernel != plain at [{b},{h},{w},{c}] {dtype} tile "
                     f"{tile}: max err {err.max().item():.3e}")
                 max_err[dtype] = max(max_err[dtype], err.max().item())
+                if tile is None:
+                    held.add((b, h, w, c, str(dtype)))
                 n_off += 1
     print(f"[fir4] {n_off} off-vector-path cases within tolerance",
           flush=True)
@@ -397,6 +412,7 @@ def phase_kernel_vs_plain():
                 f"{err.max().item():.3e}")
             max_err[torch.float32] = max(max_err[torch.float32],
                                          err.max().item())
+            held.add((b, res, res, c, str(torch.float32)))
             n_paint += 1
     print(f"[fir4] {n_paint} paint- and serve-path cases (B = "
           f"{', '.join(map(str, K1_PATH_BATCHES))}) within tolerance",
@@ -423,6 +439,7 @@ def phase_kernel_vs_plain():
               f"kernel != plain at [{TRAIN_BATCH},{res},{res},{c}] f32: max "
               f"err {err.max().item():.3e}")
         max_err[torch.float32] = max(max_err[torch.float32], err.max().item())
+        held.add((TRAIN_BATCH, res, res, c, str(torch.float32)))
         del got, want, err
         iters = 200 if res <= 32 else 30
         k_ms = cuda_ms(lambda: fe.fir4_epilogue(
@@ -438,12 +455,12 @@ def phase_kernel_vs_plain():
         print("[fir4-train] " + json.dumps(row), flush=True)
 
     # The CLI training run's bf16 rows (--num_bf16_res 4: the 16-128 px
-    # conv0 layers; B = 64, and B = 32 for the path-length phase; C = 128,
-    # noise and clamp): checked against the plain version, the B = 64 rows
-    # timed.
+    # conv0 layers, C = 128, noise and clamp) at every batch that run
+    # launches them at (K1_BF16_BATCHES): checked against the plain version,
+    # the B = 64 rows timed.
     bf16_rows = []
     syn = flagship_generator_config(TRAIN_RES).synthesis
-    for b in (TRAIN_BATCH, TRAIN_BATCH // 2):
+    for b in K1_BF16_BATCHES:
         for res in TRAIN_BF16_RES:
             c = syn.channels(res)
             x = (torch.randn((b, res + 3, res + 3, c), generator=gen,
@@ -463,6 +480,7 @@ def phase_kernel_vs_plain():
                 f"{err.max().item():.3e}")
             max_err[torch.bfloat16] = max(max_err[torch.bfloat16],
                                           err.max().item())
+            held.add((b, res, res, c, str(torch.bfloat16)))
             del got, want, err
             if b != TRAIN_BATCH:
                 continue
@@ -479,10 +497,11 @@ def phase_kernel_vs_plain():
                    "bytes": nbytes}
             bf16_rows.append(row)
             print("[fir4-train-bf16] " + json.dumps(row), flush=True)
-    print(f"[fir4] the trainer's bf16 rows (B = {TRAIN_BATCH} and "
-          f"{TRAIN_BATCH // 2}, {', '.join(map(str, TRAIN_BF16_RES))} px) "
-          f"within tolerance", flush=True)
-    return rows, max_err
+    print(f"[fir4] the CLI run's bf16 rows (B = "
+          f"{', '.join(map(str, K1_BF16_BATCHES))}; "
+          f"{', '.join(map(str, TRAIN_BF16_RES))} px) within tolerance",
+          flush=True)
+    return rows, max_err, held
 
 
 def _rel_err(got, want):
@@ -1260,74 +1279,34 @@ def phase_train(style_iter, geom_iter, card):
     return train
 
 
-class _PhaseClock:
-    """Times each training phase of a run it does not construct (the CLI's
-    loop): while active it wraps the phase functions of ``train/steps.py``
-    that ``TrainingLoop`` calls, synchronising around each call as the
-    loop's ``profile_phases`` does.  ``seconds[phase]`` lists the calls."""
-
-    NAMES = {"d_main_step": "Dmain", "d_reg_step": "Dreg",
-             "g_main_step": "Gmain", "g_reg_step": "Greg",
-             "ada_update": "ada"}
-
-    def __init__(self):
-        from brushstroke_engine_torch.train import steps
-        self.steps = steps
-        self.seconds = {}
-        self.saved = {}
-
-    def _timed(self, phase, fn):
-        import torch
-
-        def call(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            self.seconds.setdefault(phase, []).append(
-                time.perf_counter() - t0)
-            return out
-        return call
-
-    def __enter__(self):
-        for name, phase in self.NAMES.items():
-            self.saved[name] = getattr(self.steps, name)
-            setattr(self.steps, name, self._timed(phase, self.saved[name]))
-        make = self.saved["make_geom_step"] = self.steps.make_geom_step
-        setattr(self.steps, "make_geom_step", lambda cfg, warmstart: (
-            self._timed("Ggeom-warm" if warmstart else "Ggeom",
-                        make(cfg, warmstart))))
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.steps, name, fn)
-
-
-def _timed_eval_hooks(seconds):
-    """Patches ``train.eval_hooks.make_eval_hooks`` so that the hooks it
-    builds add their seconds to ``seconds["on_tick"]`` and
-    ``seconds["on_snapshot"]``; returns the restore function."""
-    from brushstroke_engine_torch.train import eval_hooks
-    make = eval_hooks.make_eval_hooks
+def _timed_hooks(loop):
+    """Wraps the loop's eval hooks so that their seconds add up in the
+    returned dict under "on_tick" and "on_snapshot"."""
+    import torch
+    seconds = {}
 
     def timed(fn, key):
         def call(*a):
-            import torch
             t0 = time.perf_counter()
             fn(*a)
             torch.cuda.synchronize()
             seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
         return call
 
-    def patched(*a, **k):
-        hooks = make(*a, **k)
-        hooks.on_tick = timed(hooks.on_tick, "on_tick")
-        hooks.on_snapshot = timed(hooks.on_snapshot, "on_snapshot")
-        return hooks
+    loop.hooks.on_tick = timed(loop.hooks.on_tick, "on_tick")
+    loop.hooks.on_snapshot = timed(loop.hooks.on_snapshot, "on_snapshot")
+    return seconds
 
-    eval_hooks.make_eval_hooks = patched
-    return lambda: setattr(eval_hooks, "make_eval_hooks", make)
+
+def _run_cli(cli, argv):
+    """``tools/train.py:main`` split at its run call: the loop it builds
+    runs with ``profile_phases`` (each phase synchronised and timed) and
+    its eval hooks timed.  Returns the loop and the hooks' seconds."""
+    loop, args = cli.build(argv)
+    loop.profile_phases = True
+    hook_s = _timed_hooks(loop)
+    loop.run(exit_after_warmstart=args.exit_after_warmstart)
+    return loop, hook_s
 
 
 def _flag_lines(name):
@@ -1349,9 +1328,10 @@ def _finite_stats(path):
     return rows
 
 
-def phase_train_cli(style_iter, geom_iter, card):
+def phase_train_cli(style_iter, geom_iter, card, held):
     """The training run as neube_train.sh runs it, through the port's CLI
-    (see the module doc, phase 10)."""
+    (see the module doc, phase 10).  ``held``: the K1 shapes phase 3 held
+    against the plain version."""
     import dataclasses
     import shutil
     import tempfile
@@ -1390,26 +1370,21 @@ def phase_train_cli(style_iter, geom_iter, card):
     out = {"card": card, "cuts": cuts}
     try:
         # ---- 1. the CLI run -------------------------------------------
-        hook_s = {}
-        restore = _timed_eval_hooks(hook_s)
-        try:
-            with _PhaseClock() as clock:
-                fir4_epilogue.launches = 0   # the CLI run starts here
-                tw.warp_twopass.launches = 0
-                tw.warp_twopass_t.launches = 0
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                loop = cli.main(["--outdir", root, "--device", "cuda"]
+        fir4_epilogue.launches = 0   # the CLI run starts here
+        fir4_epilogue.shapes.clear()
+        tw.warp_twopass.launches = 0
+        tw.warp_twopass_t.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loop, hook_s = _run_cli(cli, ["--outdir", root, "--device", "cuda"]
                                 + train_flags + cuts)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                launches = {"fir4_epilogue": fir4_epilogue.launches,
-                            "warp_twopass": tw.warp_twopass.launches,
-                            "warp_twopass_t": tw.warp_twopass_t.launches}
-                # the CLI run ends here
-                peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        finally:
-            restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fir4_epilogue": fir4_epilogue.launches,
+                    "warp_twopass": tw.warp_twopass.launches,
+                    "warp_twopass_t": tw.warp_twopass_t.launches}
+        # the CLI run ends here
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         cfg, run = loop.cfg, loop.run_dir
         check(cfg.gen_cfg.synthesis.num_bf16_res == 4
               and cfg.disc_cfg.num_bf16_res == 4
@@ -1459,7 +1434,7 @@ def phase_train_cli(style_iter, geom_iter, card):
                             if i % cfg.g_reg_interval == 0),
                  "Ggeom": sum(1 for i in range(warm, n)
                               if i % cfg.geom_interval == 0)}
-        timed = {k: len(v) for k, v in clock.seconds.items()}
+        timed = {k: len(v) for k, v in loop.phase_seconds.items()}
         check(all(timed.get(k if k != "warm" else "Ggeom-warm", 0) == v
                   for k, v in (("Dmain", sched["Dmain"]),
                                ("Gmain", sched["Gmain"]),
@@ -1492,20 +1467,20 @@ def phase_train_cli(style_iter, geom_iter, card):
               f"says {want}")
 
         def med(phase):
-            v = clock.seconds.get(phase, [])
+            v = loop.phase_seconds.get(phase, [])
             return statistics.median(v[1:] if len(v) > 2 else v), len(v)
 
         phases = {}
         for phase in ("Ggeom-warm", "Dmain", "Dreg", "Gmain", "Greg",
                       "Ggeom"):
-            if phase not in clock.seconds:
+            if phase not in loop.phase_seconds:
                 continue
             sec, cnt = med(phase)
             batch = cfg.batch_size // cfg.pl_batch_shrink \
                 if phase == "Greg" else cfg.batch_size
             phases[phase] = {"median_s": sec, "calls": cnt,
                              "images_per_s": batch / sec}
-        train_s = sum(sum(v) for v in clock.seconds.values())
+        train_s = sum(sum(v) for v in loop.phase_seconds.values())
         out.update({
             "batches": n, "warm_batches": warm, "wall_s": wall,
             "train_phases_s": train_s,
@@ -1597,15 +1572,8 @@ def phase_train_cli(style_iter, geom_iter, card):
             str(FINETUNE_WARM_KIMG)]
         check("--exit_after_warmstart" in finetune,
               "finetune_flags.txt lost --exit_after_warmstart")
-        clock = _PhaseClock()
-        hook_ft = {}
-        restore = _timed_eval_hooks(hook_ft)
-        try:
-            with clock:
-                ft = cli.main(["--outdir", root, "--device", "cuda"]
-                              + finetune)
-        finally:
-            restore()
+        ft, hook_ft = _run_cli(cli, ["--outdir", root, "--device", "cuda"]
+                               + finetune)
         bundle = load_native(snap, device="cuda")
         check(ft.g_orig_params is not None and all(
             torch.equal(a, b) for a, b in zip(
@@ -1622,7 +1590,7 @@ def phase_train_cli(style_iter, geom_iter, card):
         check(ft_snaps and ft.batch_idx == int(np.ceil(
             FINETUNE_WARM_KIMG * 1000 / cfg.batch_size)),
             f"finetune: {ft.batch_idx} batches, snapshots {ft_snaps}")
-        ft_step = clock.seconds["Ggeom-warm"]
+        ft_step = ft.phase_seconds["Ggeom-warm"]
         out["finetune"] = {
             "batches": ft.batch_idx, "lpips_fake_orig": lp,
             "step_s_median": statistics.median(ft_step[1:] or ft_step),
@@ -1703,6 +1671,17 @@ def phase_train_cli(style_iter, geom_iter, card):
                         "strokes": stats["strokes_served"],
                         "client_ms_p50": stats["client_ms"]["p50"]}
         print("[cli] snapshot serve " + json.dumps(out["serve"]), flush=True)
+
+        # ---- 9. every K1 shape of this phase was held in phase 3 ------
+        # The CLI run, the resume loops, the finetune, FID, the loaded and
+        # live engines' strokes and the served ones.
+        launched = sorted(fir4_epilogue.shapes)
+        check(set(launched) <= held, f"K1 launched at shapes phase 3 did "
+              f"not hold against the plain version: "
+              f"{sorted(set(launched) - held)}")
+        out["k1_shapes"] = [list(k) for k in launched]
+        print(f"[cli] K1 launched at {len(launched)} shapes, each held in "
+              f"phase 3: {json.dumps(out['k1_shapes'])}", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.time() - t_phase
@@ -2209,14 +2188,14 @@ def main():
     from brushstroke_engine_torch.flagship import synthetic_data_iters
     style_iter, geom_iter = synthetic_data_iters(TRAIN_RES, TRAIN_BATCH, SEED)
     phase_build()
-    rows, max_err = phase_kernel_vs_plain()
+    rows, max_err, held = phase_kernel_vs_plain()
     fir_bwd = phase_fir_backward()
     warp_rows, warp_err = phase_warp_vs_plain()
     main_stats = phase_main_path()
     train = phase_train(style_iter, geom_iter, card)
     paint = phase_paint(card)
     serve = phase_serve(card)
-    train_cli = phase_train_cli(style_iter, geom_iter, card)
+    train_cli = phase_train_cli(style_iter, geom_iter, card, held)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"

@@ -255,8 +255,9 @@ def test_entry_points_need_cuda_unless_cpu(model, monkeypatch, tmp_path):
     # generator.  The eval hooks and the visualizer run where the loop's
     # engine does: a CUDA loop without CUDA fails its hook (counted), a CPU
     # engine renders the sheets on the CPU.
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ttrain.main(["--outdir", str(tmp_path / "runs"), "--dry-run"])
+    for entry in (ttrain.main, ttrain.build):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(["--outdir", str(tmp_path / "runs"), "--dry-run"])
     cfg = ttrain.setup_config(ttrain.build_parser().parse_args(
         ["--outdir", "x", "--output_resolution", "32"]))[0]
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -304,7 +305,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "metrics.color", "metrics.geom", "metrics.inception",
                 "metrics.fid", "metrics.stroke_generator",
                 "metrics.metric_main", "viz.visualize", "train.eval_hooks",
-                "tools.train", "tools.compare_smoke", "utils.weights"):
+                "tools.train", "utils.weights"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

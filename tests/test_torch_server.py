@@ -854,6 +854,7 @@ class _SlowCount:
 
     def __init__(self):
         self._n = 0
+        self.shapes = set()
 
     @property
     def launches(self):
@@ -900,6 +901,7 @@ def test_fir_launch_count_is_exact_under_threads(monkeypatch):
             0.2, torch.float32)
     n = _hammer(lambda: fe._launch_kernel(*args))
     assert counter.launches == n
+    assert counter.shapes == {(1, 2, 2, 4, "torch.float32")}
 
 
 @pytest.mark.parametrize("transposed", [False, True])

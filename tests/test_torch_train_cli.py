@@ -207,6 +207,27 @@ def test_tiny_cli_run_writes_every_file_and_resumes(tmp_path):
     assert "network-snapshot-000000.pkl" in os.listdir(ft.run_dir)
 
 
+def test_build_returns_an_unrun_loop_that_profiles_its_phases(tmp_path):
+    """``build`` stops before ``run``; with ``profile_phases`` set the loop
+    keeps each phase call's seconds, one per call on the schedule."""
+    loop, args = ttrain.build(["--outdir", str(tmp_path)] + _flags(*TRAIN)
+                              + TINY + ["--metrics", ""])
+    run = loop.run_dir
+    files = os.listdir(run)
+    assert "training_options.json" in files and "stats.jsonl" not in files
+    assert loop.batch_idx == 0 and loop.phase_seconds == {}
+    assert not args.exit_after_warmstart
+    loop.profile_phases = True
+    loop.run(exit_after_warmstart=args.exit_after_warmstart)
+    # Batch 0 runs every phase once; the ADA update waits for batch > 0.
+    assert {k: len(v) for k, v in loop.phase_seconds.items()} == {
+        "Dmain": 1, "Dreg": 1, "Gmain": 1, "Greg": 1, "Ggeom": 1}
+    with open(os.path.join(run, "stats.jsonl")) as f:
+        row = json.loads(f.readline())
+    for phase, secs in loop.phase_seconds.items():
+        assert row[f"Timing/{phase}"] == secs[0] > 0
+
+
 def test_finetune_warm_step_matches_jax():
     """Ggeom-warm with finetune_flags.txt's loss string (LPIPS and L1
     against the frozen original generator)."""
