@@ -11,7 +11,6 @@ are not ported.
 from __future__ import annotations
 
 import logging
-import pickle
 from typing import Dict, Optional
 
 import numpy as np
@@ -357,22 +356,18 @@ class PaintEngineFactory:
     @staticmethod
     def create(gan_checkpoint: Optional[str],
                encoder_checkpoint: Optional[str] = None, device="cuda"):
-        """A native bundle (``utils.checkpoint.load_native``) becomes a
-        triad or canvas engine on ``device``; ``None`` gives the mock
-        engine.  The encoder of a native bundle is inside it, so
-        ``encoder_checkpoint`` only names the reference snapshots, whose
-        conversion is not ported."""
+        """A native bundle, or a reference training snapshot converted on
+        the way (``utils.checkpoint.load_engine_bundle``), becomes a triad
+        or canvas engine on ``device``; ``None`` gives the mock engine.
+        ``encoder_checkpoint`` (a reference ``.pt``) gives the encoder of a
+        snapshot that carries none."""
         resolve_device(device)
         if gan_checkpoint is None:
             logger.warning("Creating MockPaintEngine")
             return MockPaintEngine(256)
         from brushstroke_engine_torch.utils import checkpoint as ckpt
-        try:
-            bundle = ckpt.load_native(gan_checkpoint, device=device)
-        except (ValueError, pickle.UnpicklingError) as e:
-            raise NotImplementedError(
-                f"{gan_checkpoint} is not a native bundle; converting a "
-                f"reference snapshot is not ported yet") from e
+        bundle = ckpt.load_engine_bundle(gan_checkpoint, encoder_checkpoint,
+                                         device=device)
         cls = TriadGanPaintEngine if bundle.color_format == "triad" \
             else CanvasPaintEngine
         return cls(bundle.gen_cfg, bundle.gen_params, bundle.gen_state,

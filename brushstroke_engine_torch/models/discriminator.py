@@ -4,7 +4,8 @@ Counterpart of ``brushstroke_engine_tpu/models/discriminator.py``: blocks
 with FIR-filtered downsampling, minibatch-stddev, and the epilogue FC.
 Activations are NHWC, conv weights OIHW, FC weights ``[out, in]``; the
 epilogue flattens NHWC like the JAX package, so its ``b4.fc`` weight is the
-JAX one transposed.  Label conditioning (``c_dim > 0``) is not ported.
+JAX one transposed.  With ``c_dim > 0`` the output has ``cmap`` channels,
+projected on the label's embedding by a mapping network with ``z_dim = 0``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import torch
 
 from brushstroke_engine_torch.ops import setup_filter
 from brushstroke_engine_torch.models.layers import conv_layer_apply, fc_apply
+from brushstroke_engine_torch.models.mapping import MappingConfig, \
+    mapping_apply
 
 
 @dataclass(frozen=True)
@@ -55,6 +58,12 @@ class DiscriminatorConfig:
         return torch.bfloat16 if res >= bf16_res else torch.float32
 
     @property
+    def cmap_mapping(self) -> MappingConfig:
+        """The label mapping of a conditional D (``c_dim > 0``)."""
+        return MappingConfig(z_dim=0, c_dim=self.c_dim, w_dim=self.cmap,
+                             num_ws=None, w_avg_beta=None)
+
+    @property
     def resample_filter(self):
         return setup_filter(list(self.resample_taps))
 
@@ -76,10 +85,8 @@ def _minibatch_stddev(x, group_size: int, num_channels: int):
 
 def discriminator_apply(cfg: DiscriminatorConfig, params, img, c=None,
                         force_fp32: bool = False):
-    """Returns logits ``[B, 1]``.  img is NHWC in [-1, 1]-ish range."""
-    if cfg.c_dim > 0:
-        raise NotImplementedError(
-            "the conditional discriminator is not ported yet")
+    """Returns logits ``[B, 1]``.  img is NHWC in [-1, 1]-ish range; ``c``
+    ``[B, c_dim]`` the labels of a conditional D."""
     f = cfg.resample_filter
     x = None
     for res in cfg.block_resolutions:
@@ -117,4 +124,8 @@ def discriminator_apply(cfg: DiscriminatorConfig, params, img, c=None,
                          conv_clamp=cfg.conv_clamp)
     x = fc_apply(ep["fc"], x.reshape(x.shape[0], -1),
                  activation=cfg.activation)
-    return fc_apply(ep["out"], x)
+    x = fc_apply(ep["out"], x)
+    if cfg.cmap > 0:
+        cmap = mapping_apply(cfg.cmap_mapping, params["mapping"], None, c)
+        x = (x * cmap).sum(dim=1, keepdim=True) / math.sqrt(cfg.cmap)
+    return x

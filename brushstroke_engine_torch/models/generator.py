@@ -1,11 +1,11 @@
-"""Geometry-conditioned Generator: mapping + synthesis.
+"""Geometry-conditioned Generator: mapping + synthesis + positional encoding.
 
-Counterpart of ``brushstroke_engine_tpu/models/generator.py``: the z path
-(mapping, truncation, style mixing) and the pre-mapped ws path, with
-constant, random or no noise, and the trainable-layer mask of the geometry
-phases.  The w-average update is ``models.mapping.update_w_avg`` on the
-returned ``ws``.  Positional encoding is not ported yet (a config that asks
-for it raises).
+Counterpart of ``brushstroke_engine_tpu/models/generator.py``: the z (+c)
+path (mapping, truncation, style mixing) and the pre-mapped ws path, with
+constant, random or no noise, the per-resolution positional encodings of
+the patch position, and the trainable-layer mask of the geometry phases.
+The w-average update is ``models.mapping.update_w_avg`` on the returned
+``ws``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from brushstroke_engine_torch.models import positional
 from brushstroke_engine_torch.models.mapping import MappingConfig, \
     mapping_apply
 from brushstroke_engine_torch.models.synthesis import SynthesisConfig, \
@@ -36,6 +37,13 @@ class GeneratorConfig:
     posenc_injection_mode: str = "cat"
 
     @property
+    def pos_encoder(self) -> Optional[positional.PositionalEncoderConfig]:
+        if self.positional_encoding is None:
+            return None
+        return positional.PositionalEncoderConfig.from_string(
+            self.positional_encoding, self.img_resolution)
+
+    @property
     def mapping(self) -> MappingConfig:
         return MappingConfig(z_dim=self.z_dim, c_dim=self.c_dim,
                              w_dim=self.w_dim, num_ws=self.num_ws,
@@ -51,9 +59,19 @@ def make_generator_config(
     geom_feature_resolutions=(), geom_feature_channels=(),
     color_format="triad", color_w_channels=0, architecture="orig",
     channel_base=16384, channel_max=128, num_bf16_res=0, conv_clamp=256.0,
-    mapping_layers=8,
+    mapping_layers=8, positional_encoding=None, posenc_inject_resolutions=(),
+    posenc_featuremap_mode="fixed", posenc_injection_mode="cat",
 ) -> GeneratorConfig:
-    """Build a GeneratorConfig with a consistent SynthesisConfig."""
+    """Build a GeneratorConfig with a consistent SynthesisConfig.
+
+    ``posenc_inject_resolutions`` uses the reference index convention
+    (0 -> 4px, 1 -> 8px, ...; networks_modified.py:276-277).
+    """
+    pos_res = tuple(2 ** (2 + r) for r in posenc_inject_resolutions)
+    enc_ch = 0
+    if positional_encoding is not None:
+        enc_ch = positional.PositionalEncoderConfig.from_string(
+            positional_encoding, img_resolution).out_channels
     syn = SynthesisConfig(
         w_dim=w_dim, img_resolution=img_resolution, img_channels=img_channels,
         geom_feature_resolutions=tuple(geom_feature_resolutions),
@@ -61,11 +79,45 @@ def make_generator_config(
         color_format=color_format, color_w_channels=color_w_channels,
         architecture=architecture, channel_base=channel_base,
         channel_max=channel_max, num_bf16_res=num_bf16_res,
-        conv_clamp=conv_clamp)
+        conv_clamp=conv_clamp, pos_encoding_channels=enc_ch,
+        pos_encoding_resolutions=pos_res,
+        pos_encoding_injection_mode=posenc_injection_mode)
     return GeneratorConfig(
         z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, img_resolution=img_resolution,
         img_channels=img_channels, synthesis=syn,
-        mapping_layers=mapping_layers)
+        mapping_layers=mapping_layers,
+        positional_encoding=positional_encoding,
+        posenc_inject_resolutions=tuple(posenc_inject_resolutions),
+        posenc_featuremap_mode=posenc_featuremap_mode,
+        posenc_injection_mode=posenc_injection_mode)
+
+
+def generate_positional_encoding(cfg: GeneratorConfig, positions, batch: int,
+                                 rng: Optional[torch.Generator] = None,
+                                 device=None):
+    """The per-resolution positional encodings (networks_modified.py:320),
+    NHWC, or None without positional encoding.  ``positions`` ``[B, 2]`` int
+    (y, x); without them they are drawn uniform in ``[0, img_resolution)``
+    from ``rng``."""
+    enc_cfg = cfg.pos_encoder
+    if enc_cfg is None:
+        return None
+    if positions is None:
+        if rng is None:
+            raise ValueError("positional encoding needs positions or an rng")
+        positions = torch.randint(0, cfg.img_resolution, (batch, 2),
+                                  generator=rng, device=rng.device)
+    positions = torch.as_tensor(positions, device=device)
+    fmaps = [2 ** (2 + r) for r in cfg.posenc_inject_resolutions]
+    if cfg.posenc_featuremap_mode == "fixed":
+        # One encoding per patch, broadcast over the feature map.
+        enc = positional.encode_xy(enc_cfg, positions[:, 1], positions[:, 0])
+        return [enc[:, None, None, :].expand(batch, f, f, enc.shape[-1])
+                for f in fmaps]
+    if cfg.posenc_featuremap_mode == "varying":
+        return [positional.encode_grid(enc_cfg, positions[:, 1],
+                                       positions[:, 0], f) for f in fmaps]
+    raise ValueError(cfg.posenc_featuremap_mode)
 
 
 def draw_style_mixing(rng, z_shape, device) -> Dict:
@@ -92,7 +144,7 @@ def mix_styles(ws, ws2, mixing: Dict, style_mixing_prob: float):
 
 
 def generator_apply(cfg: GeneratorConfig, params, state, *,
-                    z=None, ws=None, geom_features=(),
+                    z=None, c=None, ws=None, geom_features=(),
                     positions=None, noise_buffers=None,
                     truncation_psi: float = 1.0,
                     truncation_cutoff: Optional[int] = None,
@@ -107,7 +159,10 @@ def generator_apply(cfg: GeneratorConfig, params, state, *,
                     force_fp32: bool = False):
     """Full generator forward.
 
-    Pass ``ws`` for the pre-mapped path or ``z`` for the mapped path.
+    Pass ``ws`` for the pre-mapped path or ``z`` (and the label ``c`` of a
+    class-conditional mapping) for the mapped path.  With positional
+    encoding, ``positions`` also place the encodings; without them the
+    positions are drawn from ``rng``.
 
     Style mixing (z path, ``style_mixing_prob > 0``): layers from a cutoff
     on take the styles of a second z.  ``mixing`` gives the draws explicitly
@@ -117,27 +172,28 @@ def generator_apply(cfg: GeneratorConfig, params, state, *,
     Returns (img, debug_data); debug_data is {} unless debug / feature
     outputs were requested.
     """
-    if cfg.positional_encoding is not None:
-        raise NotImplementedError("positional encoding is not ported yet")
     if ws is None:
         assert z is not None
         ws = mapping_apply(
-            cfg.mapping, params["mapping"], z,
+            cfg.mapping, params["mapping"], z, c,
             w_avg=state.get("w_avg"), truncation_psi=truncation_psi,
             truncation_cutoff=truncation_cutoff)
         if style_mixing_prob > 0:
             if mixing is None:
                 mixing = draw_style_mixing(rng, tuple(z.shape), z.device)
             ws2 = mapping_apply(
-                cfg.mapping, params["mapping"], mixing["z2"],
+                cfg.mapping, params["mapping"], mixing["z2"], c,
                 w_avg=state.get("w_avg"), truncation_psi=truncation_psi,
                 truncation_cutoff=truncation_cutoff)
             ws = mix_styles(ws, ws2, mixing, style_mixing_prob)
 
+    pos_encoding = generate_positional_encoding(
+        cfg, positions, ws.shape[0], rng=rng, device=ws.device)
     out = synthesis_apply(
         cfg.synthesis, params["synthesis"], ws, geom_features,
         noise=state.get("noise"), noise_buffers=noise_buffers,
-        positions=positions, noise_mode=noise_mode, rng=rng,
+        positions=positions, pos_encoding=pos_encoding,
+        noise_mode=noise_mode, rng=rng,
         random_noise=random_noise, force_fp32=force_fp32,
         return_debug_data=return_debug_data,
         return_features=tuple(return_features),

@@ -1,12 +1,18 @@
 """Geometry (stroke) autoencoder: encodes a black-on-white stroke patch into
 multi-resolution feature maps that condition the GAN trunk.
 
-Counterpart of ``brushstroke_engine_tpu/models/geo_encoder.py`` for the
-render: the 'sauto' encoder in eval mode (BatchNorm from running stats),
-both layer orders, bilinear (align_corners) and transposed-conv
-(``scale_up_v2``) decoder up-layers.  Inputs and outputs are NHWC; inside,
-the convs run on NCHW views.  Conv weights are OIHW for every layer, the
-transposed ones included (the JAX package stores them HWIO like the others).
+Counterpart of ``brushstroke_engine_tpu/models/geo_encoder.py``: the
+'sauto' family (both layer orders, bilinear align-corners and
+transposed-conv ``scale_up_v2`` decoder up-layers, partial decoding for
+multi-resolution features) and the strided 'conv' autoencoder (bottleneck
+only; conv -> act -> BN), the feature encoding for the GAN
+(:func:`geo_encoder_encode`, eval mode), the full autoencoder forward with
+BatchNorm in eval or train mode (:func:`geo_encoder_apply`) and the pre- and
+post-processing of the reference's base class (base.py:32-91).  Inputs and
+outputs are NHWC; inside, the convs run on NCHW views.  Conv weights are
+OIHW for every layer, the transposed ones included (the JAX package stores
+them HWIO like the others); a transposed conv views its weight as torch's
+IOHW.
 """
 
 from __future__ import annotations
@@ -83,11 +89,26 @@ def _conv_transpose(p, x, stride: int = 2, pad: int = 1,
                                        output_padding=output_padding))
 
 
-def _bn_eval(p, s, x, eps: float = 1e-5):
+def _bn(p, s, x, train: bool, momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm2d on NCHW ``x``; returns (y, new running stats).  In
+    training it normalises with the biased batch variance and moves the
+    running variance toward the unbiased one (``n / (n - 1)``), as torch's
+    ``BatchNorm2d`` and the JAX package's ``_bn_apply`` do; in eval it
+    reads the running stats and leaves them as they are."""
     def ch(v):
         return v.to(x.dtype)[None, :, None, None]
-    inv = torch.rsqrt(s["var"] + eps)
-    return (x - ch(s["mean"])) * ch(inv) * ch(p["scale"]) + ch(p["bias"])
+    if train:
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), unbiased=False)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        unbiased = var.detach() * n / max(n - 1, 1)
+        new_s = {"mean": (1 - momentum) * s["mean"]
+                 + momentum * mean.detach(),
+                 "var": (1 - momentum) * s["var"] + momentum * unbiased}
+    else:
+        mean, var, new_s = s["mean"], s["var"], s
+    inv = torch.rsqrt(var + eps)
+    return (x - ch(mean)) * ch(inv) * ch(p["scale"]) + ch(p["bias"]), new_s
 
 
 def _lrelu(x, neg_slope: Optional[float]):
@@ -101,8 +122,8 @@ def upsample_bilinear_align_corners(x, factor: int = 2):
 
 
 def _single_conv_apply(cfg, p, s, x, *, stride=1, pad=1, transpose=False,
-                       legacy_order=None):
-    """conv (+BN +LeakyReLU in config-dependent order), eval mode."""
+                       legacy_order=None, train=False):
+    """conv (+BN +LeakyReLU in config-dependent order); returns (x, state)."""
     if transpose:
         x = _conv_transpose(p["conv"], x, stride=stride, pad=pad)
     else:
@@ -110,40 +131,62 @@ def _single_conv_apply(cfg, p, s, x, *, stride=1, pad=1, transpose=False,
     after_act = cfg.batchnorm_after_activation if legacy_order is None \
         else legacy_order
     if after_act:
-        return _bn_eval(p["bn"], s["bn"], _lrelu(x, cfg.neg_slope))
-    return _lrelu(_bn_eval(p["bn"], s["bn"], x), cfg.neg_slope)
+        x, bn_s = _bn(p["bn"], s["bn"], _lrelu(x, cfg.neg_slope), train)
+    else:
+        x, bn_s = _bn(p["bn"], s["bn"], x, train)
+        x = _lrelu(x, cfg.neg_slope)
+    return x, {"bn": bn_s}
 
 
-def _encoder_forward(cfg, params, state, x):
-    names = sorted(params["encoder"].keys(),
-                   key=lambda n: int(n.replace("layer", "")))
-    n_pre = 1 if cfg.pre_filters > 0 else 0
-    n_down = len(cfg.down_filters)
-    for i, name in enumerate(names):
-        stride = 2 if n_pre <= i < n_pre + n_down else 1
-        pad = 3 if (i == 0 and n_pre) else 1
-        x = _single_conv_apply(cfg, params["encoder"][name],
-                               state["encoder"][name], x,
-                               stride=stride, pad=pad)
-    return x
+def _by_res(names, sign):
+    return sorted(names, key=lambda n: sign * int(n.replace("layer", "")))
 
 
-def _decoder_layers(cfg, params, state, x, nlayers):
-    """Run the first ``nlayers`` decoder up-layers, returning intermediates."""
-    results = []
+def _encoder_forward(cfg, params, state, x, train=False):
+    """The encoder half; returns (encoding, new encoder state)."""
+    new_state = {}
+    enc_p, enc_s = params["encoder"], state["encoder"]
+    if cfg.kind == "sauto":
+        n_pre = 1 if cfg.pre_filters > 0 else 0
+        n_down = len(cfg.down_filters)
+        for i, name in enumerate(_by_res(enc_p, 1)):
+            stride = 2 if n_pre <= i < n_pre + n_down else 1
+            pad = 3 if (i == 0 and n_pre) else 1
+            x, new_state[name] = _single_conv_apply(
+                cfg, enc_p[name], enc_s[name], x, stride=stride, pad=pad,
+                train=train)
+        return x, new_state
+    # 'conv' (ae_conv.py): strided layers from the input resolution down,
+    # then 'final'; conv -> act -> BN.
+    for name in _by_res([n for n in enc_p if n != "final"], -1) + ["final"]:
+        x, new_state[name] = _single_conv_apply(
+            cfg, enc_p[name], enc_s[name], x,
+            stride=1 if name == "final" else 2, legacy_order=True,
+            train=train)
+    return x, new_state
+
+
+def _decoder_layers(cfg, params, state, x, nlayers, train=False):
+    """Run the 'sauto' decoder's first ``nlayers`` up-layers; returns (x,
+    the detached intermediates, new decoder state)."""
+    new_state, results = {}, []
     if "first" in params["decoder"]:
-        x = _single_conv_apply(cfg, params["decoder"]["first"],
-                               state["decoder"]["first"], x, legacy_order=True)
+        x, new_state["first"] = _single_conv_apply(
+            cfg, params["decoder"]["first"], state["decoder"]["first"], x,
+            legacy_order=True, train=train)
     for i in range(nlayers):
-        p, s = params["decoder"][f"up{i}"], state["decoder"][f"up{i}"]
+        name = f"up{i}"
+        p, s = params["decoder"][name], state["decoder"][name]
         if cfg.scale_up_v2:
-            x = _single_conv_apply(cfg, p, s, x, stride=2, pad=1,
-                                   transpose=True, legacy_order=True)
+            x, new_state[name] = _single_conv_apply(
+                cfg, p, s, x, stride=2, pad=1, transpose=True,
+                legacy_order=True, train=train)
         else:
             x = upsample_bilinear_align_corners(x)
-            x = _single_conv_apply(cfg, p, s, x, legacy_order=False)
-        results.append(x)
-    return results
+            x, new_state[name] = _single_conv_apply(
+                cfg, p, s, x, legacy_order=False, train=train)
+        results.append(x.detach())
+    return x, results, new_state
 
 
 def preprocess(cfg: GeoEncoderConfig, x):
@@ -162,21 +205,81 @@ def geo_encoder_encode(cfg: GeoEncoderConfig, params, state, geom,
 
     Args:
       geom: ``[B, H, W, 1]`` float, 0 = stroke (FG), 1 = background.
-      res: resolutions to return (0 = bottleneck, 1 = one decoder layer up).
+      res: resolutions to return (0 = bottleneck, 1 = one decoder layer up;
+        the 'conv' kind has the bottleneck only).
 
     Returns:
       list of ``[B, h_i, w_i, c_i]`` f32 feature maps (NHWC).
     """
-    if cfg.kind != "sauto":
-        raise NotImplementedError(f"the {cfg.kind!r} encoder is not ported")
     if isinstance(res, int):
         res = [res]
+    if cfg.kind == "conv" and max(res) != 0:
+        raise ValueError("conv AE supports bottleneck resolution only")
     x = nchw(preprocess(cfg, geom))
     # In 'fast' mode the frozen encoder runs in bf16, as in the JAX package.
     if get_precision_mode() == "fast":
         x = x.to(torch.bfloat16)
-    encoding = _encoder_forward(cfg, params, state, x)
+    encoding, _ = _encoder_forward(cfg, params, state, x)
     results = [encoding]
     if max(res) > 0:
-        results += _decoder_layers(cfg, params, state, encoding, max(res))
+        results += _decoder_layers(cfg, params, state, encoding,
+                                   max(res))[1]
     return [results[r].float().permute(0, 2, 3, 1).contiguous() for r in res]
+
+
+def geo_encoder_apply(cfg: GeoEncoderConfig, params, state, x,
+                      train: bool = False, preprocess_input: bool = True):
+    """Full autoencoder forward (AE training, diagnostics): NHWC geometry ->
+    (raw reconstruction NHWC, new state).  ``train`` normalises with batch
+    statistics and returns the moved running stats."""
+    if preprocess_input:
+        x = preprocess(cfg, x)
+    x, enc_state = _encoder_forward(cfg, params, state, nchw(x), train)
+    new_state = {"encoder": enc_state}
+    if cfg.kind == "sauto":
+        x, _, new_state["decoder"] = _decoder_layers(
+            cfg, params, state, x, len(cfg.up_filters), train)
+        if "final" in params["decoder"]:
+            x = _reflect_conv(params["decoder"]["final"], x, pad=0)
+        return x.permute(0, 2, 3, 1).contiguous(), new_state
+    dec_p, dec_s = params["decoder"], state["decoder"]
+    dec_state = {}
+    x, dec_state["first"] = _single_conv_apply(
+        cfg, dec_p["first"], dec_s["first"], x, legacy_order=True,
+        train=train)
+    for name in _by_res([n for n in dec_p if n.startswith("layer")], 1):
+        x, dec_state[name] = _single_conv_apply(
+            cfg, dec_p[name], dec_s[name], x, stride=2, pad=1,
+            transpose=True, legacy_order=True, train=train)
+    new_state["decoder"] = dec_state
+    return x.permute(0, 2, 3, 1).contiguous(), new_state
+
+
+def preprocess_truth(cfg: GeoEncoderConfig, x):
+    if (cfg.preproc is not None and "inverse" in cfg.preproc) \
+            or cfg.out_channels == 3:
+        return 1.0 - x
+    return x
+
+
+def postprocess(cfg: GeoEncoderConfig, y):
+    """Raw decoder output (NHWC) -> [0,1] black-on-white reconstruction."""
+    y = postprocess_partial(cfg, y)
+    if cfg.out_channels == 1:
+        y = torch.sigmoid(y + 0.5)
+    else:
+        y = y[..., 1:]  # background channel (black-on-white default)
+    if cfg.preproc is not None and "inverse" in cfg.preproc \
+            and cfg.out_channels == 1:
+        y = 1.0 - y
+    return y
+
+
+def postprocess_partial(cfg: GeoEncoderConfig, y):
+    if cfg.out_channels == 1:
+        return y
+    if cfg.out_channels == 3:
+        p = torch.softmax(y, dim=-1)
+        return torch.cat([p[..., :2].sum(dim=-1, keepdim=True), p[..., 2:]],
+                         dim=-1)
+    raise ValueError(f"unsupported decoder channels {cfg.out_channels}")

@@ -1,9 +1,11 @@
-"""Mapping network z -> w.
+"""Mapping network z (+c) -> w.
 
 Counterpart of ``brushstroke_engine_tpu/models/mapping.py``.  The w-average
 EMA is explicit state: :func:`mapping_apply` reads it from the generator
 state (truncation), and :func:`update_w_avg` gives its next value for a
-training step.  Class-conditional mapping (``c_dim > 0``) is not ported.
+training step.  With ``c_dim > 0`` the label goes through the ``embed`` FC
+and is normalised and concatenated after z (``z_dim = 0``: the label alone,
+as the conditional discriminator's ``cmap`` mapping runs it).
 """
 
 from __future__ import annotations
@@ -41,12 +43,20 @@ class MappingConfig:
         return ([self.z_dim + embed] + [layer] * (self.num_layers - 1)
                 + [self.w_dim])
 
+    @property
+    def embed_dim(self):
+        return 0 if self.c_dim == 0 else (self.embed_features or self.w_dim)
 
-def _map_w(cfg: MappingConfig, params, z):
-    """z ``[B, z_dim]`` -> w ``[B, w_dim]`` (before broadcast/truncation)."""
+
+def _map_w(cfg: MappingConfig, params, z, c=None):
+    """z ``[B, z_dim]`` and c ``[B, c_dim]`` -> w ``[B, w_dim]`` (before
+    broadcast/truncation)."""
+    x = None
+    if cfg.z_dim > 0:
+        x = normalize_2nd_moment(z.float())
     if cfg.c_dim > 0:
-        raise NotImplementedError("conditional mapping is not ported yet")
-    x = normalize_2nd_moment(z.float())
+        y = normalize_2nd_moment(fc_apply(params["embed"], c.float()))
+        x = y if x is None else torch.cat([x, y], dim=1)
     for i in range(cfg.num_layers):
         x = fc_apply(params[f"fc{i}"], x, activation=cfg.activation,
                      lr_multiplier=cfg.lr_multiplier)
@@ -64,11 +74,11 @@ def update_w_avg(cfg: MappingConfig, w, w_avg):
     return batch_mean + (w_avg - batch_mean) * cfg.w_avg_beta
 
 
-def mapping_apply(cfg: MappingConfig, params, z, *, w_avg=None,
+def mapping_apply(cfg: MappingConfig, params, z, c=None, *, w_avg=None,
                   truncation_psi: float = 1.0,
                   truncation_cutoff: Optional[int] = None):
     """Returns ws ``[B, num_ws, w_dim]`` (or w ``[B, w_dim]``)."""
-    x = _map_w(cfg, params, z)
+    x = _map_w(cfg, params, z, c)
 
     if cfg.num_ws is not None:
         x = x[:, None, :].expand(-1, cfg.num_ws, -1)

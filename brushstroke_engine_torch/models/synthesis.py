@@ -9,24 +9,25 @@ Every up=2 layer (``conv0`` of each block at res >= 8) runs its FIR,
 demodulation, noise, bias, leaky ReLU and clamp as one call of the fused
 FIR-epilogue kernel (through :func:`modulated_conv2d`).
 
-Carried over: geometry feature injection, position-wrapped constant noise,
-random per-layer noise (training), per-style noise-buffer overrides,
-``return_features`` and ``blended_features``, ``force_fp32``, the
-color-triad and 'canvas' heads and ``color_w_channels``.  The 'orig' head
-and positional-encoding injection are not ported yet and raise
-``NotImplementedError``.
+Carried over: geometry feature injection, positional-encoding injection
+('cat' and 'add'), position-wrapped constant noise, random per-layer noise
+(training), per-style noise-buffer overrides, ``return_features`` and
+``blended_features``, ``force_fp32``, the color-triad and 'canvas' heads
+with ``color_w_channels``, and the StyleGAN2 'orig' head on the 'orig' or
+'skip' trunk (a torgb at every block, the running image FIR-upsampled and
+summed).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from brushstroke_engine_torch.ops import (
-    bias_act, activation_gain, modulated_conv2d, setup_filter,
+    bias_act, activation_gain, modulated_conv2d, setup_filter, upsample2d,
     wrapped_const_noise,
 )
 from brushstroke_engine_torch.models.layers import fc_apply
@@ -150,19 +151,23 @@ def _synthesis_layer_apply(cfg: SynthesisConfig, params, x, w, *,
 
 
 def _torgb_apply(cfg: SynthesisConfig, params, x, w):
-    """Color-triad head (ToRGBColorTriadLayer) and its 'canvas' form.
-    Returns (img, debug_data).
+    """The output head; returns (img, debug_data).
 
-    Colors come from the style affine (9 extra outputs) or, with
+    'orig' is StyleGAN2's ToRGBLayer: a modulated 1x1 conv without
+    demodulation, bias and clamp.  'triad' is ToRGBColorTriadLayer: colors
+    come from the style affine (9 extra outputs) or, with
     ``color_w_channels > 0``, from a separate ``color_affine`` of the first
     ``color_w_channels`` entries of w.  The 'canvas' head has 5 more output
     channels: a canvas color (3-5) and a two-way alpha softmax (6-7) that
     mixes stroke and canvas."""
-    if cfg.color_format == "orig":
-        raise NotImplementedError("the 'orig' output head is not ported yet")
     in_ch = params["weight"].shape[1]
     weight_gain = 1.0 / math.sqrt(in_ch)  # 1x1 kernel
     w32 = w.float()
+    if cfg.color_format == "orig":
+        styles = fc_apply(params["affine"], w32) * weight_gain
+        return modulated_conv2d(x, params["weight"], styles,
+                                demodulate=False, bias=params["bias"],
+                                clamp=cfg.conv_clamp), {}
     if cfg.color_w_channels > 0:
         styles = fc_apply(params["affine"], w32) * weight_gain
         colors = fc_apply(params["color_affine"],
@@ -191,10 +196,31 @@ def _torgb_apply(cfg: SynthesisConfig, params, x, w):
     return alpha[..., :1] * stroke + alpha[..., 1:] * canvas, debug
 
 
+def _inject_position(cfg: SynthesisConfig, x, block_geom, enc):
+    """Positional encoding ``enc`` into the trunk after a block: 'cat'
+    appends it; 'add' adds it to the trunk, to the geometry features, or to
+    both concatenated, whichever its channel count matches.  Returns
+    (x, block_geom) with the geometry still to be appended, or None."""
+    mode = cfg.pos_encoding_injection_mode
+    if mode == "cat":
+        return torch.cat([x, enc], dim=-1), block_geom
+    if mode != "add":
+        raise ValueError(f"unknown injection mode {mode}")
+    if enc.shape[-1] == x.shape[-1]:
+        return x + enc, block_geom
+    if block_geom is not None and enc.shape[-1] == block_geom.shape[-1]:
+        return x, block_geom + enc
+    if block_geom is not None and \
+            enc.shape[-1] == block_geom.shape[-1] + x.shape[-1]:
+        return torch.cat([x, block_geom], dim=-1) + enc, None
+    raise ValueError("pos-encoding channel mismatch for add")
+
+
 def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
                     noise: Optional[Dict] = None,
                     noise_buffers: Optional[Dict] = None,
                     positions=None,
+                    pos_encoding: Optional[Sequence] = None,
                     noise_mode: str = "const",
                     rng: Optional[torch.Generator] = None,
                     random_noise: Optional[Dict] = None,
@@ -212,6 +238,8 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
         [res, res]}``.
       noise_buffers: optional per-style overrides, same key format.
       positions: ``[B, 2]`` int (y, x) canvas positions for noise wrapping.
+      pos_encoding: ``[B, h, w, c]`` positional encodings, one per entry of
+        ``cfg.pos_encoding_resolutions``.
       noise_mode: 'const' | 'random' | 'none'.
       rng: ``torch.Generator`` the 'random' noise planes are drawn from.
       random_noise: explicit unit-normal planes for 'random' mode,
@@ -225,8 +253,6 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
     Returns:
       img or (img, debug_data) when debug/feature outputs were requested.
     """
-    if cfg.pos_encoding_resolutions:
-        raise NotImplementedError("positional encoding is not ported yet")
     noise = noise or {}
     noise_buffers = noise_buffers or {}
     blended_features = blended_features or {}
@@ -246,6 +272,7 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
     x = None
     img = None
     geo_idx = 0
+    pos_idx = 0
     b = ws.shape[0]
     last_res = cfg.block_resolutions[-1]
 
@@ -282,11 +309,16 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
             random_noise=random_noise.get(f"b{res}.conv1"))
         w_i += 1
 
-        # The triad and canvas heads need the 'orig' trunk, so only the last
-        # block has a torgb and no lower-resolution image is carried up.
+        # The 'skip' trunk carries the image up and adds every block's torgb;
+        # on the 'orig' trunk only the last block has one.
+        if img is not None:
+            img = upsample2d(img, cfg.resample_filter)
         if cfg.block_has_torgb(res):
-            img, tdebug = _torgb_apply(cfg, bp["torgb"], x, cur_ws[:, -1])
-            debug.update(tdebug)
+            y, tdebug = _torgb_apply(cfg, bp["torgb"], x, cur_ws[:, -1])
+            y = y.float()
+            img = y if img is None else img + y
+            if res == last_res:
+                debug.update(tdebug)
 
         if res in return_features:
             debug[f"features{res}_preblend"] = x
@@ -302,9 +334,16 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
         if res in return_features:
             debug[f"features{res}"] = x
 
+        # Geometry / positional-encoding injection for the next block.
+        block_geom = None
         if res in cfg.geom_feature_resolutions:
             block_geom = geom_features[geo_idx].to(x.dtype)
             geo_idx += 1
+        if res in cfg.pos_encoding_resolutions:
+            enc = pos_encoding[pos_idx].to(x.dtype)
+            pos_idx += 1
+            x, block_geom = _inject_position(cfg, x, block_geom, enc)
+        if block_geom is not None:
             x = torch.cat([x, block_geom], dim=-1)
 
     if return_debug_data or return_features:

@@ -14,13 +14,15 @@ assembles its flags:
 
 and the clarity finetune adds ``finetune_flags.txt`` and ``--resume`` with
 a snapshot.  Without ``--data`` the style images are seeded noise, without
-``--geom_data`` the geometry is synthetic splines.
+``--geom_data`` the geometry is synthetic splines.  ``--encoder_checkpt``
+takes an AE checkpoint (``tools/train_autoencoder.py``, either package's)
+or else a reference encoder ``.pt``, converted on the way; without it the
+flagship encoder's weights are random from the seed.
 
 ``--d_arch`` builds the discriminator it names ('orig' or 'resnet').  Flags
 of parts that are not ported yet raise, naming ROADMAP.md: ``--fused``,
 ``--dp``, ``--device_dataset``, ``--steps_per_dispatch`` other than 1,
-``--profile_dir``, the multi-host flags, ``--encoder_checkpt`` and the
-positional-encoding flags.
+``--profile_dir`` and the multi-host flags.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ def build_parser():
     ap.add_argument("--resume", default=None,
                     help="Native snapshot to resume G from.")
     ap.add_argument("--encoder_checkpt", default=None,
-                    help="Geometry encoder checkpoint (not ported yet).")
+                    help="Geometry encoder: an AE checkpoint, or a "
+                         "reference .pt converted on the way.")
     ap.add_argument("--mirror", type=int, default=0)
     # Model (reference train_flags.txt names).
     ap.add_argument("--output_resolution", type=int, default=128)
@@ -141,10 +144,6 @@ def _reject_unported(args):
         "--coordinator_address": args.coordinator_address,
         "--num_processes": args.num_processes,
         "--process_id": args.process_id >= 0,
-        "--encoder_checkpt": args.encoder_checkpt,
-        "--positional_encoding": args.positional_encoding,
-        "--posenc_inject_resolutions": args.posenc_inject_resolutions,
-        "--posenc_injection_mode": args.posenc_injection_mode != "cat",
     }
     for flag, on in asked.items():
         if on:
@@ -152,10 +151,28 @@ def _reject_unported(args):
                 f"{flag} is not ported yet (ROADMAP.md, 'Modules to port')")
 
 
+def load_encoder(path: str):
+    """(GeoEncoderConfig, params, state) on the CPU from an AE checkpoint,
+    or else from a reference encoder ``.pt`` (factory.py:18 layout)."""
+    from brushstroke_engine_torch.train.train_autoencoder import (
+        is_ae_checkpoint, load_ae_checkpoint,
+    )
+    from brushstroke_engine_torch.utils import torch_extract as tx
+    from brushstroke_engine_torch.utils.checkpoint import (
+        encoder_trees_from_checkpoint, params_from_jax,
+    )
+    if is_ae_checkpoint(path):
+        return load_ae_checkpoint(path, device="cpu")
+    enc_cfg, params, state = encoder_trees_from_checkpoint(
+        tx.load_torch_file(path))
+    return enc_cfg, params_from_jax(params), params_from_jax(state)
+
+
 def setup_config(args):
     """argparse args -> (TrainConfig, enc_cfg, enc_params, enc_state), as
-    ``scripts/train_main.py:setup_config`` builds them; the encoder's
-    weights are random from the numpy seed ``args.seed + 99``."""
+    ``scripts/train_main.py:setup_config`` builds them; without
+    ``--encoder_checkpt`` the flagship encoder's weights are random from the
+    numpy seed ``args.seed + 99``."""
     from brushstroke_engine_torch.flagship import flagship_encoder_config
     from brushstroke_engine_torch.models.discriminator import (
         DiscriminatorConfig,
@@ -165,14 +182,21 @@ def setup_config(args):
     from brushstroke_engine_torch.train.augment import AugmentConfig
     from brushstroke_engine_torch.train.state import TrainConfig
     from brushstroke_engine_torch.utils.checkpoint import (
-        init_native_params, params_from_jax,
+        init_encoder_trees, params_from_jax,
     )
 
     _reject_unported(args)
     inject = tuple(int(x) for x in
                    args.geom_inject_resolutions.split(",") if x != "")
-    enc_cfg = flagship_encoder_config()
+    if args.encoder_checkpt:
+        enc_cfg, enc_params, enc_state = load_encoder(args.encoder_checkpt)
+    else:
+        enc_cfg = flagship_encoder_config()
+        enc_params, enc_state = map(params_from_jax, init_encoder_trees(
+            enc_cfg, seed=args.seed + 99))
     res = args.output_resolution
+    posenc_res = tuple(int(x) for x in
+                       args.posenc_inject_resolutions.split(",") if x != "")
     gen_cfg = make_generator_config(
         z_dim=args.zdim, w_dim=args.wdim, img_resolution=res,
         geom_feature_resolutions=tuple(
@@ -182,14 +206,14 @@ def setup_config(args):
         color_format=args.color_format,
         color_w_channels=args.color_w_channels,
         channel_base=16384, channel_max=args.channel_max,
-        num_bf16_res=args.num_bf16_res)
+        num_bf16_res=args.num_bf16_res,
+        positional_encoding=args.positional_encoding,
+        posenc_inject_resolutions=posenc_res,
+        posenc_injection_mode=args.posenc_injection_mode)
     disc_cfg = DiscriminatorConfig(
         c_dim=0, img_resolution=res, img_channels=3,
         channel_base=16384, channel_max=args.channel_max,
         num_bf16_res=args.num_bf16_res, architecture=args.d_arch)
-    trees = init_native_params(gen_cfg, enc_cfg, seed=args.seed + 99)
-    enc_params = params_from_jax(trees["enc_params"])
-    enc_state = params_from_jax(trees["enc_state"])
 
     gamma = args.gamma if args.gamma is not None else \
         0.0002 * (res ** 2) / args.batch

@@ -2,15 +2,14 @@
 
 Counterpart of ``brushstroke_engine_tpu/viz/visualize.py``: ``make_grid``,
 ``compose_stroke`` / ``compose_stroke_with_canvas``, the ``visualize_raw_data``
-contact sheet and ``TrainingVisualizer`` (fixed-geometry fakes, geometry
-control and color control sheets at every image-snapshot tick).  Sheets are
+contact sheet, ``TrainingVisualizer`` (fixed-geometry fakes, geometry
+control and color control sheets at every image-snapshot tick) and the
+encoder reconstruction sheet ``output_encoder_diagnostics``.  Sheets are
 assembled in numpy from the engine's renders and written as PNG by
 ``utils.img_proc.write_png``, which needs no Pillow.
 
 Not ported yet: the stitching sheet (``visualize_stitching``, with
-``train/stitching.py``) and the encoder reconstruction sheet
-(``output_encoder_diagnostics``; the port's geometry encoder has no decoder
-pass yet).
+``train/stitching.py``).
 """
 
 from __future__ import annotations
@@ -98,6 +97,31 @@ def visualize_raw_data(render_out: Dict, geom=None) -> np.ndarray:
     rows = [np.concatenate([p[i] for p in panels], axis=1)
             for i in range(b)]
     return to_uint8(np.concatenate(rows, axis=0))
+
+
+def output_encoder_diagnostics(path: Optional[str], enc_cfg, enc_params,
+                               enc_state, geom_batch) -> np.ndarray:
+    """Encoder reconstruction sheet (reference :295-312): one row per
+    geometry ``[B, H, W, 1]`` in [0, 1], input | reconstruction; written as
+    PNG to ``path`` unless it is None.  The encoder runs where its weights
+    are."""
+    from brushstroke_engine_torch.models.geo_encoder import (
+        geo_encoder_apply, postprocess,
+    )
+    dev = next(iter(enc_params["encoder"].values()))["conv"]["weight"].device
+    geom = torch.as_tensor(np.asarray(geom_batch, np.float32), device=dev)
+    with torch.no_grad():
+        recon, _ = geo_encoder_apply(enc_cfg, enc_params, enc_state, geom)
+        recon = _np(postprocess(enc_cfg, recon))
+    if recon.shape[-1] != 1:
+        recon = recon[..., :1]
+    sheet = np.concatenate([np.asarray(geom_batch, np.float32), recon],
+                           axis=2)
+    out = np.concatenate(list(to_uint8(np.tile(sheet, (1, 1, 1, 3)))),
+                         axis=0)
+    if path is not None:
+        write_png(path, out)
+    return out
 
 
 class TrainingVisualizer:

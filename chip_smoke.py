@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero:
    (B = 64, f32), checked and timed; then the CLI training run's bf16 rows
    (``--num_bf16_res 4``: 16-128 px, C = 128, noise and clamp) at every
    batch phase 10 launches them at (B = 64, 32 and 1-8), checked, the
-   B = 64 rows timed.
+   B = 64 rows timed; then phase 11's StyleGAN2 config-f rows (B = 2, f32,
+   8-1024 px, C = 512 down to 32, one noise plane, no clamp), checked and
+   timed.
 4. The FIR-epilogue kernel's backward: gradients of x, dcoefs, noise and
    bias through the kernel path against autograd through the plain version
    at the 64-px and 128-px training shapes, and one double backward; then
@@ -99,7 +101,27 @@ Phases, in order; any failure exits non-zero:
     version.  Prints s/batch and images/s per phase (the loop's
     ``profile_phases``), ``Timing/snapshot_sec``, the hooks', FID's and the
     finetune step's seconds and peak memory.
-11. Prints the kernel table as JSON, then the final JSON line.
+11. The checkpoint path: (a) the 256-px flagship (strict f32, seeded
+    weights) written in the reference's training-snapshot layout
+    (``utils/reference_layout.py``: ``G``, ``G_ema`` as persistence
+    records, ``args``, ``encoder``) loads through ``PaintEngineFactory``
+    with parameters bit-equal to the native engine's and renders within
+    1 LSB of it, as does the native bundle ``tools/convert_checkpoint.py``
+    makes of it; ``ui.core.create_core`` serves it 4 strokes; (b) StyleGAN2
+    config-f (1024 px, 'skip' trunk, 'orig' head) written as a TF-legacy
+    pickle converts, and renders z -> image at B = 2 on the card against
+    the CPU at B = 1; (c) the 'conv' encoder feeding a triad generator at
+    its bottleneck, 'sine:16' positional encoding injected in 'cat' mode,
+    and a c_dim = 4 mapping and discriminator, at the 128-px training
+    widths, card against CPU at B = 8; (d) the autoencoder trainer, 50
+    steps of the flagship 'sauto' encoder at 128 px, batch 16 (the loss
+    falls), its checkpoint, and ``tools/train.py`` with ``train_flags.txt``
+    and ``--encoder_checkpt`` (one batch, no eval hooks), once with the AE
+    checkpoint and once with a reference ``.pt`` of the same weights, K1,
+    W and W^T launched as the schedule says.  Every K1 shape it launched
+    was held in phase 3.  Prints the conversion seconds, config-f ms per
+    image, the AE's steps/s.
+12. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
@@ -189,6 +211,29 @@ METRIC_RTOL = 1e-4
 FORGER_KEYS = {"BG_CLARITY_MEAN", "FG_OPACITY_MEDIAN", "LAB_E%", "LAB_L2",
                "LPIPS_ACROSS_GEO", "LPIPS_UNIFORM_BG",
                "LPIPS_UNIFORM_BG_multicolor"}
+# Phase 11, the checkpoint path.  (b) StyleGAN2 config-f as its TF pickle
+# carries it (1024 px, z = w = 512, 8 mapping layers, fmap_base 16384 ->
+# channel_base 32768, fmap_max 512, the 'skip' trunk and 'orig' head, no
+# conv clamp), z -> image at CONFIG_F_BATCH on the card against the first
+# sample on the CPU: max abs err <= 1e-3 of max(1, max |CPU image|) (f32
+# sums in other orders through 18 layers; the 'orig' head's image is not
+# bounded to [0, 1]).  (c) the variants at the 128-px training widths, card
+# against CPU at VARIANT_BATCH: RGBA within RENDER_ATOL, the conditional D's
+# logits within 1e-3 of max(1, max |CPU logit|).  (d) the autoencoder
+# trainer: AE_STEPS steps of the flagship 'sauto' encoder at width AE_WIDTH,
+# batch AE_BATCH (the mean loss of the last 5 steps below that of the first
+# 5), then tools/train.py with train_flags.txt and --encoder_checkpt, cut to
+# one batch without eval hooks (CKPT_CLI_CUTS), once with the AE checkpoint
+# and once with a reference-layout .pt of the same weights.
+CONFIG_F = dict(z_dim=512, w_dim=512, img_resolution=1024, mapping_layers=8,
+                color_format="orig", architecture="skip", channel_base=32768,
+                channel_max=512, conv_clamp=None)
+CONFIG_F_BATCH, CONFIG_F_TOL = 2, 1e-3
+VARIANT_RES, VARIANT_BATCH, D_LOGIT_TOL = 128, 8, 1e-3
+AE_STEPS, AE_WIDTH, AE_BATCH = 50, 128, 16
+CKPT_CLI_CUTS = ["--kimg", "0", "--geom_warmstart_kimg", "0",
+                 "--geom_interval", "8", "--snap", "1", "--image_snap", "1",
+                 "--metrics", ""]
 # K1 against its plain version at the 256-px shapes for every batch these
 # paths launch: B = 1 (a helper or session stroke), 2-8 (a cross-session
 # flush of that many of the at most 8 painters; the port pads no flush to a
@@ -501,6 +546,51 @@ def phase_kernel_vs_plain():
           f"{', '.join(map(str, K1_BF16_BATCHES))}; "
           f"{', '.join(map(str, TRAIN_BF16_RES))} px) within tolerance",
           flush=True)
+
+    # Phase 11's config-f generator: B = CONFIG_F_BATCH, f32, 8-1024 px at
+    # C = 512 down to 32, one noise plane for the batch (constant noise
+    # without positions) and no clamp, as that pass sends them.
+    from brushstroke_engine_torch.models.generator import \
+        make_generator_config
+    fsyn = make_generator_config(**CONFIG_F).synthesis
+    ff_rows = []
+    for res in fsyn.block_resolutions[1:]:
+        c = fsyn.channels(res)
+        b = CONFIG_F_BATCH
+        x = torch.randn((b, res + 3, res + 3, c), generator=gen,
+                        device="cuda") * 2
+        d = torch.rand((b, c), generator=gen, device="cuda") + 0.5
+        noise = torch.randn((1, res, res, 1), generator=gen, device="cuda")
+        bias = torch.randn((c,), generator=gen, device="cuda")
+        got = fe.fir4_epilogue(x, f, d, noise, bias, act_gain, None)
+        want = fe.fir4_epilogue_plain(x, taps, d, noise, bias, act_gain,
+                                      None)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        check(not bool((err > F32_RTOL * want.abs() + ATOL).any()),
+              f"kernel != plain at [{b},{res},{res},{c}] f32 (config-f): "
+              f"max err {err.max().item():.3e}")
+        max_err[torch.float32] = max(max_err[torch.float32], err.max().item())
+        held.add((b, res, res, c, str(torch.float32)))
+        del got, want, err
+        iters = 200 if res <= 64 else 20
+        k_ms = cuda_ms(lambda: fe.fir4_epilogue(
+            x, f, d, noise, bias, act_gain, None), iters)
+        p_ms = cuda_ms(lambda: fe.fir4_epilogue_plain(
+            x, taps, d, noise, bias, act_gain, None), iters)
+        nbytes = 4 * (x.numel() + b * res * res * c + noise.numel()
+                      + d.numel() + bias.numel())
+        flops = b * res * res * c * (16 * 2 + 5)
+        row = {"shape": [b, res, res, c], "dtype": "float32",
+               "kernel_ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                               flops / F32_FLOPS_PER_S) * 1e3,
+               "bytes": nbytes, "flops": flops}
+        ff_rows.append(row)
+        print("[fir4-config-f] " + json.dumps(row), flush=True)
+        del x, d, noise, bias
+    print(f"[fir4] config-f rows (B = {CONFIG_F_BATCH}, 8-1024 px) within "
+          f"tolerance", flush=True)
     return rows, max_err, held
 
 
@@ -2178,6 +2268,398 @@ def phase_serve(card):
     return out
 
 
+def _tree_equal(a, b):
+    """Same keys and bit-equal tensors (any key order)."""
+    import torch
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and sorted(a) == sorted(b)
+                and all(_tree_equal(a[k], b[k]) for k in a))
+    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def _launch_counts():
+    from brushstroke_engine_torch.ops import warp as tw
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    return {"fir4_epilogue": fir4_epilogue.launches,
+            "warp_twopass": tw.warp_twopass.launches,
+            "warp_twopass_t": tw.warp_twopass_t.launches}
+
+
+def _ckpt_snapshot(root, card, out):
+    """(a) The 256-px flagship as a reference training snapshot, through
+    the factory, the serving core and the converter CLI."""
+    import torch
+    from brushstroke_engine_torch.engine.brush import PaintEngineFactory
+    from brushstroke_engine_torch.flagship import (
+        flagship_encoder_config, flagship_generator_config, flagship_trees,
+    )
+    from brushstroke_engine_torch.tools import bench_serve as bs
+    from brushstroke_engine_torch.tools import convert_checkpoint as tconv
+    from brushstroke_engine_torch.ui.core import create_core
+    from brushstroke_engine_torch.utils import reference_layout as rl
+
+    trees = flagship_trees(RES, SEED, NOISE_STRENGTH)
+    gen_cfg, enc_cfg = flagship_generator_config(RES), \
+        flagship_encoder_config()
+    pkl = os.path.join(root, "network-snapshot-flagship.pkl")
+    rl.write_reference_snapshot(
+        pkl, rl.generator_state_dict(gen_cfg, trees["gen_params"],
+                                     trees["gen_state"]),
+        {"color_format": "triad", "geom_inject_resolutions": [0, 1]},
+        encoder={"args": rl.encoder_args(enc_cfg),
+                 "model_state": rl.encoder_state_dict(
+                     enc_cfg, trees["enc_params"], trees["enc_state"])})
+    native = _engine(0, "cuda", trees)
+    t0 = time.perf_counter()
+    conv = PaintEngineFactory.create(pkl, device="cuda")
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    check(conv.gen_cfg == native.gen_cfg and conv.enc_cfg == native.enc_cfg
+          and conv.enc_res == native.enc_res,
+          f"converted config {conv.gen_cfg} != the flagship's")
+    for k in ("gen_params", "gen_state", "enc_params", "enc_state"):
+        check(_tree_equal(getattr(conv, k), getattr(native, k)),
+              f"converted {k} are not bit-equal to the native engine's")
+    dst = os.path.join(root, "flagship-converted.pkl")
+    t0 = time.perf_counter()
+    tconv.main(["--kind", "snapshot", "--src", pkl, "--dst", dst])
+    tool_s = time.perf_counter() - t0
+    from_tool = PaintEngineFactory.create(dst, device="cuda")
+    geom = _stroke_patch(RES)
+    worst = 0
+    for mode, seed in (("clear", 1), ("full", 2)):
+        imgs = []
+        for eng in (native, conv, from_tool):
+            eng.set_render_mode(mode)
+            opts = _stroke_opts(eng)
+            opts.set_style(eng.random_style(seed))
+            imgs.append(eng.render_stroke(geom, None, opts)[0])
+        worst = max(worst, _u8_err(imgs[0], imgs[1]),
+                    _u8_err(imgs[0], imgs[2]))
+    check(worst <= 1, f"the converted snapshot renders {worst} LSB off the "
+          f"native engine")
+    core = create_core(gan_checkpoint=pkl, device="cuda")
+    try:
+        stats, _ = bs.serve(core, "helper", 1, SNAP_SERVE_STROKES, 1,
+                            canvas=512, level=PAINT_LEVEL, crop=PAINT_CROP,
+                            seed=SEED, trace_strokes=0)
+    finally:
+        core.close()
+    check(stats["fallbacks"] == 0 and stats["errors"] == 0
+          and stats["strokes_served"] == SNAP_SERVE_STROKES + 1,
+          f"serving the snapshot: {stats['strokes_served']} strokes, "
+          f"{stats['fallbacks']} fallbacks, {stats['errors']} errors")
+    out["snapshot"] = {"convert_s": convert_s, "tool_convert_s": tool_s,
+                       "snapshot_mib": os.path.getsize(pkl) / 2 ** 20,
+                       "lsb_vs_native": worst,
+                       "served": stats["strokes_served"],
+                       "client_ms_p50": stats["client_ms"]["p50"]}
+    print("[ckpt] flagship snapshot " + json.dumps(out["snapshot"])
+          + f" ({card})", flush=True)
+
+
+def _ckpt_config_f(root, card, out):
+    """(b) StyleGAN2 config-f as a TF pickle, converted; z -> image on the
+    card at CONFIG_F_BATCH against the CPU at B = 1."""
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.models.generator import (
+        generator_apply, make_generator_config,
+    )
+    from brushstroke_engine_torch.models.geo_encoder import GeoEncoderConfig
+    from brushstroke_engine_torch.flagship import _set_noise_strength
+    from brushstroke_engine_torch.utils import checkpoint as ckpt
+    from brushstroke_engine_torch.utils import reference_layout as rl
+    from brushstroke_engine_torch.utils.util import tree_leaves
+
+    cfg = make_generator_config(**CONFIG_F)
+    tiny = GeoEncoderConfig(pre_filters=1, down_filters=(1,),
+                            post_filters=(1,), up_filters=(1,))
+    trees = ckpt.init_native_params(cfg, tiny, seed=SEED)
+    _set_noise_strength(trees, NOISE_STRENGTH)
+    trees["gen_state"]["w_avg"] = np.random.RandomState(SEED).randn(
+        cfg.w_dim).astype(np.float32)
+    p = os.path.join(root, "stylegan2-config-f-tf.pkl")
+    rl.write_tf_pickle(p, rl.generator_state_dict(
+        cfg, trees["gen_params"], trees["gen_state"]), cfg)
+    t0 = time.perf_counter()
+    got_cfg, params, state = ckpt.convert_tf_generator_pkl(p, device="cuda")
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    check(got_cfg == cfg, f"config-f converted as {got_cfg}")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    z = torch.from_numpy(np.random.RandomState(SEED + 1).randn(
+        CONFIG_F_BATCH, cfg.z_dim).astype(np.float32))
+    zc = z.cuda()
+
+    def run():
+        return generator_apply(cfg, params, state, z=zc,
+                               truncation_psi=0.7, noise_mode="const")[0]
+
+    with torch.no_grad():
+        img = run()
+        ms = cuda_ms(run, 5, warmup=1)
+        cpu_params = ckpt.params_from_jax(trees["gen_params"])
+        cpu_state = ckpt.params_from_jax(trees["gen_state"])
+        t0 = time.perf_counter()
+        want = generator_apply(cfg, cpu_params, cpu_state, z=z[:1],
+                               truncation_psi=0.7, noise_mode="const")[0]
+        cpu_s = time.perf_counter() - t0
+    got = img[:1].float().cpu()
+    check(img.shape == (CONFIG_F_BATCH, 1024, 1024, 3)
+          and bool(torch.isfinite(img).all()),
+          f"config-f image {tuple(img.shape)}, finite "
+          f"{bool(torch.isfinite(img).all())}")
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    check(err <= CONFIG_F_TOL * scale, f"config-f card vs CPU: max abs err "
+          f"{err:.3e} > {CONFIG_F_TOL} x {scale:.3g}")
+    out["config_f"] = {"params": n_params, "convert_s": convert_s,
+                       "tf_pickle_mib": os.path.getsize(p) / 2 ** 20,
+                       "ms_per_image": ms / CONFIG_F_BATCH,
+                       "batch": CONFIG_F_BATCH, "max_abs_err": err,
+                       "image_scale": scale, "cpu_s_b1": cpu_s}
+    print("[ckpt] config-f " + json.dumps(out["config_f"]) + f" ({card})",
+          flush=True)
+
+
+def _ckpt_variants(geom_batch, out):
+    """(c) The 'conv' encoder with a triad generator at its bottleneck,
+    'sine:N' positional encoding in 'cat' mode, and a c_dim = 4 mapping and
+    discriminator, at the 128-px training widths: card against CPU at
+    VARIANT_BATCH."""
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.engine.render import render_core
+    from brushstroke_engine_torch.flagship import (
+        _set_noise_strength, flagship_encoder_config,
+    )
+    from brushstroke_engine_torch.models.discriminator import (
+        DiscriminatorConfig, discriminator_apply,
+    )
+    from brushstroke_engine_torch.models.generator import (
+        generator_apply, make_generator_config,
+    )
+    from brushstroke_engine_torch.models.geo_encoder import (
+        GeoEncoderConfig, geo_encoder_encode,
+    )
+    from brushstroke_engine_torch.utils import checkpoint as ckpt
+    from brushstroke_engine_torch.utils.util import tree_to
+
+    b, res = VARIANT_BATCH, VARIANT_RES
+    rng = np.random.RandomState(SEED + 2)
+    geom = torch.from_numpy(np.ascontiguousarray(
+        geom_batch[:b, :res, :res, 1:2].astype(np.float32) / 255.0))
+    z = torch.from_numpy(rng.randn(b, 64).astype(np.float32))
+    c = torch.from_numpy(rng.randn(b, 4).astype(np.float32))
+    pos = torch.from_numpy(rng.randint(0, 4096, (b, 2)).astype(np.int64))
+    flag = flagship_encoder_config()
+    conv = GeoEncoderConfig(kind="conv", preproc="-11inverse",
+                            img_width=res, emb_channel=4, channel_factor=4,
+                            num_layers=4)
+    widths = dict(z_dim=64, w_dim=64, img_resolution=res,
+                  channel_base=16384, channel_max=128)
+
+    def flagship_geom(enc, inject):
+        return dict(geom_feature_resolutions=tuple(
+            enc.featuremap_resolution(res, r) for r in inject),
+            geom_feature_channels=tuple(enc.feature_channels(r)
+                                        for r in inject))
+    cases = {
+        "conv_encoder": (conv, (0,), make_generator_config(
+            **widths, **flagship_geom(conv, (0,)))),
+        "posenc_sine_cat": (flag, (0, 1), make_generator_config(
+            **widths, **flagship_geom(flag, (0, 1)),
+            positional_encoding="sine:16", posenc_inject_resolutions=(2, 3))),
+        "c_dim_4": (flag, (0, 1), make_generator_config(
+            **widths, **flagship_geom(flag, (0, 1)), c_dim=4)),
+    }
+    dcfg = DiscriminatorConfig(c_dim=4, img_resolution=res, img_channels=3,
+                               architecture="orig", channel_base=16384,
+                               channel_max=128)
+    result = {}
+    for name, (enc, inject, gcfg) in cases.items():
+        trees = ckpt.init_native_params(
+            gcfg, enc, seed=SEED + 3,
+            disc_cfg=dcfg if name == "c_dim_4" else None)
+        _set_noise_strength(trees, NOISE_STRENGTH)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            t = {k: tree_to(ckpt.params_from_jax(v), dev)
+                 for k, v in trees.items()}
+            with torch.no_grad():
+                if name != "c_dim_4":
+                    outs[dev] = (render_core(
+                        gcfg, enc, inject, "clear", (), "triad",
+                        t["gen_params"], t["gen_state"], t["enc_params"],
+                        t["enc_state"], geom, z, None, pos, None, None, None,
+                        None, None, device=dev)["rgba"].cpu(),)
+                    continue
+                feats = geo_encoder_encode(enc, t["enc_params"],
+                                           t["enc_state"], geom.to(dev),
+                                           res=list(inject))
+                img, debug = generator_apply(
+                    gcfg, t["gen_params"], t["gen_state"], z=z.to(dev),
+                    c=c.to(dev), geom_features=feats, positions=pos.to(dev),
+                    noise_mode="const", return_debug_data=True)
+                logits = discriminator_apply(dcfg, t["disc_params"],
+                                             img * 2 - 1, c.to(dev))
+                outs[dev] = (img.cpu(), logits.cpu())
+        errs = [(g - w).abs().max().item()
+                for g, w in zip(outs["cuda"], outs["cpu"])]
+        check(all(bool(torch.isfinite(g).all()) for g in outs["cuda"])
+              and errs[0] <= RENDER_ATOL,
+              f"{name}: card vs CPU max abs err {errs[0]:.3e}")
+        if len(errs) > 1:
+            scale = max(1.0, outs["cpu"][1].abs().max().item())
+            check(errs[1] <= D_LOGIT_TOL * scale,
+                  f"conditional D logits card vs CPU {errs[1]:.3e} > "
+                  f"{D_LOGIT_TOL} x {scale:.3g}")
+        result[name] = errs
+    out["variants"] = result
+    print(f"[ckpt] variants at {res} px, B = {b}, card vs CPU max abs err: "
+          + json.dumps(result), flush=True)
+
+
+def _ckpt_autoencoder(root, geom_iter, card, out):
+    """(d) The autoencoder trainer on the card, then the training CLI with
+    --encoder_checkpt: the AE checkpoint, then a reference .pt."""
+    import argparse
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.flagship import flagship_encoder_config
+    from brushstroke_engine_torch.tools import train as cli
+    from brushstroke_engine_torch.train.train_autoencoder import (
+        AETrainConfig, load_ae_checkpoint, train_autoencoder,
+    )
+    from brushstroke_engine_torch.utils import reference_layout as rl
+    from brushstroke_engine_torch.utils.checkpoint import params_to_jax
+
+    enc_cfg = flagship_encoder_config()
+    cfg = AETrainConfig(enc_cfg=enc_cfg, batch_size=AE_BATCH,
+                        num_steps=AE_STEPS, widths=(AE_WIDTH,),
+                        eval_every=AE_STEPS, checkpoint_every=AE_STEPS)
+    batches = (next(geom_iter)[:AE_BATCH] for _ in range(AE_STEPS))
+    ae_dir = os.path.join(root, "ae")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, losses = train_autoencoder(cfg, batches, ae_dir,
+                                              seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    ae_s = time.perf_counter() - t0
+    losses = [x.item() for x in losses]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(len(losses) == AE_STEPS and all(np.isfinite(losses))
+          and last < first, f"AE losses: first 5 mean {first:.4f}, last 5 "
+          f"mean {last:.4f}, finite {all(np.isfinite(losses))}")
+    ae_path = os.path.join(ae_dir, "ae_latest.pkl")
+    got_cfg, got_p, got_s = load_ae_checkpoint(ae_path, device="cuda")
+    check(got_cfg == enc_cfg and _tree_equal(got_p, params)
+          and _tree_equal(got_s, state), "the AE checkpoint does not hold "
+          "the trained weights")
+    pt = os.path.join(root, "encoder.pt")
+    torch.save({"model_state": {
+        k: torch.from_numpy(np.array(v)) for k, v in rl.encoder_state_dict(
+            enc_cfg, params_to_jax(params), params_to_jax(state)).items()},
+        "args": argparse.Namespace(**rl.encoder_args(enc_cfg))}, pt)
+    out["autoencoder"] = {"steps": AE_STEPS, "batch": AE_BATCH,
+                          "width": AE_WIDTH, "seconds": ae_s,
+                          "steps_per_s": AE_STEPS / ae_s,
+                          "loss_first5": first, "loss_last5": last}
+    print("[ckpt] autoencoder " + json.dumps(out["autoencoder"])
+          + f" ({card})", flush=True)
+
+    runs = {}
+    for src, path in (("ae_checkpoint", ae_path), ("reference_pt", pt)):
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        # No eval hooks (--metrics ""): the loop's phases, timed.
+        loop, _ = cli.build(["--outdir", os.path.join(root, src),
+                             "--device", "cuda"]
+                            + _flag_lines("train_flags.txt") + CKPT_CLI_CUTS
+                            + ["--encoder_checkpt", path])
+        loop.profile_phases = True
+        loop.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        tcfg = loop.cfg
+        check(tcfg.enc_cfg == enc_cfg and _tree_equal(loop.enc_params, params)
+              and _tree_equal(loop.enc_state, state),
+              f"{src}: the run's encoder is not the trained one")
+        n = loop.batch_idx
+        sched = {k: sum(1 for i in range(n) if i % iv == 0) for k, iv in (
+            ("Dr1", tcfg.d_reg_interval), ("Gpl", tcfg.g_reg_interval),
+            ("Ggeom", tcfg.geom_interval))}
+        n_up = len(tcfg.gen_cfg.synthesis.block_resolutions) - 1
+        want = {"fir4_epilogue": n_up * (2 * n + sched["Gpl"]
+                                         + sched["Ggeom"]),
+                "warp_twopass": 2 * n + 2 * sched["Dr1"] + n,
+                "warp_twopass_t": sched["Dr1"] + n}
+        check(launches == want, f"{src}: launches {launches}, the schedule "
+              f"of {n} batches {sched} says {want}")
+        _finite_stats(os.path.join(loop.run_dir, "stats.jsonl"))
+        runs[src] = {"batches": n, "wall_s": wall, "launches": launches,
+                     "phase_s": {k: sum(v) for k, v in
+                                 loop.phase_seconds.items()}}
+    out["train_cli"] = runs
+    print("[ckpt] tools/train.py --encoder_checkpt " + json.dumps(runs)
+          + f" ({card})", flush=True)
+
+
+def phase_checkpoint(geom_iter, card, held):
+    """The checkpoint path (see the module doc, phase 11).  ``held``: the
+    K1 shapes phase 3 held against the plain version."""
+    import shutil
+    import tempfile
+    import torch
+    from brushstroke_engine_torch.ops import warp as tw
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+
+    set_precision_mode("strict")
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {"card": card}
+    try:
+        fir4_epilogue.launches = 0     # the checkpoint path starts here
+        fir4_epilogue.shapes.clear()
+        tw.warp_twopass.launches = 0
+        tw.warp_twopass_t.launches = 0
+        t0 = time.time()
+        _ckpt_snapshot(root, card, out)
+        out["snapshot"]["seconds"] = time.time() - t0
+        t0 = time.time()
+        _ckpt_config_f(root, card, out)
+        out["config_f"]["seconds"] = time.time() - t0
+        t0 = time.time()
+        geom_batch = next(geom_iter)
+        _ckpt_variants(geom_batch, out)
+        out["variants"]["seconds"] = time.time() - t0
+        t0 = time.time()
+        _ckpt_autoencoder(root, geom_iter, card, out)
+        out["autoencoder"]["seconds_with_cli"] = time.time() - t0
+        torch.cuda.synchronize()
+        out["launches"] = _launch_counts()     # the checkpoint path ends here
+        check(all(v > 0 for v in out["launches"].values()),
+              f"a kernel was not launched on the checkpoint path: "
+              f"{out['launches']}")
+        launched = sorted(fir4_epilogue.shapes)
+        check(set(launched) <= held, f"K1 launched at shapes phase 3 did "
+              f"not hold against the plain version: "
+              f"{sorted(set(launched) - held)}")
+        out["k1_shapes"] = [list(k) for k in launched]
+        print(f"[ckpt] K1 launched at {len(launched)} shapes, each held in "
+              f"phase 3: {json.dumps(out['k1_shapes'])}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    print(f"[ckpt] launches {json.dumps(out['launches'])}; phase "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     card = phase_card()
@@ -2196,6 +2678,7 @@ def main():
     paint = phase_paint(card)
     serve = phase_serve(card)
     train_cli = phase_train_cli(style_iter, geom_iter, card, held)
+    ckpt = phase_checkpoint(geom_iter, card, held)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -2207,12 +2690,14 @@ def main():
         "replaces": "brushstroke_engine_tpu/ops/pallas_fir.py:85",
         "launches": main_stats["launches"]
         + train["launches"]["fir4_epilogue"] + paint["launches"]
-        + serve["launches"] + train_cli["launches"]["fir4_epilogue"],
+        + serve["launches"] + train_cli["launches"]["fir4_epilogue"]
+        + ckpt["launches"]["fir4_epilogue"],
         "launches_render_path": main_stats["launches"],
         "launches_training_path": train["launches"]["fir4_epilogue"],
         "launches_paint_path": paint["launches"],
         "launches_serve_path": serve["launches"],
         "launches_train_run": train_cli["launches"]["fir4_epilogue"],
+        "launches_checkpoint_path": ckpt["launches"]["fir4_epilogue"],
         "max_abs_err": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "backward_max_rel_err": fir_bwd["worst_rel_err"],
@@ -2235,9 +2720,10 @@ def main():
             "replaces": "brushstroke_engine_tpu/ops/pallas_warp.py:"
                         + ("125" if fn == "_fwd_kernel" else "156"),
             "launches": train["launches"][name]
-            + train_cli["launches"][name],
+            + train_cli["launches"][name] + ckpt["launches"][name],
             "launches_training_path": train["launches"][name],
             "launches_train_run": train_cli["launches"][name],
+            "launches_checkpoint_path": ckpt["launches"][name],
             "max_abs_err": warp_err[key],
             "ms": warp[f"{key}_ms"],
             "plain_ms": warp[f"{key}_plain_ms"],
@@ -2251,7 +2737,7 @@ def main():
         check(k["launches"] > 0, f"{k['name']} was never launched")
     print(json.dumps({"main_path": main_stats, "training_path": train,
                       "paint_path": paint, "serve_path": serve,
-                      "train_run": train_cli,
+                      "train_run": train_cli, "checkpoint_path": ckpt,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

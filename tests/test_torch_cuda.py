@@ -14,7 +14,10 @@ The two-pass warp: 2e-5 forward (the same f32 weights, the taps summed in
 another order), 2e-4 for first and second-order gradients, 1e-4 relative for
 the adjoint identity.  Then the card against the CPU where the render picks
 texels (the wrapped noise: 1e-6, the same IEEE operations) and the batched
-serving paths against serial replays (uint8 within 1 LSB).
+serving paths against serial replays (uint8 within 1 LSB); the model
+variants of reference checkpoints against the CPU (1e-4), a converted
+reference snapshot (bit-equal parameters, 1 LSB) and autoencoder steps
+(losses within 1e-4 relative).
 """
 
 import numpy as np
@@ -610,3 +613,147 @@ def test_train_state_round_trips_on_the_card(tmp_path):
                                    generator=other.device_rng),
                        torch.randn(64, device="cuda",
                                    generator=loop.device_rng))
+
+
+# ---------------------------------------------------------------------------
+# Reference checkpoints and the model variants they carry, on the card
+# ---------------------------------------------------------------------------
+
+_VARIANTS = {
+    "orig-head-skip": dict(color_format="orig", architecture="skip"),
+    "posenc-cat": dict(geom_feature_resolutions=(8,),
+                       geom_feature_channels=(4,),
+                       positional_encoding="sine:8",
+                       posenc_inject_resolutions=(1, 2)),
+    "c_dim": dict(geom_feature_resolutions=(8,), geom_feature_channels=(4,),
+                  c_dim=4),
+}
+
+
+def _variant(kw, device, seed=2):
+    from brushstroke_engine_torch.models.generator import \
+        make_generator_config
+    from brushstroke_engine_torch.models.geo_encoder import GeoEncoderConfig
+    from brushstroke_engine_torch.utils.checkpoint import (
+        init_native_params, params_from_jax,
+    )
+    from brushstroke_engine_torch.utils.util import tree_to
+    cfg = make_generator_config(z_dim=8, w_dim=8, img_resolution=32,
+                                channel_base=256, channel_max=16,
+                                mapping_layers=2, **kw)
+    enc = GeoEncoderConfig(pre_filters=2, down_filters=(2,),
+                           post_filters=(2,), up_filters=(2,))
+    trees = init_native_params(cfg, enc, seed=seed)
+    for block in trees["gen_params"]["synthesis"].values():
+        for name in ("conv0", "conv1"):
+            if name in block:
+                block[name]["noise_strength"] = np.float32(0.3)
+    return cfg, [tree_to(params_from_jax(trees[k]), device)
+                 for k in ("gen_params", "gen_state")]
+
+
+@pytest.mark.parametrize("name", sorted(_VARIANTS))
+def test_generator_variant_on_the_card_equals_the_cpu(name):
+    """z -> image of each variant at B = 4 on the card and on the CPU
+    (1e-4: cuDNN's and the CPU's f32 sums in other orders, TF32 off); K1
+    launches once per up-sampling layer."""
+    from brushstroke_engine_torch.models.generator import generator_apply
+    rng = np.random.RandomState(3)
+    z = torch.from_numpy(rng.randn(4, 8).astype(np.float32))
+    c = torch.from_numpy(rng.randn(4, 4).astype(np.float32))
+    geom = [torch.from_numpy(rng.randn(4, 8, 8, 4).astype(np.float32))]
+    pos = torch.from_numpy(np.array([[3, 40], [0, 0], [31, 7], [300, 9]]))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        cfg, (gp, gs) = _variant(_VARIANTS[name], dev)
+        before = fe.fir4_epilogue.launches
+        img, _ = generator_apply(
+            cfg, gp, gs, z=z.to(dev), c=c.to(dev) if cfg.c_dim else None,
+            geom_features=[g.to(dev) for g in geom]
+            if cfg.synthesis.geom_feature_resolutions else (),
+            positions=pos.to(dev), noise_mode="const")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert fe.fir4_epilogue.launches - before == \
+                len(cfg.synthesis.block_resolutions) - 1
+        outs.append(img.cpu())
+    assert torch.isfinite(outs[0]).all()
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+def test_reference_snapshot_on_the_card(tmp_path):
+    """A reference-layout snapshot ('conv' encoder) through the factory on
+    the card: parameters bit-equal to the CPU conversion, the stroke within
+    1 LSB of the CPU's, K1 launched by the render."""
+    from brushstroke_engine_torch.engine.brush import (
+        GanBrushOptions, PaintEngineFactory,
+    )
+    from brushstroke_engine_torch.models.geo_encoder import GeoEncoderConfig
+    from brushstroke_engine_torch.utils import reference_layout as rl
+    from brushstroke_engine_torch.utils.checkpoint import (
+        init_native_params, params_to_jax,
+    )
+    from brushstroke_engine_torch.models.generator import \
+        make_generator_config
+    enc = GeoEncoderConfig(kind="conv", preproc="-11inverse", img_width=32,
+                           emb_channel=4, channel_factor=2, num_layers=2)
+    cfg = make_generator_config(z_dim=8, w_dim=8, img_resolution=32,
+                                geom_feature_resolutions=(8,),
+                                geom_feature_channels=(4,), channel_base=256,
+                                channel_max=16, mapping_layers=2)
+    trees = init_native_params(cfg, enc, seed=5)
+    p = str(tmp_path / "snap.pkl")
+    rl.write_reference_snapshot(
+        p, rl.generator_state_dict(cfg, trees["gen_params"],
+                                   trees["gen_state"]),
+        {"color_format": "triad", "geom_inject_resolutions": [0]},
+        encoder={"args": rl.encoder_args(enc),
+                 "model_state": rl.encoder_state_dict(
+                     enc, trees["enc_params"], trees["enc_state"])})
+    engines = [PaintEngineFactory.create(p, device=d) for d in ("cuda", "cpu")]
+    for k in ("gen_params", "enc_params", "enc_state"):
+        a, b = (params_to_jax(getattr(e, k)) for e in engines)
+        for x, y in zip(_leaves(a), _leaves(b)):
+            np.testing.assert_array_equal(x, y)
+    patch = np.zeros((32, 32, 4), np.uint8)
+    patch[8:20, 4:28, 3] = 255
+    outs = []
+    before = fe.fir4_epilogue.launches
+    for e in engines:
+        opts = GanBrushOptions()
+        opts.set_style(e.random_style(1), style_id=1)
+        outs.append(e.render_stroke(patch, None, opts)[0])
+    assert fe.fir4_epilogue.launches > before
+    assert np.abs(outs[0].astype(int) - outs[1].astype(int)).max() <= 1
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def test_autoencoder_steps_on_the_card_equal_the_cpu():
+    """Two AE steps (a small 'sauto' encoder, batch 4 at 32 px) on the card
+    and on the CPU from the same weights and crops: the losses within 1e-4
+    relative."""
+    from brushstroke_engine_torch.models.geo_encoder import GeoEncoderConfig
+    from brushstroke_engine_torch.train import train_autoencoder as tae
+    cfg = tae.AETrainConfig(enc_cfg=GeoEncoderConfig(
+        preproc="-11inverse", pre_filters=4, down_filters=(8, 8),
+        post_filters=(6,), up_filters=(8, 4)))
+    rng = np.random.RandomState(4)
+    geom = [(rng.rand(4, 32, 32, 2) > 0.3).astype(np.float32)
+            for _ in range(2)]
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        step, opt = tae.make_ae_train_step(cfg)
+        params, state = tae.init_ae(cfg.enc_cfg, seed=1, device=dev)
+        opt_state = opt.init(params)
+        losses[dev] = []
+        for g in geom:
+            g = torch.from_numpy(g).to(dev)
+            params, state, opt_state, loss = step(params, state, opt_state,
+                                                  g[..., :1], g[..., 1:])
+            losses[dev].append(loss.item())
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

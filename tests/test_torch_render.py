@@ -305,7 +305,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "metrics.color", "metrics.geom", "metrics.inception",
                 "metrics.fid", "metrics.stroke_generator",
                 "metrics.metric_main", "viz.visualize", "train.eval_hooks",
-                "tools.train", "utils.weights"):
+                "tools.train", "utils.weights", "utils.torch_extract",
+                "models.positional", "utils.reference_layout",
+                "train.train_autoencoder",
+                "tools.train_autoencoder", "tools.convert_checkpoint"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

@@ -134,7 +134,7 @@ def test_setup_config_equals_jax(files, d_arch):
 @pytest.mark.parametrize("flag", [
     "--fused", "--dp=2", "--device_dataset", "--steps_per_dispatch=4",
     "--profile_dir=x", "--coordinator_address=h:1", "--num_processes=2",
-    "--process_id=0", "--encoder_checkpt=e.pt", "--positional_encoding=grid"])
+    "--process_id=0"])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttrain.main(["--outdir", str(tmp_path), "--device", "cpu",

@@ -68,9 +68,18 @@ def test_minibatch_stddev_matches_jax():
 
 
 def test_conditional_discriminator_raises():
-    _, tcfg = _disc_cfgs(c_dim=3)
-    with pytest.raises(NotImplementedError):
-        tdisc.discriminator_apply(tcfg, {}, torch.zeros(1, RES, RES, 3))
+    """A conditional D (ported: ``tests/test_torch_variants.py``) given no
+    labels raises, as the JAX package's does."""
+    jcfg, tcfg = _disc_cfgs(c_dim=3)
+    m = small_model(seed=1)
+    d_np = init_native_params(*m["cfg"], seed=4, disc_cfg=tcfg)["disc_params"]
+    img = np.zeros((2, RES, RES, 3), np.float32)
+    with pytest.raises(AttributeError):
+        jdisc.discriminator_apply(
+            jcfg, jax.tree_util.tree_map(jnp.asarray, d_np), jnp.asarray(img))
+    with pytest.raises(AttributeError):
+        tdisc.discriminator_apply(tcfg, params_from_jax(d_np),
+                                  torch.from_numpy(img))
 
 
 # ---------------------------------------------------------------------------
