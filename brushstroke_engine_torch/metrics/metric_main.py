@@ -1,18 +1,19 @@
-"""Metric evaluation loops: per-style stroke metrics and FID.
+"""Metric evaluation loops: per-style stroke metrics, stitching, FID.
 
 Counterpart of ``brushstroke_engine_tpu/metrics/metric_main.py``: per style,
-Lab color control, transparency, background uniformity and across-geometry
-LPIPS; FID from real style images against strokes painted in 'full' mode
-over dataset geometry.
+Lab color control, transparency, background uniformity, across-geometry
+LPIPS and (with a stitcher) the stitching metrics; FID from real style
+images against strokes painted in 'full' mode over dataset geometry.
 
 Random draws: :func:`paint_engine_metric_loop` makes each batch's patch
 corners and permutations in one place (:func:`metric_draws`) from a CPU
 ``torch.Generator`` seeded like the JAX package's key; its ``draws``
-argument takes them from the caller instead.
-
-Not ported yet, and raising where asked for: the stitching metrics
-(``stitching_metric_loop`` and the loop's ``stitcher``), which need
-``train/stitching.py``.
+argument takes them from the caller instead.  The stitching metrics draw
+the first crop from the stroke generator's ``RandomState`` (as the JAX
+package), the second crop from a ``random.Random`` seeded like the loop
+(the JAX package draws it from Python's unseeded global ``random``), and
+the first crop's canvas positions from the loop's ``torch.Generator``; a
+batch's draws may give ``"positions1"`` instead.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import logging
 import os
 import pickle
+import random
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -28,7 +30,9 @@ import torch
 from brushstroke_engine_torch.metrics import color as color_metric
 from brushstroke_engine_torch.metrics import fid as fid_lib
 from brushstroke_engine_torch.metrics import geom as geom_metric
+from brushstroke_engine_torch.models.geo_encoder import geo_encoder_encode
 from brushstroke_engine_torch.models.mapping import mapping_apply
+from brushstroke_engine_torch.train.stitching import RandomStitcher
 
 logger = logging.getLogger(__name__)
 
@@ -70,23 +74,64 @@ def metric_draws(rng: torch.Generator, batch: int, width: int) -> Dict:
     }
 
 
+def _stitch_for_style(generator, z, tri_batch, gic: int,
+                      stitcher: RandomStitcher, crop_rng: random.Random,
+                      pos_rng: Optional[torch.Generator],
+                      draws: Optional[Dict] = None) -> Dict[str, float]:
+    """The stitching render of one batch and its metrics ({} when the
+    geometry is no wider than the patch)."""
+    eng = generator.engine
+    geom = np.asarray(tri_batch, np.float32) / 255.0
+    geom = geom[..., gic:gic + 1]
+    res_w = eng.patch_width
+    h, w = geom.shape[1:3]
+    if h <= res_w or w <= res_w:
+        return {}
+    draws = draws or {}
+    rng = generator.random_state.rng
+    y = int(rng.randint(0, h - res_w))
+    x = int(rng.randint(0, w - res_w))
+    crop1 = (y, x, res_w, res_w)
+    crop2 = stitcher.gen_overlapping_square_crop(h, crop1, crop_rng)
+
+    def encode(crop):
+        g = geom[:, crop[0]:crop[0] + res_w, crop[1]:crop[1] + res_w]
+        with torch.no_grad():
+            return geo_encoder_encode(
+                eng.enc_cfg, eng.enc_params, eng.enc_state,
+                torch.as_tensor(np.ascontiguousarray(g), device=eng.device),
+                res=list(eng.enc_res))
+
+    w_avg = eng.gen_state.get("w_avg")
+    if w_avg is None:
+        w_avg = torch.zeros(eng.gen_cfg.w_dim, device=eng.device)
+    with torch.no_grad():
+        res = stitcher.generate_with_stitching(
+            eng.gen_cfg, eng.gen_params,
+            {"w_avg": w_avg, "noise": eng.gen_state["noise"]},
+            torch.as_tensor(z, dtype=torch.float32, device=eng.device),
+            encode(crop1), encode(crop2), crop1, crop2, pos_rng,
+            positions1=draws.get("positions1"))
+    return geom_metric.compute_stitching_metrics(res, stitcher.crop_margin)
+
+
 def paint_engine_metric_loop(generator, style_library, nbatches_per_style,
-                             fullres_geom_iterator=None, stitcher=None,
+                             fullres_geom_iterator=None,
+                             stitcher: Optional[RandomStitcher] = None,
                              geom_input_channel: int = 1,
                              eval_output_dir: Optional[str] = None,
                              files_prefix: str = "",
                              draws: Optional[Iterable[Dict]] = None
                              ) -> Dict[str, float]:
     """Per-style metric loop; returns the metrics averaged over styles.
-    ``draws``: per-batch :func:`metric_draws` dicts, in batch order."""
-    if stitcher is not None:
-        raise NotImplementedError(
-            "stitching metrics need train/stitching.py, which is not "
-            "ported yet")
+    ``draws``: per-batch :func:`metric_draws` dicts, in batch order (with a
+    ``"stitch"`` dict of ``"positions1"`` where the stitching metrics
+    run)."""
     generator.set_render_mode("clear")
+    seed = generator.random_state.seed or 0
+    rng = torch.Generator().manual_seed(seed)
+    crop_rng = random.Random(seed)
     if draws is None:
-        rng = torch.Generator().manual_seed(
-            generator.random_state.seed or 0)
         w = generator.engine.patch_width
         draws = iter(lambda: metric_draws(rng, generator.batch_size, w),
                      None)
@@ -145,6 +190,15 @@ def paint_engine_metric_loop(generator, style_library, nbatches_per_style,
                 render, geom, same_style=True, draws=d["bg_same"]))
             batch_losses.update(geom_metric.compute_lpips_across_geo(
                 render, perm=d["across_geo"]))
+
+            if stitcher is not None and fullres_geom_iterator is not None \
+                    and generator.current_styles() is not None:
+                tri = next(fullres_geom_iterator)
+                z = generator.current_styles()[:tri.shape[0]]
+                if z.shape[0] == tri.shape[0]:
+                    batch_losses.update(_stitch_for_style(
+                        generator, z, tri, geom_input_channel, stitcher,
+                        crop_rng, rng, d.get("stitch")))
             update_sum_dict(style_losses, batch_losses)
 
         if ordered_keys is None:
@@ -181,10 +235,32 @@ def paint_engine_metric_loop(generator, style_library, nbatches_per_style,
 
 
 def stitching_metric_loop(generator, fullres_geom_iterator, num_batches,
-                          stitcher=None, geom_input_channel: int = 1):
-    raise NotImplementedError(
-        "stitching_metric_loop needs train/stitching.py, which is not "
-        "ported yet")
+                          stitcher: Optional[RandomStitcher] = None,
+                          geom_input_channel: int = 1,
+                          draws: Optional[Iterable[Dict]] = None
+                          ) -> Dict[str, float]:
+    """Stitching metrics over ``num_batches`` full-resolution geometry
+    batches (reference metric_main.py:75-103); ``draws``: per-batch dicts
+    of ``"positions1"``."""
+    stitcher = stitcher or RandomStitcher()
+    seed = generator.random_state.seed or 0
+    pos_rng = torch.Generator().manual_seed(seed)
+    crop_rng = random.Random(seed)
+    draws = iter(draws) if draws is not None else None
+    summary: Dict[str, float] = {}
+    n = 0
+    for _ in range(num_batches):
+        tri = next(fullres_geom_iterator)
+        z = generator.random_state.rng.randn(
+            tri.shape[0], generator.engine.gen_cfg.z_dim).astype(np.float32)
+        losses = _stitch_for_style(
+            generator, z, tri, geom_input_channel, stitcher, crop_rng,
+            pos_rng, next(draws) if draws is not None else None)
+        if losses:
+            update_sum_dict(summary, losses)
+            n += 1
+    normalize_sum_dict(summary, float(max(n, 1)))
+    return summary
 
 
 def forger_compute_fid(generator, real_batches: Iterable,

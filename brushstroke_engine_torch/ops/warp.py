@@ -197,7 +197,9 @@ def _launch(imgs, scalars, transposed: bool, band: int = 0):
     if rc != 0:
         raise RuntimeError(f"warp_twopass kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")
-    cuda_build.count_launch(warp_twopass_t if transposed else warp_twopass)
+    fn = warp_twopass_t if transposed else warp_twopass
+    cuda_build.count_launch(fn)
+    fn.shapes.add((b, n, c))
     return out
 
 
@@ -240,17 +242,21 @@ class WarpTwoPassT(torch.autograd.Function):
 
 
 def warp_twopass(imgs, scalars):
-    """``W`` with gradient; counts its kernel launches in ``.launches``."""
+    """``W`` with gradient; counts its kernel launches in ``.launches`` and
+    records each launch's ``(B, N, C)`` in ``.shapes``."""
     return WarpTwoPass.apply(imgs, scalars)
 
 
 def warp_twopass_t(g, scalars):
-    """``W^T`` with gradient; counts its kernel launches in ``.launches``."""
+    """``W^T`` with gradient; counts its kernel launches in ``.launches`` and
+    records each launch's ``(B, N, C)`` in ``.shapes``."""
     return WarpTwoPassT.apply(g, scalars)
 
 
 warp_twopass.launches = 0
 warp_twopass_t.launches = 0
+warp_twopass.shapes = set()
+warp_twopass_t.shapes = set()
 
 
 def affine_warp_twopass(images, mat, antialias: bool = True):

@@ -26,7 +26,8 @@ from brushstroke_engine_torch.data.curves import (
     draw_stroke_into, random_spline_points, sample_radius,
     triband_from_stroke,
 )
-from brushstroke_engine_torch.utils.img_proc import resize_bilinear
+from brushstroke_engine_torch.utils.img_proc import read_png, \
+    resize_bilinear
 
 _IMG_EXT = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
 
@@ -81,7 +82,10 @@ class ImageFolderDataset:
         return len(self.names) * (2 if self.xflip else 1)
 
     def _read(self, name: str) -> np.ndarray:
-        import PIL.Image
+        try:
+            import PIL.Image
+        except ImportError:
+            return self._read_png(name)
         if self._zip is not None:
             with self._zip.open(name) as f:
                 img = PIL.Image.open(io.BytesIO(f.read()))
@@ -98,6 +102,32 @@ class ImageFolderDataset:
         if arr.ndim == 2:
             arr = arr[..., None]
         return arr
+
+    def _read_png(self, name: str) -> np.ndarray:
+        """A PNG without Pillow (``utils.img_proc.read_png``), converted to
+        the dataset's channels as Pillow's ``convert`` does: gray repeated
+        to RGB, alpha dropped or made opaque, ITU-R 601-2 luma for 'L'."""
+        if not name.lower().endswith(".png"):
+            raise ImportError(f"reading {name} needs Pillow (only PNGs are "
+                              f"read without it)")
+        if self._zip is not None:
+            data = self._zip.read(name)
+        else:
+            with open(os.path.join(self.path, name), "rb") as f:
+                data = f.read()
+        arr = read_png(data)
+        color = arr[..., :3] if arr.shape[2] >= 3 else \
+            np.repeat(arr[..., :1], 3, axis=2)
+        if self.channels == 1:
+            rgb = color.astype(np.uint32)
+            return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470
+                     + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(
+                np.uint8)[..., None]
+        if self.channels == 4:
+            alpha = arr[..., -1:] if arr.shape[2] in (2, 4) else \
+                np.full(arr.shape[:2] + (1,), 255, np.uint8)
+            return np.concatenate([color, alpha], axis=2)
+        return np.ascontiguousarray(color)
 
     def __getitem__(self, idx: int) -> np.ndarray:
         flip = self.xflip and idx >= len(self.names)

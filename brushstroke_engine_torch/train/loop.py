@@ -2,8 +2,9 @@
 
 Counterpart of the unfused single-device branch of
 ``brushstroke_engine_tpu/train/loop.py``: the same phase machine --
-Dmain(1), Dreg(d_reg_interval), Gmain(1), Greg(g_reg_interval) and
-Ggeom(geom_interval), with a separate Ggeom-warm schedule during the
+Dmain(1), Dreg(d_reg_interval), Gmain(1), Greg(g_reg_interval), the
+optional Gstitch(stitch_interval) and Ggeom(geom_interval), with a separate
+Ggeom-warm schedule during the
 warm-start kimg -- driving the phase functions of ``train/steps.py``.  This
 loop only feeds fixed-shape numpy batches, applies the schedule, updates
 ADA p and handles ticks: ``stats.jsonl`` (and TensorBoard events where the
@@ -17,12 +18,14 @@ them every batch would stall the launch queue once per scalar.
 The train state file (``train_state.pkl``) is the port's own: the state
 tree as numpy leaves in the port's layouts (0-d leaves stay 0-d, Adam
 counts stay ints), the counters, and both random streams -- the host numpy
-generator and the device ``torch.Generator`` -- so that a resumed run goes
-on as the uninterrupted one would.
+generator and the device ``torch.Generator`` -- and the stitch phase's
+crop stream (a ``random.Random``; a state file without it starts that stream
+from the seed), so that a resumed run goes on as the uninterrupted one
+would.
 
 Not ported yet, and raising where asked for: the fused step, device-resident
-data banks, multi-batch dispatch, a device mesh, profiling, the Orbax
-train-state backend and the stitch phase.
+data banks, multi-batch dispatch, a device mesh, profiling and the Orbax
+train-state backend.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import json
 import logging
 import os
 import pickle
+import random
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
@@ -44,6 +48,7 @@ from brushstroke_engine_torch.train.dataset import (
 )
 from brushstroke_engine_torch.train.state import TrainConfig, \
     init_train_state
+from brushstroke_engine_torch.train.stitching import RandomStitcher
 from brushstroke_engine_torch.utils.checkpoint import EngineBundle, \
     save_native
 from brushstroke_engine_torch.utils.util import (
@@ -86,9 +91,6 @@ class TrainingLoop:
             if asked:
                 raise NotImplementedError(
                     f"TrainingLoop({name}=...) is not ported yet")
-        if cfg.stitch_interval > 0 and cfg.losses("stitch").items:
-            raise NotImplementedError(
-                "the stitch phase (train/stitching.py) is not ported yet")
         self.device = resolve_device(device)
         # profile_phases: synchronise after each phase, report its seconds
         # as Timing/<phase> in the tick stats and keep every call's seconds
@@ -112,6 +114,13 @@ class TrainingLoop:
         self.rng = np.random.default_rng(seed)
         self.device_rng = torch.Generator(device=self.device)
         self.device_rng.manual_seed(seed + 1)
+        # The second crop of the stitch phase: a seeded stream of its own,
+        # so the other draws are those of a run without stitching.
+        self.seed = seed
+        self.stitch_rng = random.Random(seed)
+        self.stitcher = RandomStitcher()
+        self.stitch_on = cfg.stitch_interval > 0 and \
+            bool(cfg.losses("stitch").items)
 
         self.geom_step = train_steps.make_geom_step(cfg, warmstart=False) \
             if cfg.geom_interval > 0 and cfg.losses("geom").items else None
@@ -174,7 +183,8 @@ class TrainingLoop:
             "state": tree_map(_to_numpy, self.state),
             "rng_state": {
                 "np_rng": self.rng.bit_generator.state,
-                "device_rng": self.device_rng.get_state().numpy()},
+                "device_rng": self.device_rng.get_state().numpy(),
+                "stitch_rng": self.stitch_rng.getstate()},
             "cur_nimg": self.cur_nimg, "batch_idx": self.batch_idx,
             "cur_tick": cur_tick,
         }
@@ -207,6 +217,11 @@ class TrainingLoop:
         self.rng.bit_generator.state = payload["rng_state"]["np_rng"]
         self.device_rng.set_state(
             torch.from_numpy(payload["rng_state"]["device_rng"]))
+        stitch = payload["rng_state"].get("stitch_rng")
+        if stitch is None:
+            self.stitch_rng.seed(self.seed)
+        else:
+            self.stitch_rng.setstate(stitch)
         logger.info("Resumed training state at %d kimg",
                     self.cur_nimg // 1000)
         return True
@@ -291,7 +306,7 @@ class TrainingLoop:
 
         while True:
             warm = self.in_warmstart()
-            style, _tri_full, _crop1, geom_input, geom_truth = \
+            style, tri_full, crop1, geom_input, geom_truth = \
                 self._fetch_batch()
             feats = train_steps.encode_geometry(
                 cfg, self.enc_params, self.enc_state, self._data(geom_input))
@@ -344,6 +359,19 @@ class TrainingLoop:
                     self.state, s = train_steps.g_reg_step(
                         cfg, self.state, feats, z, rng, ema_beta)
                     note(s, "Greg")
+                if self.stitch_on and \
+                        self.batch_idx % cfg.stitch_interval == 0:
+                    crop2 = self.stitcher.gen_overlapping_square_crop(
+                        tri_full.shape[1], crop1, self.stitch_rng)
+                    g2 = tri_full[:, crop2[0]:crop2[0] + crop2[2],
+                                  crop2[1]:crop2[1] + crop2[3], 1:2]
+                    feats2 = train_steps.encode_geometry(
+                        cfg, self.enc_params, self.enc_state, self._data(g2))
+                    z = self._host_normal(bs, zd)
+                    self.state, s = train_steps.g_stitch_step(
+                        cfg, self.state, feats, feats2, z, crop1, crop2, rng,
+                        ema_beta, stitcher=self.stitcher)
+                    note(s, "Gstitch")
                 if self.geom_step is not None and \
                         self.batch_idx % cfg.geom_interval == 0:
                     z = self._host_normal(bs, zd)

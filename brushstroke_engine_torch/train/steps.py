@@ -1,7 +1,7 @@
 """Training phase functions.
 
 Counterpart of ``brushstroke_engine_tpu/train/steps.py``: each phase (Dmain,
-Dreg/r1, Gmain, Greg/path-length, Ggeom, Ggeom-warm) is a function
+Dreg/r1, Gmain, Greg/path-length, Ggeom, Ggeom-warm, Gstitch) is a function
 ``state, batch, draws -> state, stats`` that leaves its input state as it
 was.  Regularizers that need gradient-of-gradient (R1, PL) use
 ``torch.autograd.grad(create_graph=True)``; the second backward runs through
@@ -17,6 +17,8 @@ hand both packages the same numbers):
   * ``"aug_fake"``, ``"aug_real"``, ``"aug"``: ``draw_augment`` dicts for the
     discriminator passes of Dmain, and of Dreg / Gmain;
   * ``"pl_noise"``: the unit-normal image noise of the path-length phase;
+  * ``"positions1"``, ``"aug_composite"``: Gstitch's canvas positions of
+    the first crop and the augment draws of its composite D pass;
   * ``"loss_rng"``: crop draws of the loss DSL (``rng.integers``).
 
 With gradient accumulation (``cfg.batch_gpu``) ``draws`` is a list, one dict
@@ -388,6 +390,60 @@ def make_geom_step(cfg: TrainConfig, warmstart: bool):
         return state, stats
 
     return step
+
+
+def g_stitch_step(cfg: TrainConfig, state, geom_feats1, geom_feats2, z,
+                  crop1, crop2, rng=None, ema_beta=0.0, draws=None,
+                  stitcher=None):
+    """Gstitch: the stitch-phase losses on two overlapping crops and their
+    cross-composites (loss_modified.accumulate_gradients_stitch, :108-138).
+
+    G renders both crops with constant noise and no style mixing; D sees
+    ``concat(fake1, fake2)`` and ``concat(composites)``, each pass with its
+    own augment draws (``"aug_fake"``, ``"aug_composite"``), and the first
+    crop's canvas positions are ``"positions1"`` or drawn from ``rng``.
+    ``crop1`` / ``crop2``: ``(row, col, h, w)`` host ints.  With
+    ``cfg.batch_gpu`` rounds, a round takes the same samples of both crops'
+    features (a composite pairs sample i of one crop with sample i of the
+    other).  ``stitcher``: a ``RandomStitcher`` (default margins if None).
+    """
+    from brushstroke_engine_torch.train.stitching import RandomStitcher
+    g_opt, _, _ = make_optimizers(cfg)
+    losses = cfg.losses("stitch")
+    stitcher = stitcher or RandomStitcher()
+    rounds = _num_rounds(cfg, z.shape[0])
+    g_state = {"w_avg": state["w_avg"], "noise": state["noise"]}
+
+    def loss_fn(g_params, mb, dr):
+        res = stitcher.generate_with_stitching(
+            cfg.gen_cfg, g_params, g_state, mb["z"], mb["feats1"],
+            mb["feats2"], crop1, crop2, rng, positions1=dr.get("positions1"))
+        fake = torch.cat([res["fake1"], res["fake2"]])
+        composite = torch.cat([res["fake1_composite"],
+                               res["fake2_composite"]])
+        debug = {"fake": fake,
+                 "fake_logits": _run_d(cfg, state["d_params"], fake, rng,
+                                       state["ada_p"], dr.get("aug_fake")),
+                 "fake_composite": composite,
+                 "fake_composite_logits": _run_d(
+                     cfg, state["d_params"], composite, rng, state["ada_p"],
+                     dr.get("aug_composite")),
+                 "patch1": res["patch1"], "patch2": res["patch2"]}
+        loss, items = losses.compute(debug, None, rng=dr.get("loss_rng"))
+        return loss, _detach(items)
+
+    batch = {"feats1": list(geom_feats1), "feats2": list(geom_feats2),
+             "z": z}
+    loss, auxs, grads = _accum_grads(loss_fn, state["g_params"], batch,
+                                     draws, rounds)
+    items = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    new_g, new_opt = _apply_updates(g_opt, state["g_params"], grads,
+                                    state["g_opt"])
+    new_ema = ema_update(state["g_ema"], new_g, ema_beta)
+    state = dict(state, g_params=new_g, g_opt=new_opt, g_ema=new_ema)
+    stats = {"Loss/forger/Gstitch/total": loss}
+    stats.update({f"Loss/forger/Gstitch/{k}": v for k, v in items.items()})
+    return state, stats
 
 
 def ada_update(cfg: TrainConfig, state, nimg_per_interval: float):

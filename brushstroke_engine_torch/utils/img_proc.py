@@ -1,7 +1,7 @@
 """Numpy image helpers of the training data pipeline, the stylize tool and
 the visualizer (the port's copy of what it needs from
-``brushstroke_engine_tpu/utils/img_proc.py``, and a PNG writer that needs no
-Pillow)."""
+``brushstroke_engine_tpu/utils/img_proc.py``, and a PNG writer and reader
+that need no Pillow)."""
 
 from __future__ import annotations
 
@@ -86,3 +86,65 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
                 + chunk(b"IEND", b""))
+
+
+_PNG_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}      # PNG color type -> channels
+
+
+def read_png(data: bytes) -> np.ndarray:
+    """Decode an 8-bit, non-interlaced gray, gray + alpha, RGB or RGBA PNG
+    (every row filter) with ``zlib`` alone -> uint8 ``[H, W, C]``.  Raises
+    ``ValueError`` on any other PNG."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or interlace != 0 or ctype not in _PNG_CHANNELS:
+        raise ValueError(f"unsupported PNG: depth {depth}, color type "
+                         f"{ctype}, interlace {interlace}")
+    c = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + w * c)
+    out = np.zeros((h, w * c), np.int32)
+    prev = np.zeros(w * c, np.int32)
+    for y in range(h):
+        f, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if f == 0:
+            row = line
+        elif f == 2:
+            row = (line + prev) & 0xFF
+        else:
+            # Sub, Average and Paeth read the reconstructed pixel to the
+            # left, so they run pixel by pixel.
+            row = np.zeros_like(line)
+            for x in range(w * c):
+                a = row[x - c] if x >= c else 0
+                b = prev[x]
+                if f == 1:
+                    pred = a
+                elif f == 3:
+                    pred = (a + b) >> 1
+                elif f == 4:
+                    cc = prev[x - c] if x >= c else 0
+                    p = a + b - cc
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - cc)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else cc)
+                else:
+                    raise ValueError(f"PNG row filter {f}")
+                row[x] = (line[x] + pred) & 0xFF
+        out[y] = row
+        prev = row
+    return out.astype(np.uint8).reshape(h, w, c)

@@ -3,13 +3,12 @@
 Counterpart of ``brushstroke_engine_tpu/viz/visualize.py``: ``make_grid``,
 ``compose_stroke`` / ``compose_stroke_with_canvas``, the ``visualize_raw_data``
 contact sheet, ``TrainingVisualizer`` (fixed-geometry fakes, geometry
-control and color control sheets at every image-snapshot tick) and the
-encoder reconstruction sheet ``output_encoder_diagnostics``.  Sheets are
-assembled in numpy from the engine's renders and written as PNG by
-``utils.img_proc.write_png``, which needs no Pillow.
-
-Not ported yet: the stitching sheet (``visualize_stitching``, with
-``train/stitching.py``).
+control and color control sheets at every image-snapshot tick, and the
+stitching sheet of adjacent patches at correct against random canvas
+positions) and the encoder reconstruction sheet
+``output_encoder_diagnostics``.  Sheets are assembled in numpy from the
+engine's renders and written as PNG by ``utils.img_proc.write_png``, which
+needs no Pillow.
 """
 
 from __future__ import annotations
@@ -186,3 +185,33 @@ class TrainingVisualizer:
         write_png(os.path.join(out_dir, f"color_control_{tag}.png"),
                    to_uint8(np.concatenate(rows, axis=1)))
         return True
+
+    def visualize_stitching(self, out_dir: str, engine, tag: str,
+                            canvas_geom: Optional[np.ndarray] = None):
+        """Stitching sheet: two adjacent patches of one canvas geometry
+        rendered at their correct canvas positions (top row) and at random
+        ones (bottom row), written as ``stitching_<tag>.png`` (reference
+        :512-544)."""
+        w = engine.patch_width
+        if canvas_geom is None:
+            from brushstroke_engine_torch.data.curves import \
+                random_spline_stroke
+            canvas_geom = random_spline_stroke(
+                np.random.default_rng(0), 2 * w)
+        z = self.fixed_z[:1]
+        halves = []
+        for mode in ("correct", "random"):
+            row = []
+            for x in (0, w // 2):
+                patch = canvas_geom[:w, x:x + w][None, ..., None]
+                if mode == "correct":
+                    pos = np.asarray([[0, x]], np.int64)
+                else:
+                    pos = self.rng.randint(0, w, size=(1, 2))
+                out = self._render(engine, z, patch, positions=pos)
+                row.append(_np(out["rgba"])[0, ..., :3])
+            halves.append(np.concatenate(row, axis=1))
+        sheet = to_uint8(np.concatenate(halves, axis=0))
+        os.makedirs(out_dir, exist_ok=True)
+        write_png(os.path.join(out_dir, f"stitching_{tag}.png"), sheet)
+        return sheet

@@ -31,7 +31,9 @@ Phases, in order; any failure exits non-zero:
    bf16 at the 64- and 128-px training shapes (B = 64, C = 128).
 5. The ADA two-pass warp kernels W and W^T against their plain versions:
    the five transform classes and 64 matrices of the ADA pipe at p = 1, at
-   [64,128,128,3] and [8,64,64,3], antialias on and off, values, two calls
+   [64,128,128,3], [8,64,64,3] and the batches phase 12's Gstitch launches
+   them at ([128,128,128,3], [16,128,128,3]), antialias on and off, values,
+   two calls
    bit-equal, the second-order (R1) pattern and the adjoint identity, with
    times.  Then both under stress: pass slopes of 0 and near 0, a quarter
    turn, a translation, flips, a strong zoom-out and zoom-in, a
@@ -120,8 +122,28 @@ Phases, in order; any failure exits non-zero:
     checkpoint and once with a reference ``.pt`` of the same weights, K1,
     W and W^T launched as the schedule says.  Every K1 shape it launched
     was held in phase 3.  Prints the conversion seconds, config-f ms per
-    image, the AE's steps/s.
-12. Prints the kernel table as JSON, then the final JSON line.
+    image, the AE's steps/s, and how many LSB apart two renders of the
+    native engine, a second native engine and the converted ones lie; with
+    cuDNN's deterministic algorithms (and empty style caches) they must be
+    bit-equal.
+12. Stitching and the metric zoo (``[stitch]`` lines): the canonical
+    128-px / batch-64 configuration with Gstitch every 4 batches and the
+    stitch losses ``gan(fake)``, ``gan(fake_composite)``, ``l1(patch)``
+    takes 9 batches of ``TrainingLoop`` (launches on the schedule, Gstitch's
+    and Gmain's seconds, peak memory); one Gstitch at B = 8 on the card and
+    on the CPU with the same draws (stats within 1e-4 relative, the G
+    update within one Adam step's rounding); ``tools/train.py`` with
+    ``train_flags.txt`` and the stitch flags (bf16, one batch), resumed
+    bitwise across a Gstitch; then the 256-px flagship written with
+    ``save_native``: ``tools/metric_main.py --enable_stitching`` (the
+    stitching keys present and finite), ``stitching_metric_loop`` card
+    against CPU, ``tools/visualize_stitching.py``, ``tools/calc_metrics.py
+    --metrics fid,kid,is,pr,ppl_w,ppl_z`` over 256 noise style images and
+    synthetic geometry written as PNG (every value finite, with its
+    seconds), ``tools/fid_from_images.py --pr``, ``compute_pr`` and PPL's
+    per-sample distances card against CPU.  Every K1 shape and every W /
+    W^T shape it launched was held in phases 3 and 5.
+13. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
@@ -246,6 +268,32 @@ K1_PATH_BATCHES = (*range(1, 9), 32)
 # loaded snapshot's strokes and the served ones).  Phase 10 checks that
 # every shape it launched K1 at was held in phase 3.
 K1_BF16_BATCHES = (TRAIN_BATCH, *K1_PATH_BATCHES)
+# Phase 12, stitching and the metric zoo.  Gstitch at the canonical
+# configuration with the JAX package's parity losses (all three stitch
+# sources) every STITCH_INTERVAL batches: STITCH_BATCHES batches of
+# TrainingLoop (Gstitch at 0, 4 and 8), then one Gstitch at
+# STITCH_CHECK_BATCH on the card and on the CPU from the same weights, data
+# and draws: every stat within TRAIN_RTOL, the updated G by the port's
+# parity tests' rule for one Adam step (~lr * sign(g), so per tensor the
+# mean |dG_card - dG_cpu| under 2 % of the step and 99 % of the entries
+# under 10 %).  The CLI: train_flags.txt with the stitch flags, one batch
+# (Gstitch at batch 0), then the resume check of phase 10 (Gstitch at batch
+# 4).  Then the 256-px flagship written with save_native: the stitching
+# metrics through tools/metric_main.py over ZOO_STYLES styles at B = 8 and
+# stitching_metric_loop at B = STITCH_CMP_BATCH on the card against the CPU
+# (METRIC_RTOL), the stitching sheets, tools/calc_metrics.py over ZOO_ITEMS
+# items at B = ZOO_BATCH (ZOO_ITEMS noise style images and ZOO_GEOMS
+# synthetic geometries written as PNG), tools/fid_from_images.py --pr,
+# compute_pr on the card against the CPU on the same features (equal), and
+# PPL's per-sample distances at PPL_CMP_EPS card against CPU (PPL_CMP_RTOL
+# relative -- f32 renders summed in other orders, magnified by eps^-2 --
+# plus the f32 floor of LPIPS, 8 u sqrt(d) / eps with u = 2^-24).
+STITCH_LOSSES = "1.0*gan(fake)+1.0*gan(fake_composite)+1.0*l1(patch)"
+STITCH_INTERVAL, STITCH_BATCHES, STITCH_CHECK_BATCH = 4, 9, 8
+STITCH_CMP_BATCH = 2
+ZOO_ITEMS, ZOO_BATCH, ZOO_STYLES, ZOO_GEOMS = 256, 32, 4, 64
+ZOO_METRICS = "fid,kid,is,pr,ppl_w,ppl_z"
+PPL_CMP_SAMPLES, PPL_CMP_EPS, PPL_CMP_RTOL = 4, 1e-2, 1e-3
 
 
 def fail(msg):
@@ -753,6 +801,13 @@ def _stress_mats():
 # Stress shapes (N, C) of the warp kernels at B = 8: N = 67 is no multiple
 # of the column band W picks there, C = 11 takes two channel chunks.
 WARP_STRESS_SHAPES = ((67, 5), (128, 3), (33, 11))
+# W and W^T against the plain version at the trainer's batch, a small one,
+# and the batches phase 12's Gstitch launches them at: its discriminator
+# sees both crops, 2 x 64 in the timed loop and the CLI, 2 x
+# STITCH_CHECK_BATCH in the card-vs-CPU step.
+WARP_BATCHES = ((TRAIN_BATCH, TRAIN_RES), (8, 64),
+                (2 * TRAIN_BATCH, TRAIN_RES), (2 * STITCH_CHECK_BATCH,
+                                               TRAIN_RES))
 
 
 def _warp_stress(tw, taug, gen, worst):
@@ -825,6 +880,10 @@ def phase_warp_vs_plain():
     cfg = taug.AugmentConfig.from_spec("bgc")
     one = torch.tensor(1.0, device="cuda")
     rows = []
+    # Every (B, N, C) launched here is held against the plain version;
+    # phase 12 checks its launches against these sets.
+    tw.warp_twopass.shapes.clear()
+    tw.warp_twopass_t.shapes.clear()
     worst = {"w": 0.0, "wt": 0.0, "w_stress": 0.0, "wt_stress": 0.0,
              "second": 0.0, "adjoint": 0.0}
 
@@ -835,7 +894,7 @@ def phase_warp_vs_plain():
         (g2,) = torch.autograd.grad(g1.square().sum(), xr)
         return g2
 
-    for b, n in ((TRAIN_BATCH, TRAIN_RES), (8, 64)):
+    for b, n in WARP_BATCHES:
         c = 3
         ada_draws = taug.draw_augment(cfg, gen, b, (n, n, c), "cuda")
         ada = torch.linalg.inv_ex(taug.geometric_matrix(
@@ -940,7 +999,9 @@ def phase_warp_vs_plain():
           f"{worst['w']:.3e}, W^T {worst['wt']:.3e}, second-order rel "
           f"{worst['second']:.3e}, adjoint rel {worst['adjoint']:.3e}",
           flush=True)
-    return rows, worst
+    held = {"warp_twopass": set(tw.warp_twopass.shapes),
+            "warp_twopass_t": set(tw.warp_twopass_t.shapes)}
+    return rows, worst, held
 
 
 def _stroke_patch(width):
@@ -1418,11 +1479,83 @@ def _finite_stats(path):
     return rows
 
 
+def _resume_bitwise(loop, style_iter, geom_iter, root, tag):
+    """X resumes ``loop``'s train state, takes RESUME_N batches, saves, and
+    takes RESUME_M more; Y resumes X's save in the same directory and takes
+    the same RESUME_M batches.  Fails unless both end bitwise equal, with
+    cuDNN's deterministic algorithms (every other op of the step is
+    deterministic)."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.train.loop import LoopHooks, TrainingLoop
+    from brushstroke_engine_torch.utils.util import tree_leaves
+
+    t0 = time.time()
+    cfg, n = loop.cfg, loop.batch_idx
+    rcfg = dataclasses.replace(cfg, kimg_per_tick=cfg.batch_size / 1000.0)
+    batches = [(next(style_iter), next(geom_iter))
+               for _ in range(RESUME_N + RESUME_M)]
+    xdir = os.path.join(root, f"resume_{len(os.listdir(root))}")
+    os.makedirs(xdir)
+    shutil.copy(os.path.join(loop.run_dir, "train_state.pkl"), xdir)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    xs, ys = [], []
+    try:
+        def make(start, rows):
+            return TrainingLoop(
+                rcfg, loop.enc_params, loop.enc_state,
+                iter([b[0] for b in batches[start:]]),
+                iter([b[1] for b in batches[start:]]), xdir,
+                seed=SEED + 5, auto_resume=True,
+                hooks=LoopHooks(on_tick=lambda lp, st: rows.append(
+                    dict(st))),
+                snapshot_ticks=10 ** 9, device="cuda")
+        x = make(0, xs)
+        check((x.cur_nimg, x.batch_idx) == (loop.cur_nimg, n),
+              "X did not resume the run's state")
+        x.run(total_kimg=(x.cur_nimg + RESUME_N * cfg.batch_size) / 1000.0)
+        x.save_train_state()
+        y = make(RESUME_N, ys)
+        check(y.batch_idx == n + RESUME_N, "Y did not resume X's save")
+        end = (x.cur_nimg + RESUME_M * cfg.batch_size) / 1000.0
+        x.run(total_kimg=end)
+        y.run(total_kimg=end)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    for i, row in enumerate(xs + ys):
+        bad = [k for k, v in row.items() if not np.isfinite(v)]
+        check(not bad, f"resume row {i}: non-finite {bad}")
+
+    def strip(rs):
+        return [{k: v for k, v in r.items() if not k.startswith(
+            "Timing/")} for r in rs]
+    stats_equal = strip(xs[-RESUME_M:]) == strip(ys[-RESUME_M:])
+    leaves = [(a, b) for a, b in zip(tree_leaves(x.state),
+                                     tree_leaves(y.state))
+              if isinstance(a, torch.Tensor)]
+    params_equal = all(torch.equal(a, b) for a, b in leaves)
+    ran = sorted({k for r in xs[-RESUME_N - RESUME_M:] for k in r
+                  if k.startswith("Loss/")})
+    print(f"{tag} resume: X {RESUME_N} + {RESUME_M} batches from the run's "
+          f"state (batch {n} on), Y resumed after {RESUME_N}: stats equal "
+          f"{stats_equal}, {len(leaves)} state tensors equal {params_equal} "
+          f"(bitwise, cudnn.deterministic); phases {ran}; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    check(stats_equal and params_equal and x.state["d_opt"]["count"]
+          == y.state["d_opt"]["count"]
+          and x.stitch_rng.getstate() == y.stitch_rng.getstate(),
+          "a resumed run is not bitwise the uninterrupted one")
+    return ran
+
+
 def phase_train_cli(style_iter, geom_iter, card, held):
     """The training run as neube_train.sh runs it, through the port's CLI
     (see the module doc, phase 10).  ``held``: the K1 shapes phase 3 held
     against the plain version."""
-    import dataclasses
     import shutil
     import tempfile
     import numpy as np
@@ -1442,7 +1575,6 @@ def phase_train_cli(style_iter, geom_iter, card, held):
     from brushstroke_engine_torch.tools import train as cli
     from brushstroke_engine_torch.train.dataset import NoiseStyleDataset
     from brushstroke_engine_torch.train.eval_hooks import _engine_from_loop
-    from brushstroke_engine_torch.train.loop import LoopHooks, TrainingLoop
     from brushstroke_engine_torch.ui.core import create_core
     from brushstroke_engine_torch.utils.checkpoint import load_native
     from brushstroke_engine_torch.utils.util import tree_leaves
@@ -1592,68 +1724,7 @@ def phase_train_cli(style_iter, geom_iter, card, held):
               flush=True)
 
         # ---- 5. resume ------------------------------------------------
-        # X resumes the CLI run's train state, takes N batches, saves, and
-        # takes M more; Y resumes X's save in the same directory and takes
-        # the same M batches.  Bitwise, with cuDNN's deterministic
-        # algorithms (every other op of the step is deterministic).
-        t0 = time.time()
-        rcfg = dataclasses.replace(cfg,
-                                   kimg_per_tick=cfg.batch_size / 1000.0)
-        batches = [(next(style_iter), next(geom_iter))
-                   for _ in range(RESUME_N + RESUME_M)]
-
-        xdir = os.path.join(root, "resume")
-        os.makedirs(xdir)
-        shutil.copy(os.path.join(run, "train_state.pkl"), xdir)
-        det = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        xs, ys = [], []
-        try:
-            def make(start, rows):
-                return TrainingLoop(
-                    rcfg, loop.enc_params, loop.enc_state,
-                    iter([b[0] for b in batches[start:]]),
-                    iter([b[1] for b in batches[start:]]), xdir,
-                    seed=SEED + 5, auto_resume=True,
-                    hooks=LoopHooks(on_tick=lambda lp, st: rows.append(
-                        dict(st))),
-                    snapshot_ticks=10 ** 9, device="cuda")
-            x = make(0, xs)
-            check((x.cur_nimg, x.batch_idx) == (loop.cur_nimg, n),
-                  "X did not resume the CLI run's state")
-            x.run(total_kimg=(x.cur_nimg + RESUME_N * cfg.batch_size)
-                  / 1000.0)
-            x.save_train_state()
-            y = make(RESUME_N, ys)
-            check(y.batch_idx == n + RESUME_N, "Y did not resume X's save")
-            end = (x.cur_nimg + RESUME_M * cfg.batch_size) / 1000.0
-            x.run(total_kimg=end)
-            y.run(total_kimg=end)
-            torch.cuda.synchronize()
-        finally:
-            torch.backends.cudnn.deterministic = det
-        for i, row in enumerate(xs + ys):
-            bad = [k for k, v in row.items() if not np.isfinite(v)]
-            check(not bad, f"resume row {i}: non-finite {bad}")
-
-        def strip(rs):
-            return [{k: v for k, v in r.items() if not k.startswith(
-                "Timing/")} for r in rs]
-        stats_equal = strip(xs[-RESUME_M:]) == strip(ys[-RESUME_M:])
-        leaves = [(a, b) for a, b in zip(tree_leaves(x.state),
-                                         tree_leaves(y.state))
-                  if isinstance(a, torch.Tensor)]
-        params_equal = all(torch.equal(a, b) for a, b in leaves)
-        ran = {k for r in xs[-RESUME_N - RESUME_M:] for k in r
-               if k.startswith("Loss/")}
-        print(f"[cli] resume: X {RESUME_N} + {RESUME_M} batches from the CLI "
-              f"state (batch {n} on), Y resumed after {RESUME_N}: stats "
-              f"equal {stats_equal}, {len(leaves)} state tensors equal "
-              f"{params_equal} (bitwise, cudnn.deterministic); phases "
-              f"{sorted(ran)}; {time.time() - t0:.1f} s", flush=True)
-        check(stats_equal and params_equal and x.state["d_opt"]["count"]
-              == y.state["d_opt"]["count"],
-              "a resumed run is not bitwise the uninterrupted one")
+        _resume_bitwise(loop, style_iter, geom_iter, root, "[cli]")
         out["resume_bitwise"] = True
 
         # ---- 6. the clarity finetune ----------------------------------
@@ -2326,19 +2397,49 @@ def _ckpt_snapshot(root, card, out):
     tconv.main(["--kind", "snapshot", "--src", pkl, "--dst", dst])
     tool_s = time.perf_counter() - t0
     from_tool = PaintEngineFactory.create(dst, device="cuda")
+    # The same requests through the native engine twice and through a
+    # second native engine built alike: how far two renders of one engine
+    # lie apart on the card, beside the converted engines' distance; then
+    # the same with cuDNN's deterministic algorithms, each engine's style
+    # cache (its clarity factors, computed by a render) emptied first.
+    rebuilt = _engine(0, "cuda", trees)
     geom = _stroke_patch(RES)
-    worst = 0
-    for mode, seed in (("clear", 1), ("full", 2)):
-        imgs = []
-        for eng in (native, conv, from_tool):
-            eng.set_render_mode(mode)
-            opts = _stroke_opts(eng)
-            opts.set_style(eng.random_style(seed))
-            imgs.append(eng.render_stroke(geom, None, opts)[0])
-        worst = max(worst, _u8_err(imgs[0], imgs[1]),
-                    _u8_err(imgs[0], imgs[2]))
+    engines = (native, native, rebuilt, conv, from_tool)
+
+    def spread():
+        for eng in engines:
+            eng.uvs_mapper.sfactors.clear()
+        lsb = {"native_repeat": 0, "native_rebuilt": 0, "converted": 0,
+               "converted_by_tool": 0}
+        for mode, seed in (("clear", 1), ("full", 2)):
+            imgs = []
+            for eng in engines:
+                eng.set_render_mode(mode)
+                opts = _stroke_opts(eng)
+                opts.set_style(eng.random_style(seed))
+                imgs.append(eng.render_stroke(geom, None, opts)[0])
+            for key, img in zip(lsb, imgs[1:]):
+                lsb[key] = max(lsb[key], _u8_err(imgs[0], img))
+        return lsb
+
+    lsb = spread()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        lsb_det = spread()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(f"[ckpt] LSB from the native engine's first render: "
+          f"{json.dumps(lsb)}; with cuDNN's deterministic algorithms "
+          f"{json.dumps(lsb_det)}", flush=True)
+    worst = max(lsb["converted"], lsb["converted_by_tool"])
     check(worst <= 1, f"the converted snapshot renders {worst} LSB off the "
           f"native engine")
+    # With deterministic algorithms every render of these engines is the
+    # same: the 1 LSB above is cuDNN's run-to-run rounding, not the
+    # conversion.
+    check(not any(lsb_det.values()), f"with cuDNN's deterministic "
+          f"algorithms the renders differ: {lsb_det}")
     core = create_core(gan_checkpoint=pkl, device="cuda")
     try:
         stats, _ = bs.serve(core, "helper", 1, SNAP_SERVE_STROKES, 1,
@@ -2352,7 +2453,8 @@ def _ckpt_snapshot(root, card, out):
           f"{stats['fallbacks']} fallbacks, {stats['errors']} errors")
     out["snapshot"] = {"convert_s": convert_s, "tool_convert_s": tool_s,
                        "snapshot_mib": os.path.getsize(pkl) / 2 ** 20,
-                       "lsb_vs_native": worst,
+                       "lsb_vs_native": worst, "lsb": lsb,
+                       "lsb_deterministic": lsb_det,
                        "served": stats["strokes_served"],
                        "client_ms_p50": stats["client_ms"]["p50"]}
     print("[ckpt] flagship snapshot " + json.dumps(out["snapshot"])
@@ -2660,6 +2762,416 @@ def phase_checkpoint(geom_iter, card, held):
     return out
 
 
+def _stitch_step_on(cfg, device, draws, z, tri_u8, crops):
+    """One Gstitch from seed-0 weights on ``device`` with the given draws:
+    ({stat: float}, G before, G after)."""
+    import torch
+    from brushstroke_engine_torch.flagship import flagship_train_setup
+    from brushstroke_engine_torch.train import steps
+    from brushstroke_engine_torch.train.dataset import geom_batch_to_float
+    from brushstroke_engine_torch.utils.util import tree_to
+    state, enc_p, enc_s = flagship_train_setup(cfg, SEED, NOISE_STRENGTH,
+                                               device)
+    dev = state["ada_p"].device
+    state["ada_p"] = torch.full((), 0.5, device=dev)
+    enc_p, enc_s = tree_to(enc_p, dev), tree_to(enc_s, dev)
+    tri = torch.from_numpy(geom_batch_to_float(tri_u8)).to(dev)
+    res = cfg.gen_cfg.img_resolution
+    feats = [steps.encode_geometry(
+        cfg, enc_p, enc_s,
+        tri[:, r:r + res, c:c + res, 1:2].contiguous())
+        for r, c, _, _ in crops]
+    new, s = steps.g_stitch_step(cfg, state, feats[0], feats[1], z.to(dev),
+                                 crops[0], crops[1], ema_beta=0.5,
+                                 draws=tree_to(draws, dev))
+    return {k: float(v) for k, v in s.items()}, state["g_params"], \
+        new["g_params"]
+
+
+def _update_parity(before, card, cpu, lr):
+    """The port's parity rule for one Adam step (see STITCH_* above);
+    returns the worst per-tensor mean |dG_card - dG_cpu| / lr."""
+    import torch
+    from brushstroke_engine_torch.utils.util import tree_leaves
+    worst = 0.0
+    for b, g, c in zip(tree_leaves(before), tree_leaves(card),
+                       tree_leaves(cpu)):
+        b = b.detach().cpu().double()
+        dg, dc = g.detach().cpu().double() - b, c.detach().double() - b
+        diff = (dg - dc).abs()
+        check(float(diff.mean()) < 0.02 * lr
+              and float((diff < 0.1 * lr).double().mean()) > 0.99,
+              f"Gstitch card vs CPU: G update differs beyond one Adam "
+              f"step's rounding ({float(diff.mean()) / lr:.3e} of lr)")
+        worst = max(worst, float(diff.mean()) / lr)
+    return worst
+
+
+def _zoo_folders(root):
+    """ZOO_ITEMS noise style images at RES (two folders, the second half as
+    large) and ZOO_GEOMS synthetic triband geometries at RES + 64, written
+    as PNG (the dataset reads them without Pillow)."""
+    from brushstroke_engine_torch.train.dataset import (
+        NoiseStyleDataset, SyntheticGeometryDataset,
+    )
+    from brushstroke_engine_torch.utils.img_proc import write_png
+    dirs = {}
+    for name, ds, n in (
+            ("styles", NoiseStyleDataset(RES, seed=SEED), ZOO_ITEMS),
+            ("styles_b", NoiseStyleDataset(RES, seed=SEED + 1),
+             ZOO_ITEMS // 2),
+            ("geom", SyntheticGeometryDataset(RES + 64, size=ZOO_GEOMS,
+                                              seed=SEED), ZOO_GEOMS)):
+        dirs[name] = os.path.join(root, name)
+        for i in range(n):
+            write_png(os.path.join(dirs[name], f"{i:04d}.png"), ds[i])
+    return dirs
+
+
+def phase_stitch(style_iter, geom_iter, card, held, warp_held):
+    """Stitching and the metric zoo (see the module doc, phase 12).
+    ``held`` / ``warp_held``: the K1 and W / W^T shapes phases 3 and 5 held
+    against the plain versions."""
+    import random
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.engine.brush import PaintEngineFactory
+    from brushstroke_engine_torch.flagship import (
+        flagship_encoder_config, flagship_generator_config,
+        flagship_train_config, flagship_train_setup, flagship_trees,
+    )
+    from brushstroke_engine_torch.metrics import fid as fid_lib
+    from brushstroke_engine_torch.metrics import ppl as tppl
+    from brushstroke_engine_torch.metrics import pr as tpr
+    from brushstroke_engine_torch.metrics.metric_main import \
+        stitching_metric_loop
+    from brushstroke_engine_torch.metrics.stroke_generator import (
+        PaintStrokeGenerator, RandomState,
+    )
+    from brushstroke_engine_torch.models.geo_encoder import \
+        geo_encoder_encode
+    from brushstroke_engine_torch.ops import warp as tw
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+    from brushstroke_engine_torch.tools import calc_metrics as tcalc
+    from brushstroke_engine_torch.tools import fid_from_images as tfid
+    from brushstroke_engine_torch.tools import metric_main as tmetric
+    from brushstroke_engine_torch.tools import train as cli
+    from brushstroke_engine_torch.tools import visualize_stitching as tvis
+    from brushstroke_engine_torch.train.augment import draw_augment
+    from brushstroke_engine_torch.train.loop import TrainingLoop
+    from brushstroke_engine_torch.train.stitching import RandomStitcher
+    from brushstroke_engine_torch.utils.checkpoint import (
+        EngineBundle, params_from_jax, save_native,
+    )
+    from brushstroke_engine_torch.utils.img_proc import read_png
+
+    def png(d, i):
+        with open(os.path.join(dirs[d], f"{i:04d}.png"), "rb") as f:
+            return read_png(f.read())
+
+    set_precision_mode("strict")
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_stitch_")
+    out = {"card": card}
+    launches = {}
+    try:
+        fir4_epilogue.launches = 0     # the stitch path starts here
+        fir4_epilogue.shapes.clear()
+        for fn in (tw.warp_twopass, tw.warp_twopass_t):
+            fn.launches = 0
+            fn.shapes.clear()
+
+        # ---- 1. Gstitch in TrainingLoop at 128 px, batch 64 ----------
+        cfg = flagship_train_config(
+            TRAIN_RES, TRAIN_BATCH, geom_warmstart_kimg=0, geom_interval=8,
+            kimg_per_tick=TRAIN_BATCH / 1000.0,
+            stitch_interval=STITCH_INTERVAL,
+            stitch_phase_losses=STITCH_LOSSES)
+        state, enc_p, enc_s = flagship_train_setup(cfg, SEED, NOISE_STRENGTH,
+                                                   "cuda")
+        state["ada_p"] = torch.full((), 0.5, device="cuda")
+        rows = []
+        n = STITCH_BATCHES
+        loop = TrainingLoop(cfg, enc_p, enc_s, style_iter, geom_iter,
+                            os.path.join(root, "loop"), seed=SEED,
+                            resume_state=state, profile_phases=True,
+                            snapshot_ticks=10 ** 9, device="cuda")
+        loop.hooks.on_tick = lambda lp, st: rows.append(dict(st))
+        before = _launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loop.run(total_kimg=(n * TRAIN_BATCH - 0.5) / 1000.0)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = {k: v - before[k] for k, v in _launch_counts().items()}
+        for i, row in enumerate(rows):
+            bad = [k for k, v in row.items() if not np.isfinite(v)]
+            check(not bad, f"stitch loop batch {i}: non-finite {bad}")
+        sched = {"Dmain": n, "Gmain": n,
+                 "Dr1": len(range(0, n, cfg.d_reg_interval)),
+                 "Gpl": len(range(0, n, cfg.g_reg_interval)),
+                 "Ggeom": len(range(0, n, cfg.geom_interval)),
+                 "Gstitch": len(range(0, n, STITCH_INTERVAL))}
+        check(len(loop.phase_seconds.get("Gstitch", [])) == sched["Gstitch"]
+              and all("Loss/forger/Gstitch/total" in rows[i]
+                      for i in range(0, n, STITCH_INTERVAL)),
+              f"Gstitch ran {len(loop.phase_seconds.get('Gstitch', []))} "
+              f"times, the schedule says {sched['Gstitch']}")
+        n_up = len(cfg.gen_cfg.synthesis.block_resolutions) - 1
+        # Gstitch: two generator passes, two discriminator passes (W) and
+        # their backward (W^T); K1's backward re-runs the plain chain.
+        want = {"fir4_epilogue": n_up * (sched["Dmain"] + sched["Gmain"]
+                                         + sched["Gpl"] + sched["Ggeom"]
+                                         + 2 * sched["Gstitch"]),
+                "warp_twopass": 2 * sched["Dmain"] + 2 * sched["Dr1"]
+                + sched["Gmain"] + 2 * sched["Gstitch"],
+                "warp_twopass_t": sched["Dr1"] + sched["Gmain"]
+                + 2 * sched["Gstitch"]}
+        check(got == want, f"stitch loop launches {got}, schedule says "
+              f"{want}")
+        launches["loop"] = got
+
+        def med(phase):
+            v = loop.phase_seconds[phase]
+            return statistics.median(v[1:] if len(v) > 1 else v)
+
+        out["loop"] = {
+            "batches": n, "schedule": sched, "launches": got,
+            "gstitch_s": loop.phase_seconds["Gstitch"],
+            "gstitch_median_s": med("Gstitch"),
+            "gmain_median_s": med("Gmain"), "dmain_median_s": med("Dmain"),
+            "gstitch_images_per_s": TRAIN_BATCH / med("Gstitch"),
+            "gmain_images_per_s": TRAIN_BATCH / med("Gmain"),
+            "peak_memory_gib": peak_gb,
+            "stats": {k: v for k, v in rows[STITCH_INTERVAL].items()
+                      if "Gstitch" in k}}
+        print("[stitch] loop " + json.dumps(out["loop"]), flush=True)
+        print(f"[stitch] Gstitch {out['loop']['gstitch_median_s'] * 1e3:.1f}"
+              f" ms median ({out['loop']['gstitch_images_per_s']:.1f} "
+              f"images/s of the batch of {TRAIN_BATCH}) beside Gmain "
+              f"{out['loop']['gmain_median_s'] * 1e3:.1f} ms, strict f32, "
+              f"peak {peak_gb:.1f} GiB ({card})", flush=True)
+        del loop, state
+
+        # ---- 2. one Gstitch at B = STITCH_CHECK_BATCH, card vs CPU ----
+        b = STITCH_CHECK_BATCH
+        cfg8 = flagship_train_config(TRAIN_RES, b, geom_warmstart_kimg=0,
+                                     stitch_interval=STITCH_INTERVAL,
+                                     stitch_phase_losses=STITCH_LOSSES)
+        tri_u8 = next(geom_iter)[:b]
+        stitcher = RandomStitcher()
+        crop1 = (20, 30, TRAIN_RES, TRAIN_RES)
+        crops = (crop1, stitcher.gen_overlapping_square_crop(
+            tri_u8.shape[1], crop1, random.Random(SEED)))
+        gen = torch.Generator().manual_seed(SEED + 7)
+        shape = (TRAIN_RES, TRAIN_RES, 3)
+        draws = {"positions1": torch.randint(0, TRAIN_RES - 1, (b, 2),
+                                             generator=gen),
+                 "aug_fake": draw_augment(cfg8.augment, gen, 2 * b, shape,
+                                          "cpu"),
+                 "aug_composite": draw_augment(cfg8.augment, gen, 2 * b,
+                                               shape, "cpu")}
+        z = torch.randn((b, cfg8.gen_cfg.z_dim), generator=gen)
+        t0 = time.time()
+        gpu, g0, g_gpu = _stitch_step_on(cfg8, "cuda", draws, z, tri_u8,
+                                         crops)
+        cpu, _, g_cpu = _stitch_step_on(cfg8, "cpu", draws, z, tri_u8, crops)
+        errs = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-3)
+                for k in cpu}
+        for k, err in errs.items():
+            check(err <= TRAIN_RTOL, f"Gstitch card vs CPU {k}: {gpu[k]} vs "
+                  f"{cpu[k]} (rel {err:.3e})")
+        lr = cfg8.g_lr * cfg8.g_reg_interval / (cfg8.g_reg_interval + 1)
+        upd = _update_parity(g0, g_gpu, g_cpu, lr)
+        out["check"] = {"batch": b, "crops": crops, "stats": gpu,
+                        "worst_rel_err": max(errs.values()),
+                        "update_mean_diff_of_lr": upd,
+                        "seconds": time.time() - t0}
+        print("[stitch] card vs CPU " + json.dumps(out["check"]), flush=True)
+
+        # ---- 3. the CLI with the stitch flags, and resume -------------
+        cuts = ["--kimg", "0", "--geom_warmstart_kimg", "0", "--snap", "1",
+                "--image_snap", "1", "--metrics", "",
+                "--stitch_interval", str(STITCH_INTERVAL),
+                "--stitch_phase_losses", STITCH_LOSSES]
+        t0 = time.time()
+        before = _launch_counts()
+        cli_loop, args = cli.build(["--outdir", os.path.join(root, "cli"),
+                                    "--device", "cuda"]
+                                   + _flag_lines("train_flags.txt") + cuts)
+        cli_loop.profile_phases = True
+        cli_loop.run(exit_after_warmstart=args.exit_after_warmstart)
+        torch.cuda.synchronize()
+        check(cli_loop.cfg.gen_cfg.synthesis.num_bf16_res == 4
+              and cli_loop.cfg.stitch_interval == STITCH_INTERVAL
+              and "Gstitch" in cli_loop.phase_seconds,
+              "the CLI run is not the bf16 run with Gstitch")
+        _finite_stats(cli_loop.stats_path)
+        for name in ("train_state.pkl", "training_options.json"):
+            check(os.path.isfile(os.path.join(cli_loop.run_dir, name)),
+                  f"the stitch CLI run left no {name}")
+        ran = _resume_bitwise(cli_loop, style_iter, geom_iter, root,
+                              "[stitch]")
+        check("Loss/forger/Gstitch/total" in ran,
+              "the resumed batches ran no Gstitch")
+        launches["cli"] = {k: v - before[k]
+                           for k, v in _launch_counts().items()}
+        out["cli"] = {"gstitch_s": cli_loop.phase_seconds["Gstitch"],
+                      "launches": launches["cli"], "resume_bitwise": True,
+                      "seconds": time.time() - t0}
+        print("[stitch] cli " + json.dumps(out["cli"]), flush=True)
+        del cli_loop
+
+        # ---- 4. the 256-px flagship: stitching metrics, sheets, zoo ---
+        t0 = time.time()
+        dirs = _zoo_folders(root)
+        trees = {k: params_from_jax(v) for k, v in
+                 flagship_trees(RES, SEED, NOISE_STRENGTH).items()}
+        snap = os.path.join(root, "flagship.pkl")
+        save_native(snap, EngineBundle(
+            flagship_generator_config(RES, (0, 1)), trees["gen_params"],
+            trees["gen_state"], flagship_encoder_config(),
+            trees["enc_params"], trees["enc_state"],
+            geom_inject_resolutions=(0, 1)))
+        out["zoo_setup_s"] = time.time() - t0
+
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        summary = tmetric.main([
+            "--gan_checkpoint", snap, "--eval_output_dir",
+            os.path.join(root, "metrics"), "--library", f"rand{ZOO_STYLES}",
+            "--batch_size", "8", "--geom_data", dirs["geom"],
+            "--enable_stitching", "--device", "cuda"])
+        torch.cuda.synchronize()
+        metric_s = time.perf_counter() - t0
+        check({"STITCH_LPIPS", "STITCH_L1"} <= set(summary) and all(
+            np.isfinite(v) for v in summary.values()),
+            f"metric_main --enable_stitching: {summary}")
+
+        # stitching_metric_loop, card vs CPU: the same crops and positions
+        # from the loop's seeded streams on both sides.
+        tri = np.stack([png("geom", i) for i in range(STITCH_CMP_BATCH)])
+        sm = {}
+        for dev in ("cuda", "cpu"):
+            eng = PaintEngineFactory.create(snap, device=dev)
+            sm[dev] = stitching_metric_loop(
+                PaintStrokeGenerator(STITCH_CMP_BATCH, eng, RandomState(SEED)),
+                iter([tri]), 1)
+        sm_err = {k: abs(sm["cuda"][k] - v) / max(abs(v), 1e-3)
+                  for k, v in sm["cpu"].items()}
+        check(set(sm["cuda"]) == set(sm["cpu"]) == {"STITCH_LPIPS",
+                                                     "STITCH_L1"}
+              and max(sm_err.values()) <= METRIC_RTOL,
+              f"stitching_metric_loop card vs CPU: {sm}")
+        sheets = tvis.main(["--gan_checkpoint", snap, "--output_dir",
+                            os.path.join(root, "sheets"), "--num_styles", "2",
+                            "--device", "cuda"])
+        for p in sheets:
+            with open(p, "rb") as f:
+                check(read_png(f.read()).shape == (2 * RES, 2 * RES, 3),
+                      f"stitching sheet {p}")
+        out["stitch_metrics"] = {
+            "summary": summary, "seconds": metric_s,
+            "loop_card_vs_cpu": {k: [sm["cuda"][k], sm["cpu"][k], e]
+                                 for k, e in sm_err.items()},
+            "sheets": len(sheets)}
+        print("[stitch] metrics " + json.dumps(out["stitch_metrics"])
+              + f" ({card})", flush=True)
+
+        # The metric zoo.
+        t0 = time.perf_counter()
+        zoo = tcalc.main([
+            "--gan_checkpoint", snap, "--data", dirs["styles"],
+            "--geom_data", dirs["geom"], "--metrics", ZOO_METRICS,
+            "--num_items", str(ZOO_ITEMS), "--batch_size", str(ZOO_BATCH),
+            "--device", "cuda", "--out", os.path.join(root, "zoo.json")])
+        torch.cuda.synchronize()
+        zoo_s = time.perf_counter() - t0
+        keys = {"fid", "kid", "is", "precision", "recall", "ppl_w", "ppl_z"}
+        check(keys <= set(zoo) and all(np.isfinite(zoo[k]) for k in keys)
+              and zoo["detector"] == "random",
+              f"calc_metrics: {zoo}")
+        fid_pr = tfid.main(["--images0", dirs["styles"], "--images1",
+                            dirs["styles_b"], "--resolution", str(RES),
+                            "--batch_size", str(ZOO_BATCH), "--pr",
+                            "--device", "cuda"])
+        check(all(np.isfinite(fid_pr[k]) for k in
+                  ("fid", "precision", "recall")), f"fid_from_images {fid_pr}")
+        launches["eval"] = {k: v - before[k]
+                            for k, v in _launch_counts().items()}
+
+        # PR and PPL, card vs CPU on the same features and draws.
+        feats = [np.concatenate([fid_lib.extract_features(
+            np.stack([png(d, i) for i in range(j, j + ZOO_BATCH)]),
+            device="cuda").cpu().numpy()
+            for j in range(0, ZOO_ITEMS // 2, ZOO_BATCH)])
+            for d in ("styles", "styles_b")]
+        pr = {dev: tpr.compute_pr(*feats, device=dev)
+              for dev in ("cuda", "cpu")}
+        check(pr["cuda"] == pr["cpu"], f"compute_pr card {pr['cuda']} vs "
+              f"CPU {pr['cpu']}")
+        g = (tri[:1, :RES, :RES, 1:2] / 255.0).astype(np.float32)
+        dists = {}
+        for dev in ("cuda", "cpu"):
+            eng = PaintEngineFactory.create(snap, device=dev)
+            with torch.no_grad():
+                f = geo_encoder_encode(eng.enc_cfg, eng.enc_params,
+                                       eng.enc_state,
+                                       torch.from_numpy(g).to(dev),
+                                       res=list(eng.enc_res))
+            dists[dev] = tppl.ppl_distances(
+                eng, f, num_samples=PPL_CMP_SAMPLES, epsilon=PPL_CMP_EPS,
+                space="w", batch=PPL_CMP_SAMPLES, seed=SEED)
+        bound = PPL_CMP_RTOL * dists["cpu"] + 8 * 2.0 ** -24 * np.sqrt(
+            dists["cpu"]) / PPL_CMP_EPS
+        ppl_err = float(np.max(np.abs(dists["cuda"] - dists["cpu"])
+                               / dists["cpu"]))
+        check(bool(np.all(np.abs(dists["cuda"] - dists["cpu"]) <= bound)),
+              f"PPL distances card {dists['cuda']} vs CPU {dists['cpu']}")
+        out["zoo"] = {"values": {k: zoo[k] for k in sorted(keys)},
+                      "detector": zoo["detector"],
+                      "seconds": zoo["seconds"], "wall_s": zoo_s,
+                      "items": ZOO_ITEMS, "batch": ZOO_BATCH,
+                      "fid_from_images": fid_pr,
+                      "pr_card_vs_cpu": [pr["cuda"], pr["cpu"]],
+                      "ppl_distances_card_vs_cpu_rel": ppl_err,
+                      "launches": launches["eval"]}
+        print("[stitch] zoo " + json.dumps(out["zoo"]) + f" ({card})",
+              flush=True)
+        for k in sorted(keys):
+            sec = zoo["seconds"]["pr" if k in ("precision", "recall") else k]
+            print(f"[stitch] zoo {k} = {zoo[k]:.6g} ({sec:.2f} s; detector "
+                  f"{zoo['detector']}; {card})", flush=True)
+
+        # ---- 5. every launch shape of this phase was held -------------
+        launched = sorted(fir4_epilogue.shapes)
+        check(set(launched) <= held, f"K1 launched at shapes phases 3 did "
+              f"not hold against the plain version: "
+              f"{sorted(set(launched) - held)}")
+        for name, fn in (("warp_twopass", tw.warp_twopass),
+                         ("warp_twopass_t", tw.warp_twopass_t)):
+            check(fn.shapes <= warp_held[name],
+                  f"{name} launched at shapes phase 5 did not hold: "
+                  f"{sorted(fn.shapes - warp_held[name])}")
+        out["k1_shapes"] = [list(k) for k in launched]
+        out["warp_shapes"] = sorted(tw.warp_twopass.shapes
+                                    | tw.warp_twopass_t.shapes)
+        out["launches"] = _launch_counts()    # the stitch path ends here
+        check(all(v > 0 for v in out["launches"].values()),
+              f"a kernel was not launched on the stitch path: "
+              f"{out['launches']}")
+        print(f"[stitch] K1 launched at {len(launched)} shapes, W / W^T at "
+              f"{json.dumps(out['warp_shapes'])}, each held; launches "
+              f"{json.dumps(out['launches'])}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    print(f"[stitch] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     card = phase_card()
@@ -2672,13 +3184,14 @@ def main():
     phase_build()
     rows, max_err, held = phase_kernel_vs_plain()
     fir_bwd = phase_fir_backward()
-    warp_rows, warp_err = phase_warp_vs_plain()
+    warp_rows, warp_err, warp_held = phase_warp_vs_plain()
     main_stats = phase_main_path()
     train = phase_train(style_iter, geom_iter, card)
     paint = phase_paint(card)
     serve = phase_serve(card)
     train_cli = phase_train_cli(style_iter, geom_iter, card, held)
     ckpt = phase_checkpoint(geom_iter, card, held)
+    stitch = phase_stitch(style_iter, geom_iter, card, held, warp_held)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -2691,13 +3204,15 @@ def main():
         "launches": main_stats["launches"]
         + train["launches"]["fir4_epilogue"] + paint["launches"]
         + serve["launches"] + train_cli["launches"]["fir4_epilogue"]
-        + ckpt["launches"]["fir4_epilogue"],
+        + ckpt["launches"]["fir4_epilogue"]
+        + stitch["launches"]["fir4_epilogue"],
         "launches_render_path": main_stats["launches"],
         "launches_training_path": train["launches"]["fir4_epilogue"],
         "launches_paint_path": paint["launches"],
         "launches_serve_path": serve["launches"],
         "launches_train_run": train_cli["launches"]["fir4_epilogue"],
         "launches_checkpoint_path": ckpt["launches"]["fir4_epilogue"],
+        "launches_stitch_path": stitch["launches"]["fir4_epilogue"],
         "max_abs_err": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "backward_max_rel_err": fir_bwd["worst_rel_err"],
@@ -2720,10 +3235,12 @@ def main():
             "replaces": "brushstroke_engine_tpu/ops/pallas_warp.py:"
                         + ("125" if fn == "_fwd_kernel" else "156"),
             "launches": train["launches"][name]
-            + train_cli["launches"][name] + ckpt["launches"][name],
+            + train_cli["launches"][name] + ckpt["launches"][name]
+            + stitch["launches"][name],
             "launches_training_path": train["launches"][name],
             "launches_train_run": train_cli["launches"][name],
             "launches_checkpoint_path": ckpt["launches"][name],
+            "launches_stitch_path": stitch["launches"][name],
             "max_abs_err": warp_err[key],
             "ms": warp[f"{key}_ms"],
             "plain_ms": warp[f"{key}_plain_ms"],
@@ -2738,6 +3255,7 @@ def main():
     print(json.dumps({"main_path": main_stats, "training_path": train,
                       "paint_path": paint, "serve_path": serve,
                       "train_run": train_cli, "checkpoint_path": ckpt,
+                      "stitch_path": stitch,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

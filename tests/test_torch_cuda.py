@@ -17,7 +17,9 @@ texels (the wrapped noise: 1e-6, the same IEEE operations) and the batched
 serving paths against serial replays (uint8 within 1 LSB); the model
 variants of reference checkpoints against the CPU (1e-4), a converted
 reference snapshot (bit-equal parameters, 1 LSB) and autoencoder steps
-(losses within 1e-4 relative).
+(losses within 1e-4 relative); a Gstitch step against the CPU (1e-4), W and
+W^T at Gstitch's batch of 128, and PPL's distances (1e-3 plus the f32 floor
+of LPIPS) and precision / recall (equal) against the CPU.
 """
 
 import numpy as np
@@ -757,3 +759,116 @@ def test_autoencoder_steps_on_the_card_equal_the_cpu():
                                                   g[..., :1], g[..., 1:])
             losses[dev].append(loss.item())
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Stitching and the metric zoo on the card
+# ---------------------------------------------------------------------------
+
+def _stitch_setup(device):
+    """The small stitch configuration's config, train state, both crops'
+    features and explicit draws (made on the CPU), on ``device``."""
+    from brushstroke_engine_torch.models.discriminator import \
+        DiscriminatorConfig
+    from brushstroke_engine_torch.train import steps as tsteps
+    from brushstroke_engine_torch.train.augment import AugmentConfig, \
+        draw_augment
+    from brushstroke_engine_torch.train.state import TrainConfig, \
+        init_train_state
+    from brushstroke_engine_torch.utils.util import tree_to
+    eng = _small_engine(device)
+    cfg = TrainConfig(
+        gen_cfg=eng.gen_cfg, enc_cfg=eng.enc_cfg, enc_res=(0, 1),
+        disc_cfg=DiscriminatorConfig(
+            c_dim=0, img_resolution=32, img_channels=3, architecture="orig",
+            channel_base=2048, channel_max=32),
+        batch_size=4, augment=AugmentConfig.from_spec("bgc"),
+        stitch_interval=4, stitch_phase_losses="1.0*gan(fake)+"
+        "1.0*gan(fake_composite)+1.0*l1(patch)")
+    state = tree_to(init_train_state(cfg, 0, device="cpu"), device)
+    state["ada_p"] = torch.full((), 0.6, device=device)
+    rng = np.random.RandomState(17)
+    geom = torch.from_numpy((rng.rand(4, 32, 32, 1) > 0.5).astype(
+        np.float32)).to(device)
+    feats1 = tsteps.encode_geometry(cfg, eng.enc_params, eng.enc_state, geom)
+    feats2 = tsteps.encode_geometry(cfg, eng.enc_params, eng.enc_state,
+                                    torch.flip(geom, dims=(2,)))
+    gen = torch.Generator().manual_seed(5)
+    draws = {"positions1": torch.tensor([[0, 3], [5, 10], [12, 2], [9, 7]]),
+             "aug_fake": draw_augment(cfg.augment, gen, 8, (32, 32, 3),
+                                      "cpu"),
+             "aug_composite": draw_augment(cfg.augment, gen, 8, (32, 32, 3),
+                                           "cpu")}
+    z = torch.from_numpy(rng.randn(4, 16).astype(np.float32)).to(device)
+    return cfg, state, feats1, feats2, z, tree_to(draws, device)
+
+
+def test_gstitch_step_on_the_card_equals_the_cpu():
+    """One Gstitch at B = 4 (ADA at p = 0.6) on the card and on the CPU
+    with the same draws: every stat within 1e-4 relative (cuDNN's and the
+    CPU's f32 sums in other orders); K1 on both generator passes, W on both
+    discriminator passes and W^T in their backward."""
+    from brushstroke_engine_torch.train import steps as tsteps
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        cfg, state, f1, f2, z, draws = _stitch_setup(dev)
+        before = (fe.fir4_epilogue.launches, tw.warp_twopass.launches,
+                  tw.warp_twopass_t.launches)
+        _, s = tsteps.g_stitch_step(cfg, state, f1, f2, z, (2, 3, 32, 32),
+                                    (7, 0, 32, 32), ema_beta=0.5,
+                                    draws=draws)
+        stats[dev] = {k: float(v) for k, v in s.items()}
+        after = (fe.fir4_epilogue.launches, tw.warp_twopass.launches,
+                 tw.warp_twopass_t.launches)
+        n_up = len(cfg.gen_cfg.synthesis.block_resolutions) - 1
+        want = (2 * n_up, 2, 2) if dev == "cuda" else (0, 0, 0)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+    assert set(stats["cuda"]) == set(stats["cpu"])
+    for k, v in stats["cpu"].items():
+        assert abs(stats["cuda"][k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+
+
+@pytest.mark.parametrize("antialias", [True, False])
+def test_warp_kernels_at_the_gstitch_batch(antialias):
+    """W and W^T at B = 128 (Gstitch's discriminator sees both crops of a
+    64-batch) against their plain versions, as at the other batches."""
+    x, g, sc = _warp_case(13, 128, 128, 3, antialias)
+    wx, wtg = tw.warp_twopass(x, sc), tw.warp_twopass_t(g, sc)
+    torch.testing.assert_close(wx, tw.warp_twopass_plain(x, sc), rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(wtg, tw.warp_twopass_t_plain(g, sc),
+                               rtol=2e-4, atol=2e-4)
+    assert (128, 128, 3) in tw.warp_twopass.shapes
+    assert (128, 128, 3) in tw.warp_twopass_t.shapes
+
+
+def test_ppl_and_pr_on_the_card_equal_the_cpu():
+    """PPL's per-sample distances at epsilon 1e-2 within 1e-3 relative
+    (f32 renders in other summation orders, magnified by epsilon^-2 = 1e4)
+    plus the f32 floor of LPIPS (8 u sqrt(d) / epsilon, see
+    tests/test_torch_metric_zoo.py); precision and recall equal on the same
+    clustered features."""
+    from brushstroke_engine_torch.metrics import pr as tpr
+    from brushstroke_engine_torch.metrics import ppl as tppl
+    from brushstroke_engine_torch.models.geo_encoder import \
+        geo_encoder_encode
+    geom = (np.random.RandomState(2).rand(1, 32, 32, 1) > 0.5).astype(
+        np.float32)
+    d = {}
+    for dev in ("cuda", "cpu"):
+        eng = _small_engine(dev)
+        feats = geo_encoder_encode(eng.enc_cfg, eng.enc_params,
+                                   eng.enc_state,
+                                   torch.from_numpy(geom).to(dev),
+                                   res=[0, 1])
+        d[dev] = tppl.ppl_distances(eng, feats, num_samples=8,
+                                    epsilon=1e-2, space="w", batch=4,
+                                    seed=3)
+    bound = 1e-3 * d["cpu"] + 8 * 2.0 ** -24 * np.sqrt(d["cpu"]) / 1e-2
+    assert np.all(np.abs(d["cuda"] - d["cpu"]) <= bound), d
+    rng = np.random.RandomState(7)
+    centers = rng.randn(6, 16).astype(np.float32) * 10
+    real = (centers[rng.randint(0, 5, 40)] + rng.randn(40, 16) * 0.3)
+    fake = (centers[1 + rng.randint(0, 5, 33)] + rng.randn(33, 16) * 0.3)
+    assert tpr.compute_pr(real, fake, row_batch_size=7, device="cuda") == \
+        tpr.compute_pr(real, fake, row_batch_size=7, device="cpu")

@@ -12,10 +12,13 @@ Tolerances (set before the runs):
     kernel's weights, normalized in another order);
   * numpy on both sides (feature statistics, Frechet distance, KID, IS):
     1e-12 relative;
-  * the metric loop and FID over an engine's renders, which agree with the
-    JAX package's to ~1e-5: 1e-3 relative + 1e-4 abs, and LAB_E% (a count
-    of pixels past a threshold) within one pixel's share of the batch.
+  * the metric loop (with and without the stitching metrics) and FID over
+    an engine's renders, which agree with the JAX package's to ~1e-5: 1e-3
+    relative + 1e-4 abs, and LAB_E% (a count of pixels past a threshold)
+    within one pixel's share of the batch.
 """
+
+import random
 
 import numpy as np
 import pytest
@@ -408,9 +411,10 @@ def _geom_batches(n, b=4, w=40):
     return [np.stack([ds[i * b + k] for k in range(b)]) for i in range(n)]
 
 
-def _jax_loop_draws(seed, n_batches, b, w):
+def _jax_loop_draws(seed, n_batches, b, w, stitch=False):
     """What ``paint_engine_metric_loop`` draws per batch in the JAX package,
-    as the port's ``metric_draws`` dicts."""
+    as the port's ``metric_draws`` dicts (with ``stitch``, each batch's
+    canvas positions of the stitching render under ``"stitch"``)."""
     key = jax.random.PRNGKey(seed)
     out = []
     for _ in range(n_batches):
@@ -419,6 +423,11 @@ def _jax_loop_draws(seed, n_batches, b, w):
             "bg_multicolor": _jax_uniform_bg_draws(k1, b, w, False),
             "bg_same": _jax_uniform_bg_draws(k2, b, w, True),
             "across_geo": np.asarray(jax.random.permutation(k3, b))})
+        if stitch:
+            key, ks = jax.random.split(key)
+            k_pos = jax.random.split(ks, 3)[0]
+            out[-1]["stitch"] = {"positions1": np.asarray(
+                jax.random.randint(k_pos, (b, 2), 0, w - 1))}
     return out
 
 
@@ -448,9 +457,32 @@ def test_paint_engine_metric_loop_matches_jax(tmp_path):
             _close(got[k], want[k], LOOP_RTOL, LOOP_ATOL, k)
     assert {"style_metrics.txt", "summary_metrics.txt", "style_ws.pkl"} <= \
         {p.name for p in tmp_path.iterdir()}
-    with pytest.raises(NotImplementedError, match="stitching"):
-        tmm.paint_engine_metric_loop(tgen, tlib.RandomBrushLibrary(1, 16),
-                                     1, stitcher=object())
+    # With a stitcher (it raised before the stitching was ported): the
+    # stitching metrics join the loop's, from the JAX package's draws --
+    # the first crop from the generator's RandomState on both sides, the
+    # second from a global ``random`` seeded like the port's own stream,
+    # the canvas positions replayed from the JAX key.
+    from brushstroke_engine_tpu.train.stitching import RandomStitcher as JSt
+    from brushstroke_engine_torch.train.stitching import RandomStitcher as TSt
+    full = _geom_batches(2, w=48)
+    jgen = jsg.PaintStrokeGenerator(4, jeng, jsg.RandomState(1))
+    tgen = tsg.PaintStrokeGenerator(4, teng, tsg.RandomState(1))
+    jgen.set_geometry_source_from_iterator(iter(geoms), 4)
+    tgen.set_geometry_source_from_iterator(iter(geoms), 4)
+    draws = _jax_loop_draws(1, 2, 4, 32, stitch=True)
+    random.seed(1)
+    want = jmm.paint_engine_metric_loop(
+        jgen, jlib.RandomBrushLibrary(2, 16), nbatches_per_style=1,
+        fullres_geom_iterator=iter(full),
+        stitcher=JSt(crop_margin=2, min_overlap=8))
+    got = tmm.paint_engine_metric_loop(
+        tgen, tlib.RandomBrushLibrary(2, 16), nbatches_per_style=1,
+        fullres_geom_iterator=iter(full),
+        stitcher=TSt(crop_margin=2, min_overlap=8), draws=draws)
+    assert set(got) == set(want) and {"STITCH_LPIPS", "STITCH_L1"} <= \
+        set(got)
+    for k in ("STITCH_LPIPS", "STITCH_L1"):
+        _close(got[k], want[k], LOOP_RTOL, LOOP_ATOL, k)
 
 
 def test_forger_compute_fid_matches_jax():

@@ -273,6 +273,28 @@ def test_entry_points_need_cuda_unless_cpu(model, monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert tlpips.get_default_model("cpu").device.type == "cpu"
+    # The metric zoo and the stitching tools.
+    from brushstroke_engine_torch.metrics import pr as tpr
+    from brushstroke_engine_torch.tools import (
+        calc_metrics, fid_from_images, metric_main as tmetric_main,
+        visualize_stitching,
+    )
+    bundle = str(tmp_path / "missing.pkl")
+    for make in (
+            lambda: calc_metrics.main(["--gan_checkpoint", bundle]),
+            lambda: tmetric_main.main(["--gan_checkpoint", bundle,
+                                       "--eval_output_dir", str(tmp_path)]),
+            lambda: visualize_stitching.main(["--gan_checkpoint", bundle,
+                                              "--output_dir",
+                                              str(tmp_path)]),
+            lambda: fid_from_images.main(["--images0", str(tmp_path),
+                                          "--images1", str(tmp_path)]),
+            lambda: tpr.compute_pr(np.zeros((4, 2)), np.zeros((4, 2))),
+            lambda: tpr.vgg16_extract_features(
+                np.zeros((1, 8, 8, 3), np.uint8),
+                tpr.VGG16Features.random_init(0))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
     cuda_loop = types.SimpleNamespace(
         device=torch.device("cuda"),
@@ -308,7 +330,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tools.train", "utils.weights", "utils.torch_extract",
                 "models.positional", "utils.reference_layout",
                 "train.train_autoencoder",
-                "tools.train_autoencoder", "tools.convert_checkpoint"):
+                "tools.train_autoencoder", "tools.convert_checkpoint",
+                "train.stitching", "metrics.pr", "metrics.ppl",
+                "tools.calc_metrics", "tools.metric_main",
+                "tools.fid_from_images", "tools.visualize_stitching"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

@@ -7,9 +7,9 @@ and the networks they drive 2e-5 abs; phase stats 1e-4 relative (+1e-5
 abs); the FIR-epilogue gradients as stated in that test.
 """
 
-import dataclasses
 import json
 import os
+import random
 
 import numpy as np
 import pytest
@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from brushstroke_engine_tpu.models import discriminator as jdisc
 from brushstroke_engine_tpu.train import steps as jsteps
+from brushstroke_engine_tpu.train import stitching as jstitching
 from brushstroke_engine_torch.models import discriminator as tdisc
 from brushstroke_engine_torch.ops import fir_epilogue as fe
 from brushstroke_engine_torch.ops.filters import setup_filter
@@ -250,10 +251,22 @@ def test_training_loop_warm_start_and_unported_options(tmp_path):
                          run_dir=str(tmp_path / "n"), device="cpu",
                          auto_resume=True)
     assert fresh.cur_nimg == 0 and fresh.batch_idx == 0
-    with pytest.raises(NotImplementedError, match="stitch"):
-        TrainingLoop(dataclasses.replace(
-            cfg, stitch_interval=4, stitch_phase_losses="1.0*l1(patch)"),
-            {}, {}, None, None, run_dir=str(tmp_path / "n"), device="cpu")
+    # The stitch phase runs (it raised before it was ported): Gstitch after
+    # Greg, its second crop from the loop's seeded stream, which draws what
+    # the JAX stitcher draws from a global ``random`` seeded alike.
+    st, _ = _loop(tmp_path, "s", geom_warmstart_kimg=0, stitch_interval=1,
+                  stitch_phase_losses="1.0*gan(fake)+1.0*l1(patch)")
+    assert st.stitch_on
+    crop2 = st.stitcher.gen_overlapping_square_crop(
+        RES + 8, (3, 5, RES, RES), random.Random(st.seed))
+    random.seed(st.seed)
+    assert crop2 == jstitching.RandomStitcher().gen_overlapping_square_crop(
+        RES + 8, (3, 5, RES, RES))
+    st.run(total_kimg=B / 1000.0)
+    row = _read_stats(st)[-1]
+    for k in ("total", "gan_fake", "l1_patch"):
+        assert np.isfinite(row[f"Loss/forger/Gstitch/{k}"]), k
+    assert st.state["g_opt"]["count"] == 3     # Gmain, Gpl, Gstitch
 
 
 def test_training_loop_needs_cuda_unless_cpu(tmp_path, monkeypatch):
