@@ -8,7 +8,9 @@ Counterpart of ``brushstroke_engine_tpu/metrics/geom.py``:
     cross-composites (seam quality).
   * :func:`compute_lpips_across_geo`: style stability across geometry.
   * :func:`compute_uniform_bg_lpips_metric`: masked patch-pair LPIPS over
-    background regions.
+    background regions;
+  * :func:`get_conservative_fg_bg`: the double-blurred FG / BG masks the
+    projection's L1 and background terms use.
 
 NHWC tensors.  Random patch offsets and permutations are made in one place
 each (:func:`uniform_bg_draws`, :func:`across_geo_perm`) from a CPU
@@ -43,6 +45,14 @@ def gaussian_smoothing(img, kernel_size: int = 5, sigma: float = 1.0):
     out = F.conv2d(img.float().permute(0, 3, 1, 2), kernel,
                    padding=kernel_size // 2, groups=c)
     return out.permute(0, 2, 3, 1).to(img.dtype)
+
+
+def get_conservative_fg_bg(geom):
+    """Double-blurred conservative FG / BG boolean masks of an NHWC geometry
+    (0 = FG): FG where the blur is below 0.1, BG where it reaches
+    ``BG_THRESH``."""
+    blur = gaussian_smoothing(gaussian_smoothing(geom))
+    return blur < 0.1, blur >= BG_THRESH
 
 
 def _masked_mean(x, mask):

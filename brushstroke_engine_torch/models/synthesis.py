@@ -11,7 +11,8 @@ FIR-epilogue kernel (through :func:`modulated_conv2d`).
 
 Carried over: geometry feature injection, positional-encoding injection
 ('cat' and 'add'), position-wrapped constant noise, random per-layer noise
-(training), per-style noise-buffer overrides, ``return_features`` and
+(training), per-style noise-buffer overrides (one plane for every row, or
+one per row), ``return_features`` and
 ``blended_features``, ``force_fp32``, the color-triad and 'canvas' heads
 with ``color_w_channels``, and the StyleGAN2 'orig' head on the 'orig' or
 'skip' trunk (a torgb at every block, the running image FIR-upsampled and
@@ -135,7 +136,14 @@ def _synthesis_layer_apply(cfg: SynthesisConfig, params, x, w, *,
     elif noise_mode == "const":
         tex = input_noise if input_noise is not None else noise_const
         if tex is not None:
-            if positions is not None:
+            if tex.dim() == 3:
+                # One plane per row ([B, res, res]: N styles run as one
+                # pass over their N*B rows).
+                if positions is not None:
+                    raise ValueError("per-row noise buffers take no "
+                                     "canvas positions")
+                noise = tex.float()[..., None]
+            elif positions is not None:
                 noise = wrapped_const_noise(tex, positions,
                                             cfg.img_resolution)
             else:
@@ -236,7 +244,9 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
         per entry of ``cfg.geom_feature_resolutions`` (NHWC).
       noise: default per-layer noise textures ``{"b{res}.conv{i}.noise_const":
         [res, res]}``.
-      noise_buffers: optional per-style overrides, same key format.
+      noise_buffers: optional per-style overrides, same key format:
+        ``[res, res]`` for every row, or ``[B, res, res]``, one plane per
+        row (without ``positions``).
       positions: ``[B, 2]`` int (y, x) canvas positions for noise wrapping.
       pos_encoding: ``[B, h, w, c]`` positional encodings, one per entry of
         ``cfg.pos_encoding_resolutions``.

@@ -1,15 +1,19 @@
-"""Numpy image helpers of the training data pipeline, the stylize tool and
-the visualizer (the port's copy of what it needs from
-``brushstroke_engine_tpu/utils/img_proc.py``, and a PNG writer and reader
-that need no Pillow)."""
+"""Numpy image helpers of the training data pipeline, the stylize tool, the
+visualizer and the projection CLI (the port's copy of
+``brushstroke_engine_tpu/utils/img_proc.py``: Otsu thresholding, blur,
+entropy, the random patch sampler; and a PNG writer and reader that need no
+Pillow)."""
 
 from __future__ import annotations
 
 import os
 import struct
 import zlib
+from typing import Tuple
 
 import numpy as np
+
+from brushstroke_engine_torch.data.curves import _gaussian_blur2d
 
 
 def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -55,6 +59,73 @@ def threshold_otsu(gray: np.ndarray, nbins: int = 256) -> float:
         between = w0 * w1 * (mu0 - mu1) ** 2
     between[~np.isfinite(between)] = -1
     return float(centers[int(np.argmax(between))])
+
+
+def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Separable gaussian blur over the last two (or only) spatial dims."""
+    if img.ndim == 2:
+        return _gaussian_blur2d(img, sigma)
+    return np.stack([_gaussian_blur2d(img[..., c], sigma)
+                     for c in range(img.shape[-1])], axis=-1)
+
+
+def patch_entropy(gray: np.ndarray, nbins: int = 64) -> float:
+    """Shannon entropy of the intensity histogram (patch-filtering metric)."""
+    hist, _ = np.histogram(np.asarray(gray).ravel(), bins=nbins, range=(0, 1))
+    p = hist.astype(np.float64)
+    p = p / max(p.sum(), 1)
+    p = p[p > 0]
+    return float(-(p * np.log2(p)).sum())
+
+
+def alpha_to_gray(img: np.ndarray) -> np.ndarray:
+    """RGBA uint8 -> float gray where alpha encodes the stroke (1 = BG)."""
+    if img.ndim == 3 and img.shape[-1] == 4:
+        return 1.0 - img[..., 3].astype(np.float32) / 255.0
+    if img.ndim == 3:
+        return img.astype(np.float32).mean(-1) / 255.0
+    return img.astype(np.float32) / (255.0 if img.max() > 1.5 else 1.0)
+
+
+class RandomPatchGenerator:
+    """Random square patches at random scales from a large image."""
+
+    def __init__(self, rng: np.random.Generator, patch_width: int,
+                 scale_range: Tuple[float, float] = (1.0, 1.0)):
+        self.rng = rng
+        self.patch_width = patch_width
+        self.scale_range = scale_range
+
+    def sample(self, img: np.ndarray) -> np.ndarray:
+        h, w = img.shape[:2]
+        scale = self.rng.uniform(*self.scale_range)
+        size = int(round(self.patch_width * scale))
+        size = min(size, h, w)
+        y = self.rng.integers(0, max(h - size, 0) + 1)
+        x = self.rng.integers(0, max(w - size, 0) + 1)
+        patch = img[y:y + size, x:x + size]
+        if size != self.patch_width:
+            patch = _resize_nearest(patch, self.patch_width)
+        return patch
+
+    def sample_fg_centered(self, img: np.ndarray, fg_mask: np.ndarray,
+                           max_tries: int = 20) -> np.ndarray:
+        """Prefer patches whose center region contains stroke pixels."""
+        for _ in range(max_tries):
+            patch = self.sample(img)
+            c = self.patch_width // 2
+            q = self.patch_width // 4
+            center = patch[c - q:c + q, c - q:c + q]
+            if np.asarray(center).min() < 0.5:
+                return patch
+        return patch
+
+
+def _resize_nearest(img: np.ndarray, size: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    ys = (np.arange(size) * h / size).astype(np.int64).clip(0, h - 1)
+    xs = (np.arange(size) * w / size).astype(np.int64).clip(0, w - 1)
+    return img[ys][:, xs]
 
 
 _PNG_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}   # channels -> PNG color type

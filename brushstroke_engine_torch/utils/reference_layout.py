@@ -16,6 +16,10 @@ JAX package's layout (as ``init_native_params`` draws them) become
     ``dnnlib.tflib.network.Network`` records with TF variable names) --
     :func:`write_tf_pickle`.
 
+  * a CLIP checkpoint in OpenAI's state-dict layout at given widths
+    (ViT-B/32's by default) -- :func:`clip_state_dict` -- and a byte-BPE
+    merges file in CLIP's format -- :func:`write_bpe_merges`.
+
 So a smoke run or a test can build the files a user of the reference owns
 from seeded weights, with no code of the reference.  The pickles name the
 reference's globals through stand-in modules that exist only while they are
@@ -25,6 +29,7 @@ written.
 from __future__ import annotations
 
 import contextlib
+import gzip
 import math
 import pickle
 import sys
@@ -329,3 +334,88 @@ def write_tf_pickle(path: str, gen_flat: Dict, cfg: GeneratorConfig) -> None:
     with _stand_in("dnnlib.tflib.network", "Network", _tf_network):
         with open(path, "wb") as f:
             pickle.dump((net, net, net), f, protocol=4)
+
+
+#: CLIP ViT-B/32's widths (OpenAI's published configuration).
+VIT_B32 = dict(embed_dim=512, image_resolution=224, vision_patch=32,
+               vision_width=768, vision_layers=12, text_width=512,
+               text_layers=12, context_length=77, vocab_size=49408)
+
+
+def clip_state_dict(seed: int = 0, widths: Optional[Dict] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """A seeded CLIP state dict with OpenAI's names and layouts
+    (``visual.conv1.weight`` OIHW, ``*.attn.in_proj_weight`` ``[3D, D]``,
+    ``text_projection`` ``[text_width, embed_dim]``, ...) at ``widths``
+    (keys of :data:`VIT_B32`).  Weights are scaled by their fan-in and the
+    LayerNorms perturbed from identity, so every tensor counts."""
+    w = dict(VIT_B32 if widths is None else widths)
+    gen = torch.Generator().manual_seed(seed)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def randn(*shape, std):
+        return torch.randn(shape, generator=gen) * std
+
+    def ln(prefix, d):
+        sd[f"{prefix}.weight"] = 1.0 + randn(d, std=0.1)
+        sd[f"{prefix}.bias"] = randn(d, std=0.1)
+
+    def blocks(prefix, d, layers):
+        for i in range(layers):
+            b = f"{prefix}.resblocks.{i}"
+            sd[f"{b}.attn.in_proj_weight"] = randn(3 * d, d, std=d ** -0.5)
+            sd[f"{b}.attn.in_proj_bias"] = randn(3 * d, std=0.02)
+            sd[f"{b}.attn.out_proj.weight"] = randn(d, d, std=d ** -0.5)
+            sd[f"{b}.attn.out_proj.bias"] = randn(d, std=0.02)
+            ln(f"{b}.ln_1", d)
+            sd[f"{b}.mlp.c_fc.weight"] = randn(4 * d, d, std=d ** -0.5)
+            sd[f"{b}.mlp.c_fc.bias"] = randn(4 * d, std=0.02)
+            sd[f"{b}.mlp.c_proj.weight"] = randn(d, 4 * d,
+                                                 std=(4 * d) ** -0.5)
+            sd[f"{b}.mlp.c_proj.bias"] = randn(d, std=0.02)
+            ln(f"{b}.ln_2", d)
+
+    vw, tw, p = w["vision_width"], w["text_width"], w["vision_patch"]
+    grid = w["image_resolution"] // p
+    sd["visual.conv1.weight"] = randn(vw, 3, p, p, std=(3 * p * p) ** -0.5)
+    sd["visual.class_embedding"] = randn(vw, std=vw ** -0.5)
+    sd["visual.positional_embedding"] = randn(grid * grid + 1, vw,
+                                              std=vw ** -0.5)
+    ln("visual.ln_pre", vw)
+    blocks("visual.transformer", vw, w["vision_layers"])
+    ln("visual.ln_post", vw)
+    sd["visual.proj"] = randn(vw, w["embed_dim"], std=vw ** -0.5)
+    sd["token_embedding.weight"] = randn(w["vocab_size"], tw, std=0.02)
+    sd["positional_embedding"] = randn(w["context_length"], tw, std=0.01)
+    blocks("transformer", tw, w["text_layers"])
+    ln("ln_final", tw)
+    sd["text_projection"] = randn(tw, w["embed_dim"], std=tw ** -0.5)
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    return sd
+
+
+def bpe_merges_for(words) -> list:
+    """Merges that build each word whole, left to right (``"i n"``,
+    ``"in k</w>"`` for 'ink'), in first-use order without repeats."""
+    merges = []
+    for word in words:
+        pieces = list(word[:-1]) + [word[-1] + "</w>"]
+        left = pieces[0]
+        for right in pieces[1:]:
+            m = f"{left} {right}"
+            if m not in merges:
+                merges.append(m)
+            left += right
+    return merges
+
+
+def write_bpe_merges(path: str, merges) -> None:
+    """A merges file in CLIP's format (a version line, then one merge per
+    line); gzipped when ``path`` ends in ``.gz``."""
+    text = "\n".join(["#version: 0.2"] + list(merges)) + "\n"
+    if path.endswith(".gz"):
+        with gzip.open(path, "wt", encoding="utf-8") as f:
+            f.write(text)
+    else:
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text)

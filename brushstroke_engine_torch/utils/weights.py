@@ -18,6 +18,9 @@ from typing import Dict, Optional
 CANONICAL: Dict[str, tuple] = {
     "inception": ("inception_v3.pt", "NEUBE_FID_DETECTOR"),
     "lpips": ("lpips_alex.pt", "NEUBE_LPIPS_WEIGHTS"),
+    "vgg16": ("vgg16.pt", "NEUBE_VGG16_WEIGHTS"),
+    "clip": ("clip_vitb32.pt", "NEUBE_CLIP_WEIGHTS"),
+    "clip_bpe": ("bpe_simple_vocab_16e6.txt.gz", "NEUBE_CLIP_BPE"),
 }
 
 

@@ -143,11 +143,35 @@ Phases, in order; any failure exits non-zero:
     seconds), ``tools/fid_from_images.py --pr``, ``compute_pr`` and PPL's
     per-sample distances card against CPU.  Every K1 shape and every W /
     W^T shape it launched was held in phases 3 and 5.
-13. Prints the kernel table as JSON, then the final JSON line.
+13. The brush-creation workflow (``[brush]`` lines), on the 256-px flagship
+    bundle in strict f32 through the CLIs a user runs:
+    ``tools/make_synthetic_media.py`` (8 media PNGs at 512 px, drawn in a
+    process started with the smoke), ``tools/project_main.py`` on the 8
+    targets (``project_parallel``, 2 patches each: 16 rows per step, 100
+    steps; the npz files, the library, ``--skip_existing``) and on one
+    target alone (``project``, 4 patches); ms per step and styles per
+    second, the first and best LPIPS, peak memory, and K1's forward and
+    backward share of a step's device time (the profiler); one
+    ``project_parallel`` at N = 2, B = 1 on the card and on the CPU with the
+    same draws; ``tools/opt_clarity_main.py`` on the projected library (its
+    clarity terms alone, optimized from each projected style, fall);
+    ``tools/clip_search_main.py`` with a
+    seeded ViT-B/32 file and a small merges file (the dictionary, a query,
+    ``--optimize``), then the hashing fallback, and CLIP's encoders card
+    against CPU; ``tools/get_ws_main.py``, ``tools/seed_expand.py`` and
+    ``tools/visualize_pca_main.py``; then ``ui/core.create_core`` serves the
+    seed, projected, OPT and CLIP libraries and 5 strokes of a projected
+    brush (its noise textures in use) each within 1 LSB of
+    ``render_stroke`` with the same style.  K1's launches of every step
+    against its schedule (6 per generator pass), each of its shapes held in
+    phase 3.
+14. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
 
+import atexit
+import itertools
 import json
 import os
 import statistics
@@ -294,6 +318,43 @@ STITCH_CMP_BATCH = 2
 ZOO_ITEMS, ZOO_BATCH, ZOO_STYLES, ZOO_GEOMS = 256, 32, 4, 64
 ZOO_METRICS = "fid,kid,is,pr,ppl_w,ppl_z"
 PPL_CMP_SAMPLES, PPL_CMP_EPS, PPL_CMP_RTOL = 4, 1e-2, 1e-3
+# Phase 13, the brush-creation workflow through its CLIs, as
+# scripts/run_r5_brush_workflow.sh runs it, on the 256-px flagship bundle
+# (seeded weights, strict f32): WF_MEDIA media PNGs of WF_MEDIA_RES px (the
+# media CLI runs in a process of its own from the start of the smoke, beside
+# the earlier phases), all projected in one run (WF_PATCHES patches each,
+# WF_STEPS steps: N * B = 16 rows) and the first alone (WF_SINGLE_PATCHES
+# patches); ms per step as the median over WF_TIME_CHUNKS chunks of
+# WF_TIME_EVERY steps after a first chunk; the clarity finetune of the
+# projected library (WF_CLARITY_STEPS steps at WF_CLARITY_BATCH strokes; the
+# objective before and after on WF_CLARITY_EVAL held batches of 4 strokes,
+# reported: its anchor terms are 0 where a style starts; its clarity terms
+# WF_CLARITY_TERMS alone, optimized from each projected style for
+# WF_DESCENT_STEPS steps on the held batches, must fall there); CLIP search
+# with a seeded ViT-B/32 file and --optimize (WF_CLIP_STEPS; WF_CLIP_TIMED
+# more steps timed on the held batches), then the
+# hashing fallback; the W-space CLIs (WF_WS seeds, a WF_GRID^2 grid); the
+# four libraries served and WF_STROKES strokes painted with a projected
+# brush on a WF_CANVAS canvas.  The CLIs draw their geometry on the host
+# (a 256-px spline stroke is a float64 distance field over 65536 pixels and
+# ~100 segments, ~0.75 s): the clarity and CLIP runs are cut in steps and
+# batch so that phase 13 draws ~56 strokes.  Card vs CPU: project_parallel
+# at N = 2, B = 1 for WF_CMP_STEPS steps with the same draws (LPIPS within
+# WF_RTOL relative; w and noise within WF_RTOL relative plus Adam's lr bound, as
+# phase 12 holds an Adam update: each entry within 10 % of the summed
+# learning rate, the mean within 2 %); CLIP
+# ViT-B/32's encode_image and encode_text within WF_RTOL.  Served strokes
+# within 1 LSB of render_stroke with the same style.
+WF_MEDIA, WF_MEDIA_RES, WF_MEDIA_SEED = 8, 512, 777
+WF_STEPS, WF_PATCHES, WF_SINGLE_PATCHES = 100, 2, 4
+WF_TIME_EVERY, WF_TIME_CHUNKS = 10, 4
+WF_CMP_STEPS, WF_RTOL = 3, 1e-4
+WF_CLARITY_STEPS, WF_CLARITY_BATCH, WF_CLARITY_EVAL = 3, 1, 2
+WF_CLARITY_TERMS, WF_DESCENT_STEPS = "0.5*iou_inv(uvs)+0.5*iou(u)", 20
+WF_CLIP_STEPS, WF_CLIP_TIMED = 3, 10
+WF_WS, WF_GRID, WF_STROKES, WF_CANVAS = 64, 3, 5, 512
+WF_PROFILE_W_SAMPLES = 512
+WF_QUERY = "a dark ink brush stroke"
 
 
 def fail(msg):
@@ -3172,6 +3233,668 @@ def phase_stitch(style_iter, geom_iter, card, held, warp_held):
     return out
 
 
+class _KeepRecords:
+    """A logging handler that keeps every record it is handed."""
+
+    def __init__(self):
+        import logging
+        self.handler = logging.Handler(logging.DEBUG)
+        self.records = []
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        import logging
+        self.logger = logging.getLogger(
+            "brushstroke_engine_torch.tools.projection")
+        self.level = self.logger.level
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.DEBUG)
+        return self.records
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def _chunks(records):
+    """The projection loop's chunk lines: [(created, step, chunk LPIPS
+    list)], one per chunk (the INFO line and the DEBUG line after it)."""
+    steps = [(r.created, r.args[0]) for r in records
+             if r.msg.startswith("Step ")]
+    lps = [r.args[0] for r in records if r.msg.startswith("chunk lpips")]
+    check(len(steps) == len(lps) and steps,
+          f"projection chunk lines: {len(steps)} steps, {len(lps)} LPIPS")
+    return [(t, s, lp) for (t, s), lp in zip(steps, lps)]
+
+
+def _opt_close(got, want, lr_total):
+    """Port parameters after a few Adam steps, card against CPU, by phase
+    12's rule for an Adam update: Adam divides each gradient entry by its
+    own running magnitude, so rounding of a small gradient becomes a share
+    of a step.  Every entry within WF_RTOL relative plus 10 % of the summed
+    learning rate, the mean difference within 2 % of it.  Returns (ok, mean
+    error over the summed lr, max error)."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    err = np.abs(got - want)
+    ok = got.shape == want.shape \
+        and bool((err <= WF_RTOL * np.abs(want) + 0.1 * lr_total).all()) \
+        and float(err.mean()) <= WF_RTOL * float(np.abs(want).mean()) \
+        + 0.02 * lr_total
+    return ok, float(err.mean()) / lr_total, float(err.max())
+
+
+def start_media(root):
+    """Start ``tools/make_synthetic_media.py`` for phase 13 in a process of
+    its own (numpy on the host, ~15 s per 512-px image), so that it runs
+    while the earlier phases keep the card busy.  Returns its handle."""
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    log = open(os.path.join(root, "media.log"), "w")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "brushstroke_engine_torch.tools.make_synthetic_media",
+             "--output_dir", os.path.join(root, "media"),
+             "--num_images", str(WF_MEDIA), "--resolution",
+             str(WF_MEDIA_RES), "--seed", str(WF_MEDIA_SEED)],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+    return {"proc": proc, "root": root}
+
+
+def _stop(proc):
+    """Kill ``proc`` if it still runs (the smoke leaves no process)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+async def _serve_brush(core, library, style, patches, plan):
+    """One session of ``core``: positions on, a WF_CANVAS canvas without
+    feature blending, the brush ``style`` of ``library``, then the strokes
+    of ``plan`` [(patch index, x, y)] with no crop margin.  Returns
+    [(uint8 image, meta)] and the K1 launches of the brush infos (at
+    connect and after set_brush)."""
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ui import protocol
+    replies = []
+    session = core.session(replies.append)
+    before = fir4_epilogue.launches
+    session.open()
+    for msg in ({"type": "set_option", "option": "positions", "value": True},
+                {"type": "new_canvas", "rows": WF_CANVAS, "cols": WF_CANVAS,
+                 "feature_blending": 0},
+                {"type": "set_brush", "library_id": library,
+                 "style_id": style}):
+        await session.on_message(json.dumps(msg))
+    info_launches = fir4_epilogue.launches - before
+    check(session.helper.brush_options.style_id == style
+          and session.helper.brush_options.custom_args.get("noise_buffers"),
+          f"the session did not take {library}/{style} with its noise")
+    out = []
+    for idx, x, y in plan:
+        n0 = len(replies)
+        await session.on_message(protocol.encode_render_request(
+            patches[idx], x, y, crop_margin=0))
+        images = [m for m in replies[n0:] if isinstance(m, bytes)]
+        check(len(images) == 1, f"stroke at ({x}, {y}): {len(images)} "
+              f"image replies")
+        _, meta, img = protocol.decode_render_response(images[0])
+        out.append((img.copy(), meta))
+    session.on_close()
+    return out, info_launches
+
+
+def _profile_projection_step(engine, targets, geoms):
+    """K1's share of a projection step's device time: ``project_parallel``
+    for 2 steps under the profiler (set-up included: the encoder, the masks,
+    WF_PROFILE_W_SAMPLES w samples).  Forward: the kernel's own device time;
+    backward: the device time under ``_Fir4EpilogueFnBackward`` (the plain
+    chain re-run and differentiated).  Per step, ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from brushstroke_engine_torch.tools import projection
+
+    cfg = projection.ProjectionConfig(num_steps=2,
+                                      w_avg_samples=WF_PROFILE_W_SAMPLES,
+                                      min_lpips_improvement=-1.0)
+    projection.project_parallel(engine, targets, geoms, cfg, log_every=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        projection.project_parallel(engine, targets, geoms, cfg,
+                                    log_every=1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    check(busy > 0, "the profiler recorded no device time")
+    fwd = sum(e.time_range.elapsed_us() for e in events
+              if e.device_type == DeviceType.CUDA
+              and "fir4_epilogue" in e.name) / 1e3
+
+    def device_ms(e):
+        """Device time of the kernels an op and its children launched."""
+        own = sum(k.duration for k in getattr(e, "kernels", []))
+        return own + sum(device_ms(c) for c in e.cpu_children)
+
+    # The autograd engine's node for K1's backward (its child op of the
+    # same name is inside it, so only the outer event is summed).
+    bwd = sum(device_ms(e) for e in events
+              if e.device_type == DeviceType.CPU
+              and e.name.startswith("autograd::engine::evaluate_function")
+              and e.name.endswith("_Fir4EpilogueFnBackward")) / 1e3
+    return {"steps": 2, "wall_ms_per_step": wall / 2,
+            "device_busy_ms_per_step": busy / 2,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "k1_forward_ms_per_step": fwd / 2,
+            "k1_backward_ms_per_step": bwd / 2,
+            "k1_forward_share": fwd / busy, "k1_backward_share": bwd / busy}
+
+
+def phase_brush_workflow(card, held, media):
+    """The brush-creation workflow (see the module doc, phase 13).
+    ``held``: the K1 shapes phase 3 held against the plain version;
+    ``media``: the media process :func:`start_media` started."""
+    import asyncio
+    import glob
+    import pickle
+    import shutil
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.engine.brush import (
+        GanBrushOptions, PaintEngineFactory,
+    )
+    from brushstroke_engine_torch.flagship import (
+        flagship_encoder_config, flagship_generator_config, flagship_trees,
+    )
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+    from brushstroke_engine_torch.tools import (
+        clarity, clip_model, clip_search, clip_search_main, get_ws_main,
+        opt_clarity_main, project_main, projection, seed_expand,
+        visualize_pca_main,
+    )
+    from brushstroke_engine_torch.tools.bench_serve import stroke_patches
+    from brushstroke_engine_torch.data.curves import random_spline_stroke
+    from brushstroke_engine_torch.ui.core import create_core, parse_libraries
+    from brushstroke_engine_torch.utils import reference_layout as rl
+    from brushstroke_engine_torch.utils.checkpoint import (
+        EngineBundle, params_from_jax, save_native,
+    )
+    from brushstroke_engine_torch.utils.img_proc import read_png
+
+    set_precision_mode("strict")
+    t_phase = time.time()
+    root = media["root"]
+    out = {"card": card}
+    launches = {}
+    schedule = {}
+
+    def counted(name, fn):
+        """Run ``fn``; keep its K1 launches and its seconds."""
+        before = fir4_epilogue.launches
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[name] = fir4_epilogue.launches - before
+        return result, time.perf_counter() - t0
+
+    try:
+        fir4_epilogue.launches = 0     # the brush workflow starts here
+        fir4_epilogue.shapes.clear()
+        trees = {k: params_from_jax(v) for k, v in
+                 flagship_trees(RES, SEED, NOISE_STRENGTH).items()}
+        bundle = os.path.join(root, "flagship.pkl")
+        save_native(bundle, EngineBundle(
+            flagship_generator_config(RES, (0, 1)), trees["gen_params"],
+            trees["gen_state"], flagship_encoder_config(),
+            trees["enc_params"], trees["enc_state"],
+            geom_inject_resolutions=(0, 1)))
+        engine = PaintEngineFactory.create(bundle, device="cuda")
+        gen_cfg = engine.gen_cfg
+        n_up = len(gen_cfg.synthesis.block_resolutions) - 1
+
+        # ---- 1. the media CLI (started by main) -------------------------
+        t0 = time.time()
+        rc = media["proc"].wait(timeout=900)
+        out["media_wait_s"] = time.time() - t0
+        with open(os.path.join(root, "media.log")) as f:
+            media_log = f.read()
+        check(rc == 0, f"make_synthetic_media exited {rc}: "
+              f"{media_log[-2000:]}")
+        targets = sorted(glob.glob(os.path.join(root, "media", "*.png")))
+        check(len(targets) == WF_MEDIA, f"{len(targets)} media PNGs")
+        for p in targets:
+            with open(p, "rb") as f:
+                shape = read_png(f.read()).shape
+            check(shape == (WF_MEDIA_RES, WF_MEDIA_RES, 3),
+                  f"{p}: shape {shape}")
+
+        # ---- 2. projection: 8 styles in one run, then one alone --------
+        proj_dir = os.path.join(root, "proj")
+        argv = ["--gan_checkpoint", bundle, "--target_image", *targets,
+                "--output_dir", proj_dir, "--num_steps", str(WF_STEPS),
+                "--num_patches", str(WF_PATCHES), "--library_name",
+                "ALL_projected_media.pkl", "--seed", "0", "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        with _KeepRecords() as recs:
+            res, sec = counted("project_parallel",
+                               lambda: project_main.main(argv))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        chunks = _chunks(recs)
+        steps = chunks[-1][1]
+        schedule["project_parallel"] = steps * n_up
+        names = [os.path.splitext(os.path.basename(p))[0] for p in targets]
+        check(sorted(res) == names, f"projected {sorted(res)}")
+        first, best = chunks[0][2][0], float(np.mean(
+            [r["lpips"] for r in res.values()]))
+        check(best < first and all(r["step"] > 0 for r in res.values()),
+              f"LPIPS did not fall: first {first}, best {best}, best steps "
+              f"{[r['step'] for r in res.values()]}")
+        for name, r in res.items():
+            check(np.isfinite(r["w"]).all() and all(
+                np.isfinite(v).all() for v in r["noise"].values())
+                and np.isfinite(r["lpips"]),
+                f"{name}: non-finite projection")
+            npz = np.load(os.path.join(proj_dir, f"{name}.npz"))
+            check(np.array_equal(npz["w"], r["w"]),
+                  f"{name}.npz does not hold the result")
+        with open(os.path.join(proj_dir, "ALL_projected_media.pkl"),
+                  "rb") as f:
+            lib = pickle.load(f)
+        check(sorted(lib) == names and all(
+            len(v["noise"]) == 2 * n_up + 1 for v in lib.values()),
+            f"the projected library: {sorted(lib)}")
+        again, _ = counted("skip_existing", lambda: project_main.main(
+            argv + ["--skip_existing"]))
+        check(again == {} and launches["skip_existing"] == 0,
+              f"--skip_existing projected {sorted(again)}")
+        schedule["skip_existing"] = 0
+        out["project_parallel"] = {
+            "styles": WF_MEDIA, "rows": WF_MEDIA * WF_PATCHES,
+            "steps": steps, "seconds": sec, "lpips_first": first,
+            "lpips_best_mean": best, "peak_gib": peak}
+
+        single_dir = os.path.join(root, "single")
+        argv1 = ["--gan_checkpoint", bundle, "--target_image", targets[0],
+                 "--style_name", "single", "--output_dir", single_dir,
+                 "--num_steps", str(WF_STEPS), "--num_patches",
+                 str(WF_SINGLE_PATCHES), "--seed", "0", "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        with _KeepRecords() as recs:
+            res1, sec1 = counted("project", lambda: project_main.main(argv1))
+        chunks1 = _chunks(recs)
+        schedule["project"] = chunks1[-1][1] * n_up
+        r1 = res1["single"]
+        check(r1["lpips"] < chunks1[0][2][0] and r1["step"] > 0
+              and np.isfinite(r1["w"]).all(),
+              f"single projection: first {chunks1[0][2][0]}, best "
+              f"{r1['lpips']} at step {r1['step']}")
+        check(os.path.isfile(os.path.join(single_dir, "single.npz")),
+              "single.npz not written")
+        out["project"] = {
+            "rows": WF_SINGLE_PATCHES, "steps": chunks1[-1][1],
+            "seconds": sec1, "lpips_first": chunks1[0][2][0],
+            "lpips_best": r1["lpips"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+        # ms per step: WF_TIME_CHUNKS chunks of WF_TIME_EVERY steps after a
+        # first chunk (w stats, cuDNN's first calls), host clock between
+        # the chunk lines (each follows a device read).
+        pairs = [project_main.load_target_patches(p, RES, WF_PATCHES, 0)
+                 for p in targets]
+        tgts = np.stack([t for t, _ in pairs])
+        geoms = np.stack([g for _, g in pairs])
+        one_t, one_g = project_main.load_target_patches(
+            targets[0], RES, WF_SINGLE_PATCHES, 0)
+        tcfg = projection.ProjectionConfig(
+            num_steps=WF_TIME_EVERY * (WF_TIME_CHUNKS + 1),
+            min_lpips_improvement=-1.0)
+        for key, fn in (
+                ("project_parallel", lambda: projection.project_parallel(
+                    engine, tgts, geoms, tcfg, log_every=WF_TIME_EVERY)),
+                ("project", lambda: projection.project(
+                    engine, one_t, one_g, tcfg, log_every=WF_TIME_EVERY))):
+            with _KeepRecords() as recs:
+                counted(f"timing_{key}", fn)
+            schedule[f"timing_{key}"] = tcfg.num_steps * n_up
+            times = [t for t, _, _ in _chunks(recs)]
+            per_step = [(b - a) * 1e3 / WF_TIME_EVERY
+                        for a, b in zip(times, times[1:])]
+            ms = statistics.median(per_step)
+            styles = WF_MEDIA if key == "project_parallel" else 1
+            out[key].update(ms_per_step=ms, ms_per_step_chunks=per_step,
+                            styles_per_s=styles / (ms * WF_STEPS / 1e3))
+        out["k1_step_profile"], _ = counted(
+            "profile", lambda: _profile_projection_step(engine, tgts, geoms))
+        schedule["profile"] = 2 * 2 * n_up        # two calls of 2 steps
+        print("[brush] projection " + json.dumps(
+            {k: out[k] for k in ("project_parallel", "project",
+                                 "k1_step_profile")}), flush=True)
+
+        # ---- 3. card vs CPU: project_parallel, N = 2, B = 1 -------------
+        cpu_engine = PaintEngineFactory.create(bundle, device="cpu")
+        draws = np.random.RandomState(SEED + 3).randn(
+            WF_CMP_STEPS, 2, 1, gen_cfg.num_ws, gen_cfg.w_dim).astype(
+            np.float32)
+        ccfg = projection.ProjectionConfig(num_steps=WF_CMP_STEPS,
+                                           min_lpips_improvement=-1.0)
+        got, _ = counted("card_vs_cpu", lambda: projection.project_parallel(
+            engine, tgts[:2, :1], geoms[:2, :1], ccfg, log_every=1,
+            draws=draws))
+        schedule["card_vs_cpu"] = WF_CMP_STEPS * n_up
+        t0 = time.time()
+        want = projection.project_parallel(
+            cpu_engine, tgts[:2, :1], geoms[:2, :1], ccfg, log_every=1,
+            draws=draws)
+        cpu_s = time.time() - t0
+        lr_total = sum(projection._lr_schedule(ccfg, s)
+                       for s in range(WF_CMP_STEPS))
+        worst = {"lpips": 0.0, "mean_err_over_lr": 0.0, "max_err": 0.0}
+        for g, w in zip(got, want):
+            lp = abs(g["lpips"] - w["lpips"]) / abs(w["lpips"])
+            check(lp <= WF_RTOL and g["step"] == w["step"],
+                  f"card vs CPU LPIPS {g['lpips']} vs {w['lpips']}")
+            worst["lpips"] = max(worst["lpips"], lp)
+            for a, b in [(g["w"], w["w"])] + [
+                    (g["noise"][k], w["noise"][k]) for k in w["noise"]]:
+                ok, mean, err = _opt_close(a, b, lr_total)
+                check(ok, f"card vs CPU projection: mean err {mean:.4f} of "
+                      f"the summed lr {lr_total}, max err {err:.3e}")
+                worst["mean_err_over_lr"] = max(worst["mean_err_over_lr"],
+                                                mean)
+                worst["max_err"] = max(worst["max_err"], err)
+        out["card_vs_cpu"] = dict(worst, cpu_seconds=cpu_s)
+        print("[brush] card vs CPU " + json.dumps(out["card_vs_cpu"]),
+              flush=True)
+
+        # ---- 4. the clarity finetune of the projected library -----------
+        # Held geometry: WF_CLARITY_EVAL batches of 4 spline strokes, drawn
+        # on the host as the CLIs draw theirs (timed: the tools' host cost).
+        rng = np.random.default_rng(SEED + 5)
+        t0 = time.perf_counter()
+        held_geoms = [np.stack([
+            random_spline_stroke(rng, RES)[..., None] for _ in range(4)])
+            for _ in range(WF_CLARITY_EVAL)]
+        stroke_s = (time.perf_counter() - t0) / (4 * WF_CLARITY_EVAL)
+        lib_path = os.path.join(proj_dir, "ALL_projected_media.pkl")
+        opt_dir = os.path.join(root, "opt")
+        _, sec = counted("clarity", lambda: opt_clarity_main.main([
+            "--gan_checkpoint", bundle, "--library", lib_path,
+            "--output_dir", opt_dir, "--num_steps", str(WF_CLARITY_STEPS),
+            "--batch_size", str(WF_CLARITY_BATCH), "--device", "cuda"]))
+        schedule["clarity"] = WF_MEDIA * WF_CLARITY_STEPS * 2 * n_up
+        opt_path = os.path.join(opt_dir, "OPT_ALL_projected_media.pkl")
+        with open(opt_path, "rb") as f:
+            opt_lib = pickle.load(f)
+        check(sorted(opt_lib) == names, f"OPT library {sorted(opt_lib)}")
+        for name in names:
+            check(np.isfinite(opt_lib[name]["w"]).all()
+                  and not np.array_equal(opt_lib[name]["w"], lib[name]["w"])
+                  and all(np.array_equal(opt_lib[name]["noise"][k], v)
+                          for k, v in lib[name]["noise"].items()),
+                  f"{name}: the OPT entry is not finite, did not move or "
+                  f"does not carry the noise")
+
+        def objective(losses, w, w0, noise):
+            """Mean over the held batches: (the clarity terms -- the IoU
+            items --, the whole objective)."""
+            w = torch.as_tensor(np.asarray(w, np.float32), device="cuda")
+            w0 = torch.as_tensor(np.asarray(w0, np.float32), device="cuda")
+            terms = []
+            with torch.no_grad():
+                for g in held_geoms:
+                    total, items = clarity.clarity_loss(
+                        engine, losses, w, w0,
+                        torch.as_tensor(g, device="cuda"), noise)
+                    terms.append([sum(
+                        it.weight * float(items[it.full_name])
+                        for it in losses.items
+                        if it.name in ("iou", "iou_inv")), float(total)])
+            return np.mean(terms, axis=0).tolist()
+
+        def per_style(losses, w_after):
+            """{style: [(clarity terms, objective) at the projected W and
+            at ``w_after(name)``]} on the held batches."""
+            out_ = {}
+            for name in names:
+                noise = {k: torch.as_tensor(np.asarray(v), device="cuda")
+                         for k, v in lib[name]["noise"].items()}
+                w1 = w_after(name)
+                out_[name] = [objective(losses, w, lib[name]["w"], noise)
+                              for w in (lib[name]["w"], w1)]
+            return out_
+
+        # The default objective has its anchor terms at 0 where a style
+        # starts, so with random weights it may end above its start: it is
+        # reported.  Its clarity terms alone, optimized from each projected
+        # style for WF_DESCENT_STEPS steps on the held batches, must fall
+        # there.
+        default = clarity.ForgerLosses.create_from_string(
+            clarity.DEFAULT_LOSSES)
+        report, _ = counted("clarity_report", lambda: per_style(
+            default, lambda name: opt_lib[name]["w"]))
+        schedule["clarity_report"] = WF_MEDIA * 2 * WF_CLARITY_EVAL * 2 * n_up
+        iou_cfg = clarity.ClarityConfig(num_steps=WF_DESCENT_STEPS,
+                                        losses=WF_CLARITY_TERMS)
+        falls, _ = counted("clarity_descent", lambda: per_style(
+            clarity.ForgerLosses.create_from_string(WF_CLARITY_TERMS),
+            lambda name: clarity.optimize_style_clarity(
+                engine, lib[name]["w"], itertools.cycle(held_geoms),
+                iou_cfg, noise_buffers=lib[name]["noise"])["w"]))
+        schedule["clarity_descent"] = WF_MEDIA * (
+            WF_DESCENT_STEPS + 2 * WF_CLARITY_EVAL) * 2 * n_up
+        for name, (before, after) in falls.items():
+            check(np.isfinite(after).all() and after[0] < before[0],
+                  f"{name}: the clarity terms went {before[0]} -> "
+                  f"{after[0]} in {WF_DESCENT_STEPS} steps")
+        out["clarity"] = {"styles": WF_MEDIA, "steps": WF_CLARITY_STEPS,
+                          "batch": WF_CLARITY_BATCH, "seconds": sec,
+                          "s_per_style": sec / WF_MEDIA,
+                          "host_s_per_stroke": stroke_s,
+                          "default_objective_before_after": report,
+                          "clarity_terms_descent": falls}
+        print("[brush] clarity " + json.dumps(out["clarity"]), flush=True)
+
+        # ---- 5. CLIP search: ViT-B/32 (seeded), then the fallback -------
+        clip_path = os.path.join(root, "clip_vitb32.pt")
+        bpe_path = os.path.join(root, "bpe_simple_vocab.txt.gz")
+        torch.save(rl.clip_state_dict(SEED), clip_path)
+        rl.write_bpe_merges(bpe_path, rl.bpe_merges_for(
+            WF_QUERY.split() + ["soft", "charcoal", "wash"]))
+        clip_dir = os.path.join(root, "clip")
+        cargv = ["--gan_checkpoint", bundle, "--library", lib_path,
+                 "--query", WF_QUERY, "--top_k", "3", "--output_dir",
+                 clip_dir, "--clip_weights", clip_path, "--clip_bpe",
+                 bpe_path, "--device", "cuda"]
+        found, search_s = counted("clip_search",
+                                  lambda: clip_search_main.main(cargv))
+        schedule["clip_search"] = WF_MEDIA * n_up      # one icon per style
+        check(found["backbone"] == "clip" and len(found["results"]) == 3
+              and all(k in names and np.isfinite(s)
+                      for k, s in found["results"]),
+              f"CLIP search: {found}")
+        opt_res, opt_s = counted("clip_optimize", lambda: clip_search_main
+                                 .main(cargv + ["--optimize", "--num_steps",
+                                                str(WF_CLIP_STEPS)]))
+        schedule["clip_optimize"] = WF_CLIP_STEPS * n_up
+        clip_pkl = opt_res["path"]
+        check(os.path.isfile(clip_pkl)
+              and np.isfinite(opt_res["optimized"]["w"]).all()
+              and np.isfinite(opt_res["optimized"]["loss"]),
+              f"CLIP --optimize: {opt_res.get('optimized')}")
+        hashed, hash_s = counted("clip_hashing", lambda: clip_search_main
+                                 .main(cargv[:8] + [
+                                     "--output_dir",
+                                     os.path.join(root, "clip_hashing"),
+                                     "--optimize", "--num_steps",
+                                     str(WF_CLIP_STEPS), "--device",
+                                     "cuda"]))
+        schedule["clip_hashing"] = (WF_MEDIA + WF_CLIP_STEPS) * n_up
+        check(hashed["backbone"] == "hashing"
+              and np.isfinite(hashed["optimized"]["w"]).all(),
+              f"hashing fallback: {hashed['backbone']}")
+        # ms per CLIP optimizer step, after the CLI's warm-up.
+        backbone = clip_search.CLIPBackbone(clip_path, bpe_path,
+                                            device="cuda")
+        w0 = np.asarray(lib[names[0]]["w"], np.float32)
+        batches = itertools.cycle(held_geoms)
+        optimizer = clip_search.ClipStyleOptimizer(
+            engine, backbone, clip_search.ClipOptConfig(
+                num_steps=WF_CLIP_TIMED))
+        _, opt_timed = counted("clip_timed", lambda: optimizer.optimize(
+            WF_QUERY, w0, batches))
+        schedule["clip_timed"] = WF_CLIP_TIMED * n_up
+        # encode_image / encode_text at ViT-B/32 widths, card vs CPU.
+        cpu_backbone = clip_search.CLIPBackbone(clip_path, bpe_path,
+                                                device="cpu")
+        check(backbone.cfg.vision_width == 768
+              and backbone.cfg.image_resolution == 224
+              and backbone.cfg.vision_patch == 32
+              and backbone.cfg.text_width == 512
+              and backbone.cfg.vocab_size == 49408,
+              f"ViT-B/32 config: {backbone.cfg}")
+        imgs = np.random.RandomState(SEED).rand(2, RES, RES, 3).astype(
+            np.float32)
+        texts = [WF_QUERY, "soft charcoal wash"]
+        with torch.no_grad():
+            enc = {dev: (b.encode_image(torch.as_tensor(imgs, device=dev))
+                         .cpu().numpy(),
+                         b.encode_text(texts).cpu().numpy())
+                   for dev, b in (("cuda", backbone), ("cpu", cpu_backbone))}
+        clip_err = max(float(np.abs(enc["cuda"][i] - enc["cpu"][i]).max())
+                       for i in (0, 1))
+        check(clip_err <= WF_RTOL, f"CLIP card vs CPU: {clip_err:.3e}")
+        out["clip"] = {
+            "search_seconds": search_s, "optimize_cli_seconds": opt_s,
+            "hashing_cli_seconds": hash_s, "top": found["results"],
+            "optimizer_ms_per_step": opt_timed * 1e3 / WF_CLIP_TIMED,
+            "card_vs_cpu_max_err": clip_err}
+        print("[brush] clip " + json.dumps(out["clip"]), flush=True)
+        del backbone, cpu_backbone, optimizer
+
+        # ---- 6. the W-space CLIs ----------------------------------------
+        ws_file = os.path.join(root, "ws.bin")
+        ws, _ = counted("get_ws", lambda: get_ws_main.main([
+            "--gan_checkpoint", bundle, "--seeds", f"0-{WF_WS - 1}",
+            "--output_file", ws_file, "--device", "cuda"]))
+        schedule["get_ws"] = 0
+        check(ws.shape == (WF_WS, gen_cfg.w_dim) and np.isfinite(ws).all()
+              and os.path.getsize(ws_file) == ws.size * 8,
+              f"get_ws_main: {ws.shape}")
+        sheet, _ = counted("seed_expand", lambda: seed_expand.main([
+            "--gan_checkpoint", bundle, "--seed", "7", "--grid",
+            str(WF_GRID), "--output_dir", os.path.join(root, "grid"),
+            "--device", "cuda"]))
+        schedule["seed_expand"] = WF_GRID ** 2 * n_up
+        rows, _ = counted("pca", lambda: visualize_pca_main.main([
+            "--gan_checkpoint", bundle, "--ws_file", ws_file,
+            "--num_components", "2", "--num_steps", "3", "--output_dir",
+            os.path.join(root, "pca"), "--device", "cuda"]))
+        schedule["pca"] = 2 * 3 * n_up
+        for path in [os.path.join(root, "grid", "seed7_grid.png")] + [
+                os.path.join(root, "pca", f"pca_{i}.png") for i in (0, 1)]:
+            with open(path, "rb") as f:
+                img = read_png(f.read())
+            check(img.ndim == 3 and img.shape[-1] == 3 and img.std() > 0,
+                  f"{path}: {img.shape}")
+        check(np.isfinite(sheet).all() and len(rows) == 2,
+              "the W-space sheets")
+
+        # ---- 7. serve the libraries, paint with a projected brush -------
+        seeds = os.path.join(root, "seeds.txt")
+        with open(seeds, "w") as f:
+            f.write("3\n7\n11\n21\n42\n")
+        specs = parse_libraries(
+            f"Seeds:disp:{seeds},Projected:disp:{lib_path},"
+            f"Opt:disp:{opt_path},Clip:disp:{clip_pkl}")
+        core = create_core(gan_checkpoint=bundle, library_specs=specs,
+                           device="cuda")
+        try:
+            counts = {k: len(v.get_style_ids())
+                      for k, v in core.libraries.items()}
+            check(counts == {"Seeds": 5, "Projected": WF_MEDIA,
+                             "Opt": WF_MEDIA, "Clip": 1},
+                  f"served libraries {counts}")
+            patches = stroke_patches(RES)
+            room = WF_CANVAS - RES + 1
+            plan = [(i % len(patches), 37 * i % room, 53 * i % room)
+                    for i in range(WF_STROKES)]
+            before = fir4_epilogue.launches
+            served, info_launches = asyncio.run(_serve_brush(
+                core, "Projected", names[0], patches, plan))
+            torch.cuda.synchronize()
+            launches["serve"] = fir4_epilogue.launches - before
+            schedule["serve"] = WF_STROKES * n_up + info_launches
+            check(info_launches % n_up == 0, f"brush info launched K1 "
+                  f"{info_launches} times")
+            projected = core.libraries["Projected"]
+
+            def compare():
+                """Each served image against render_stroke with the same
+                style (and without its noise textures)."""
+                worst, noise_lsb = 0, 0
+                for (idx, x, y), (img, meta) in zip(plan, served):
+                    check(meta == {"x": x, "y": y}, f"served meta {meta}")
+                    opts = GanBrushOptions()
+                    projected.set_style(names[0], opts)
+                    opts.set_position(x, y)
+                    direct = core.engine.render_stroke(patches[idx], None,
+                                                       opts)[0]
+                    worst = max(worst, _u8_err(img, direct))
+                    opts.custom_args = {}
+                    plain = core.engine.render_stroke(patches[idx], None,
+                                                      opts)[0]
+                    noise_lsb = max(noise_lsb, _u8_err(img, plain))
+                return worst, noise_lsb
+
+            (worst, noise_lsb), _ = counted("serve_check", compare)
+            schedule["serve_check"] = 2 * WF_STROKES * n_up
+            check(worst <= 1, f"served strokes {worst} LSB off "
+                  f"render_stroke")
+            check(noise_lsb > 1, f"the projected noise moved the served "
+                  f"strokes by {noise_lsb} LSB only")
+        finally:
+            core.close()
+        out["serve"] = {"strokes": WF_STROKES, "vs_render_stroke_lsb": worst,
+                        "vs_default_noise_lsb": noise_lsb,
+                        "libraries": counts}
+        print("[brush] serve " + json.dumps(out["serve"]), flush=True)
+
+        # ---- 8. launches against the schedule; every K1 shape held ------
+        for name, want in schedule.items():
+            if want is not None:
+                check(launches[name] == want, f"K1 launched "
+                      f"{launches[name]} times in {name}, the schedule "
+                      f"says {want}")
+        out["launches_by_step"] = launches
+        out["launches"] = fir4_epilogue.launches   # the workflow ends here
+        check(sum(launches.values()) == out["launches"],
+              f"K1 launches outside the counted steps: {out['launches']} "
+              f"against {launches}")
+        launched = sorted(fir4_epilogue.shapes)
+        check(set(launched) <= held, f"K1 launched at shapes phase 3 did "
+              f"not hold against the plain version: "
+              f"{sorted(set(launched) - held)}")
+        out["k1_shapes"] = [list(k) for k in launched]
+        print(f"[brush] K1 launched {out['launches']} times at "
+              f"{len(launched)} shapes, each held in phase 3: "
+              f"{json.dumps(out['k1_shapes'])}", flush=True)
+    finally:
+        _stop(media["proc"])
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    print(f"[brush] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     card = phase_card()
@@ -3181,6 +3904,10 @@ def main():
     # geometry on the host takes about as long as the kernel phases.
     from brushstroke_engine_torch.flagship import synthetic_data_iters
     style_iter, geom_iter = synthetic_data_iters(TRAIN_RES, TRAIN_BATCH, SEED)
+    # Phase 13's media are drawn on the host meanwhile, in a process.
+    from brushstroke_engine_torch.ops.cuda_build import BUILD_DIR
+    media = start_media(os.path.join(BUILD_DIR, "brush_workflow"))
+    atexit.register(_stop, media["proc"])
     phase_build()
     rows, max_err, held = phase_kernel_vs_plain()
     fir_bwd = phase_fir_backward()
@@ -3192,6 +3919,7 @@ def main():
     train_cli = phase_train_cli(style_iter, geom_iter, card, held)
     ckpt = phase_checkpoint(geom_iter, card, held)
     stitch = phase_stitch(style_iter, geom_iter, card, held, warp_held)
+    brush = phase_brush_workflow(card, held, media)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -3205,7 +3933,7 @@ def main():
         + train["launches"]["fir4_epilogue"] + paint["launches"]
         + serve["launches"] + train_cli["launches"]["fir4_epilogue"]
         + ckpt["launches"]["fir4_epilogue"]
-        + stitch["launches"]["fir4_epilogue"],
+        + stitch["launches"]["fir4_epilogue"] + brush["launches"],
         "launches_render_path": main_stats["launches"],
         "launches_training_path": train["launches"]["fir4_epilogue"],
         "launches_paint_path": paint["launches"],
@@ -3213,6 +3941,7 @@ def main():
         "launches_train_run": train_cli["launches"]["fir4_epilogue"],
         "launches_checkpoint_path": ckpt["launches"]["fir4_epilogue"],
         "launches_stitch_path": stitch["launches"]["fir4_epilogue"],
+        "launches_brush_workflow_path": brush["launches"],
         "max_abs_err": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "backward_max_rel_err": fir_bwd["worst_rel_err"],
@@ -3255,7 +3984,7 @@ def main():
     print(json.dumps({"main_path": main_stats, "training_path": train,
                       "paint_path": paint, "serve_path": serve,
                       "train_run": train_cli, "checkpoint_path": ckpt,
-                      "stitch_path": stitch,
+                      "stitch_path": stitch, "brush_workflow": brush,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,7 +19,9 @@ variants of reference checkpoints against the CPU (1e-4), a converted
 reference snapshot (bit-equal parameters, 1 LSB) and autoencoder steps
 (losses within 1e-4 relative); a Gstitch step against the CPU (1e-4), W and
 W^T at Gstitch's batch of 128, and PPL's distances (1e-3 plus the f32 floor
-of LPIPS) and precision / recall (equal) against the CPU.
+of LPIPS) and precision / recall (equal) against the CPU; a parallel
+projection step with per-row noise against the CPU (1e-4 relative plus
+Adam's lr bound).
 """
 
 import numpy as np
@@ -872,3 +874,39 @@ def test_ppl_and_pr_on_the_card_equal_the_cpu():
     fake = (centers[1 + rng.randint(0, 5, 33)] + rng.randn(33, 16) * 0.3)
     assert tpr.compute_pr(real, fake, row_batch_size=7, device="cuda") == \
         tpr.compute_pr(real, fake, row_batch_size=7, device="cpu")
+
+
+def test_project_parallel_step_on_the_card_equals_the_cpu():
+    """One ``project_parallel`` step of 2 styles x 2 rows with per-row noise
+    planes, the same draws on the card and on the CPU: K1 runs every up=2
+    layer (its backward gives the noise gradient), the LPIPS within 1e-4
+    relative, w and noise within 1e-4 relative plus Adam's lr bound (step 0
+    has lr 0: only the noise renormalization moves them)."""
+    from brushstroke_engine_torch.tools import projection as tproj
+    rng = np.random.RandomState(5)
+    targets = (rng.rand(2, 2, 32, 32, 3) * 2 - 1).astype(np.float32)
+    geoms = np.ones((2, 2, 32, 32, 1), np.float32)
+    geoms[:, :, 10:20, 4:28] = 0.0
+    cfg = tproj.ProjectionConfig(num_steps=2, w_avg_samples=64,
+                                 min_lpips_improvement=-1.0)
+    eng = _small_engine("cuda")
+    draws = rng.randn(2, 2, 1, eng.gen_cfg.num_ws,
+                      eng.gen_cfg.w_dim).astype(np.float32)
+    n_up = len(eng.gen_cfg.synthesis.block_resolutions) - 1
+    before = fe.fir4_epilogue.launches
+    got = tproj.project_parallel(eng, targets, geoms, cfg, log_every=1,
+                                 draws=draws)
+    assert fe.fir4_epilogue.launches - before == 2 * n_up
+    assert (4, 32, 32, 32, str(torch.float32)) in fe.fir4_epilogue.shapes
+    want = tproj.project_parallel(_small_engine("cpu"), targets, geoms, cfg,
+                                  log_every=1, draws=draws)
+    lr_total = sum(tproj._lr_schedule(cfg, s) for s in range(2))
+    for g, w in zip(got, want):
+        assert g["step"] == w["step"]
+        np.testing.assert_allclose(g["lpips"], w["lpips"], rtol=1e-4)
+        for key in w["noise"]:
+            err = np.abs(g["noise"][key] - w["noise"][key])
+            assert err.max() <= 1e-4 * np.abs(w["noise"][key]).max() \
+                + lr_total
+        err = np.abs(g["w"] - w["w"])
+        assert err.max() <= 1e-4 * np.abs(w["w"]).max() + lr_total

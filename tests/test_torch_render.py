@@ -40,7 +40,11 @@ from brushstroke_engine_torch.metrics import inception as tinc
 from brushstroke_engine_torch.metrics import lpips as tlpips
 from brushstroke_engine_torch.metrics.stroke_generator import \
     PaintStrokeGenerator
-from brushstroke_engine_torch.tools import bench_serve, paint_image
+from brushstroke_engine_torch.tools import (
+    bench_serve, clip_model, clip_search, clip_search_main, get_ws_main,
+    opt_clarity_main, paint_image, project_main, seed_expand,
+    visualize_pca_main,
+)
 from brushstroke_engine_torch.tools import train as ttrain
 from brushstroke_engine_torch.train.eval_hooks import make_eval_hooks
 from brushstroke_engine_torch.train.loop import TrainingLoop
@@ -230,6 +234,21 @@ def test_entry_points_need_cuda_unless_cpu(model, monkeypatch, tmp_path):
                  lambda: bench_serve.main(["--paths", "helper"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    # The brush-creation CLIs and the CLIP backbones.
+    bundle = str(tmp_path / "b.pkl")
+    for cli, argv in (
+            (project_main, ["--target_image", "t.png", "--output_dir", "o"]),
+            (opt_clarity_main, ["--library", "l.pkl", "--output_dir", "o"]),
+            (clip_search_main, ["--query", "ink", "--output_dir", "o"]),
+            (get_ws_main, ["--output_file", "ws.bin"]),
+            (seed_expand, ["--seed", "1", "--output_dir", "o"]),
+            (visualize_pca_main, ["--output_dir", "o"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--gan_checkpoint", bundle] + argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        clip_search.HashingBackbone()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        clip_model.load_openai_clip(str(tmp_path / "clip.pt"))
     engine = tbrush.TriadGanPaintEngine(tgen, *trees[:2], tenc, *trees[2:],
                                         geom_inject_resolutions=(0, 1),
                                         device="cpu")
@@ -333,7 +352,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tools.train_autoencoder", "tools.convert_checkpoint",
                 "train.stitching", "metrics.pr", "metrics.ppl",
                 "tools.calc_metrics", "tools.metric_main",
-                "tools.fid_from_images", "tools.visualize_stitching"):
+                "tools.fid_from_images", "tools.visualize_stitching",
+                "tools.latent", "tools.projection", "tools.clarity",
+                "tools.clip_model", "tools.clip_search",
+                "tools.project_main", "tools.opt_clarity_main",
+                "tools.clip_search_main", "tools.get_ws_main",
+                "tools.seed_expand", "tools.visualize_pca_main",
+                "tools.make_synthetic_media"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

@@ -78,3 +78,38 @@ def replay_augment_draws(cfg, key, batch, shape):
             k = next(ki)
         draws[name] = torch.from_numpy(np.array(fns[kind](k, shp)))
     return draws
+
+
+def jax_draws(seed, num_steps, log_every, shape, n=None):
+    """The unit normals of the JAX projection loop's w noise: per chunk of
+    ``log_every`` steps ``key, sub = split(key)``; step i of the chunk draws
+    from ``fold_in(sub, i)`` (split ``n`` ways in ``project_parallel``).
+    ``[num_steps, *shape]`` or ``[num_steps, n, *shape]``."""
+    key = jax.random.PRNGKey(seed)
+    out, step = [], 0
+    while step < num_steps:
+        k = min(log_every, num_steps - step)
+        key, sub = jax.random.split(key)
+        for i in range(k):
+            ki = jax.random.fold_in(sub, i)
+            if n is None:
+                out.append(np.asarray(jax.random.normal(ki, shape)))
+            else:
+                out.append(np.stack([np.asarray(jax.random.normal(kj, shape))
+                                     for kj in jax.random.split(ki, n)]))
+        step += k
+    return np.stack(out)
+
+
+def assert_optimized_close(got, want, lr_total, share=0.01):
+    """A parameter after a few Adam steps, port against JAX: every entry
+    within 1e-4 relative (+1e-5 absolute) but at most ``share`` of them --
+    entries whose gradient is rounding noise, which Adam's normalization
+    can step by up to the learning rate either way -- and those within the
+    summed learning rate ``lr_total``."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want)
+    loose = err > 1e-4 * np.abs(want) + 1e-5
+    assert loose.mean() <= share, (loose.mean(), err.max())
+    assert err.max() <= 1e-4 * np.abs(want).max() + lr_total, err.max()
