@@ -1,9 +1,10 @@
-"""Spline-based stroke geometry (numpy).
+"""Spline-based stroke geometry.
 
-The port's copy of the numpy path of ``brushstroke_engine_tpu/data/curves.py``
-(centripetal Catmull-Rom splines and an exact distance-field stroke
-rasterizer), random spline strokes and the triband geometry image of the
-training data.  The JAX package's ctypes rasterizer is not carried over.
+The port's copy of ``brushstroke_engine_tpu/data/curves.py``: centripetal
+Catmull-Rom splines, the stroke rasterizer (the C++ library of
+``native.py`` for two or more points, as the JAX package routes it, else an
+exact numpy distance field), random spline strokes and the triband geometry
+image of the training data.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+
+from brushstroke_engine_torch import native
 
 
 def catmull_rom_spline(control_pts: np.ndarray, samples_per_segment: int = 20,
@@ -82,6 +85,19 @@ def draw_stroke(width: int, pts: np.ndarray, radius: float,
     Returns:
       ``[width, width]`` float32, 1.0 = background, 0.0 = stroke.
     """
+    if np.shape(pts)[0] >= 2:
+        out = native.draw_stroke_native(width, np.asarray(pts, np.float32),
+                                        float(radius), float(soft_edge))
+        if out is not None:
+            return out
+    return draw_stroke_numpy(width, pts, radius, soft_edge)
+
+
+def draw_stroke_numpy(width: int, pts: np.ndarray, radius: float,
+                      soft_edge: float = 1.0) -> np.ndarray:
+    """:func:`draw_stroke`'s numpy form (f64 distances, rounded once to
+    f32): the fallback without the native library, and what draws
+    one-point strokes."""
     ys, xs = np.meshgrid(np.arange(width), np.arange(width), indexing="ij")
     grid = np.stack([ys.ravel(), xs.ravel()], axis=1).astype(np.float64)
     pts = np.asarray(pts, np.float64)
@@ -141,15 +157,15 @@ def random_spline_stroke(rng: np.random.Generator, width: int = 128,
 def draw_stroke_into(canvas: np.ndarray, pts: np.ndarray, radius: float,
                      soft_edge: float = 1.0) -> None:
     """Darken ``canvas`` (float32, 1.0 = background) in place with the
-    stroke :func:`draw_stroke` draws along ``pts``.  Each segment is
+    stroke :func:`draw_stroke_numpy` draws along ``pts``.  Each segment is
     evaluated only within ``radius + soft_edge`` of itself: farther pixels
-    are background for it, so the result equals ``draw_stroke``'s at a cost
-    that grows with the stroke's length, not with the canvas."""
+    are background for it, so the result equals ``draw_stroke_numpy``'s at
+    a cost that grows with the stroke's length, not with the canvas."""
     h, w = canvas.shape
     reach = radius + soft_edge
     pts = np.asarray(pts, np.float64)
     if pts.shape[0] == 1:
-        # One point is a dot, as in draw_stroke.
+        # One point is a dot, as in draw_stroke_numpy.
         pts = np.concatenate([pts, pts + 1e-3], axis=0)
     for p, q in zip(pts[:-1], pts[1:]):
         y0 = max(int(np.floor(min(p[0], q[0]) - reach)), 0)

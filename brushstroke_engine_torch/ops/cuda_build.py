@@ -49,6 +49,12 @@ def _paths(name: str):
     return src, so
 
 
+def _tmp_path(so: str) -> str:
+    """This process's build output: processes that build the same library
+    at once each write their own file and move it into place."""
+    return f"{so}.{os.getpid()}.tmp"
+
+
 def _stale(name: str) -> bool:
     src, so = _paths(name)
     return not os.path.isfile(so) or os.path.getmtime(src) > os.path.getmtime(so)
@@ -67,18 +73,20 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
             continue
         src, so = _paths(name)
         procs[name] = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", so + ".tmp", src],
+            [nvcc, *NVCC_FLAGS, "-o", _tmp_path(so), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     reports = {}
     failed = []
     for name, proc in procs.items():
         out, _ = proc.communicate()
         reports[name] = out
+        _, so = _paths(name)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
+            if os.path.exists(_tmp_path(so)):
+                os.remove(_tmp_path(so))
         else:
-            _, so = _paths(name)
-            os.replace(so + ".tmp", so)
+            os.replace(_tmp_path(so), so)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports

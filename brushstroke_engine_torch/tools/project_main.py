@@ -11,8 +11,9 @@ skipping styles already there with ``--skip_existing``.
     python3 -m brushstroke_engine_torch.tools.project_main \\
         --gan_checkpoint B.pkl --target_image a.png b.png --output_dir OUT
 
-Targets must be PNG: they are read without Pillow
-(``utils/img_proc.py:read_png``).  Runs on CUDA unless ``--device cpu``.
+Targets are read as Pillow reads them (``utils/img_proc.py:read_image``):
+any format Pillow opens where it is installed, else PNG of any kind but
+interlaced.  Runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -28,14 +29,10 @@ logger = logging.getLogger(__name__)
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """A PNG -> float ``[H, W, 3]`` in [0, 1], converted as Pillow's
-    ``convert("RGB")`` does (gray repeated, alpha dropped)."""
-    from brushstroke_engine_torch.utils.img_proc import read_png
-    with open(path, "rb") as f:
-        img = read_png(f.read())
-    img = img[..., :1] if img.shape[-1] <= 2 else img[..., :3]
-    rgb = np.broadcast_to(img, img.shape[:2] + (3,))
-    return rgb.astype(np.float32) / 255.0
+    """An image file -> float ``[H, W, 3]`` in [0, 1], as the JAX CLI reads
+    it: Pillow's ``convert("RGB")``."""
+    from brushstroke_engine_torch.utils.img_proc import read_image
+    return read_image(path, "RGB").astype(np.float32) / 255.0
 
 
 def load_target_patches(image_path, patch_width, num_patches, seed,
@@ -67,7 +64,7 @@ def main(argv=None):
     ap.add_argument("--gan_checkpoint", required=True)
     ap.add_argument("--encoder_checkpoint", default=None)
     ap.add_argument("--target_image", required=True, nargs="+",
-                    help="Artwork image(s) to project (PNG).")
+                    help="Artwork image(s) to project.")
     ap.add_argument("--output_dir", required=True)
     ap.add_argument("--style_name", default=None)
     ap.add_argument("--num_steps", type=int, default=1000)

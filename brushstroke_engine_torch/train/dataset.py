@@ -12,7 +12,6 @@ also powers the smoke run.
 
 from __future__ import annotations
 
-import io
 import os
 import queue
 import re
@@ -23,10 +22,9 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from brushstroke_engine_torch.data.curves import (
-    draw_stroke_into, random_spline_points, sample_radius,
-    triband_from_stroke,
+    random_spline_stroke, triband_from_stroke,
 )
-from brushstroke_engine_torch.utils.img_proc import read_png, \
+from brushstroke_engine_torch.utils.img_proc import read_image, \
     resize_bilinear
 
 _IMG_EXT = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
@@ -82,52 +80,13 @@ class ImageFolderDataset:
         return len(self.names) * (2 if self.xflip else 1)
 
     def _read(self, name: str) -> np.ndarray:
-        try:
-            import PIL.Image
-        except ImportError:
-            return self._read_png(name)
-        if self._zip is not None:
-            with self._zip.open(name) as f:
-                img = PIL.Image.open(io.BytesIO(f.read()))
-                img.load()
-        else:
-            img = PIL.Image.open(os.path.join(self.path, name))
-        if self.channels == 1:
-            img = img.convert("L")
-        elif self.channels == 4:
-            img = img.convert("RGBA")
-        else:
-            img = img.convert("RGB")
-        arr = np.asarray(img)
-        if arr.ndim == 2:
-            arr = arr[..., None]
-        return arr
-
-    def _read_png(self, name: str) -> np.ndarray:
-        """A PNG without Pillow (``utils.img_proc.read_png``), converted to
-        the dataset's channels as Pillow's ``convert`` does: gray repeated
-        to RGB, alpha dropped or made opaque, ITU-R 601-2 luma for 'L'."""
-        if not name.lower().endswith(".png"):
-            raise ImportError(f"reading {name} needs Pillow (only PNGs are "
-                              f"read without it)")
-        if self._zip is not None:
-            data = self._zip.read(name)
-        else:
-            with open(os.path.join(self.path, name), "rb") as f:
-                data = f.read()
-        arr = read_png(data)
-        color = arr[..., :3] if arr.shape[2] >= 3 else \
-            np.repeat(arr[..., :1], 3, axis=2)
-        if self.channels == 1:
-            rgb = color.astype(np.uint32)
-            return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470
-                     + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(
-                np.uint8)[..., None]
-        if self.channels == 4:
-            alpha = arr[..., -1:] if arr.shape[2] in (2, 4) else \
-                np.full(arr.shape[:2] + (1,), 255, np.uint8)
-            return np.concatenate([color, alpha], axis=2)
-        return np.ascontiguousarray(color)
+        """One image converted to the dataset's channels as Pillow's
+        ``convert`` does (``utils.img_proc.read_image``: Pillow where it is
+        installed, else its own PNG reader) -> uint8 ``[H, W, C]``."""
+        src = self._zip.read(name) if self._zip is not None else \
+            os.path.join(self.path, name)
+        arr = read_image(src, {1: "L", 4: "RGBA"}.get(self.channels, "RGB"))
+        return arr[..., None] if arr.ndim == 2 else arr
 
     def __getitem__(self, idx: int) -> np.ndarray:
         flip = self.xflip and idx >= len(self.names)
@@ -167,13 +126,8 @@ class SyntheticGeometryDataset:
         return self.size
 
     def __getitem__(self, idx: int) -> np.ndarray:
-        # random_spline_stroke's draws, in its order, drawn by
-        # draw_stroke_into (near each segment only) on a fresh canvas.
         rng = np.random.default_rng(self.seed * 1000003 + idx)
-        radius = sample_radius(rng)
-        pts = random_spline_points(rng, self.resolution)
-        stroke = np.ones((self.resolution, self.resolution), np.float32)
-        draw_stroke_into(stroke, pts, radius)
+        stroke = random_spline_stroke(rng, self.resolution)
         tri = triband_from_stroke(stroke)
         return np.clip(tri * 255, 0, 255).astype(np.uint8)
 

@@ -164,8 +164,25 @@ Phases, in order; any failure exits non-zero:
     brush (its noise textures in use) each within 1 LSB of
     ``render_stroke`` with the same style.  K1's launches of every step
     against its schedule (6 per generator pass), each of its shapes held in
-    phase 3.
-14. Prints the kernel table as JSON, then the final JSON line.
+    phase 3.  The clarity CLI runs 20 steps at batch 4 and the CLIP
+    optimizer 30 steps; every stroke is drawn by the native rasterizer
+    (``native.py``, which the smoke requires).
+14. The data chain (``[data]`` lines) of ``scripts/run_r5_flagship.sh``
+    through the port's CLIs at the reference's resolutions, cut only in
+    count: strokes/s of the native and the numpy rasterizer at 128, 192 and
+    256 px (max abs difference <= 1e-4); ``tools/make_synthetic_media.py``
+    (256 images at 128 px) -> ``tools/dataset_tool.py`` -> the style zip;
+    ``tools/create_splines.py`` (256 at 192 px, 8 processes) ->
+    ``tools/prep_geom_data.py`` -> ``dataset_tool`` -> the geometry zip;
+    ``tools/patch_augment.py``, ``tools/reformat_triband_data_main.py`` and
+    ``tools/make_synthetic_styles.py``; each CLI's seconds; every member
+    checked (style [128,128,3] uint8; geometry [192,192,3] with G binary and
+    B its blur; every patch at or above ``--min_entropy``; the reformatted
+    channels reversed); then ``tools/train_autoencoder.py`` on the geometry
+    zip (300 steps, the loss falls) and ``tools/train.py`` on both zips with
+    ``train_flags.txt`` and ``--encoder_checkpt`` that AE for 4 batches: K1,
+    W and W^T launched on the schedule, each shape held in phases 3 and 5.
+15. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
@@ -335,10 +352,9 @@ PPL_CMP_SAMPLES, PPL_CMP_EPS, PPL_CMP_RTOL = 4, 1e-2, 1e-3
 # more steps timed on the held batches), then the
 # hashing fallback; the W-space CLIs (WF_WS seeds, a WF_GRID^2 grid); the
 # four libraries served and WF_STROKES strokes painted with a projected
-# brush on a WF_CANVAS canvas.  The CLIs draw their geometry on the host
-# (a 256-px spline stroke is a float64 distance field over 65536 pixels and
-# ~100 segments, ~0.75 s): the clarity and CLIP runs are cut in steps and
-# batch so that phase 13 draws ~56 strokes.  Card vs CPU: project_parallel
+# brush on a WF_CANVAS canvas.  The CLIs draw their geometry on the host,
+# through the native rasterizer (native.py; main fails without it).  Card
+# vs CPU: project_parallel
 # at N = 2, B = 1 for WF_CMP_STEPS steps with the same draws (LPIPS within
 # WF_RTOL relative; w and noise within WF_RTOL relative plus Adam's lr bound, as
 # phase 12 holds an Adam update: each entry within 10 % of the summed
@@ -349,12 +365,36 @@ WF_MEDIA, WF_MEDIA_RES, WF_MEDIA_SEED = 8, 512, 777
 WF_STEPS, WF_PATCHES, WF_SINGLE_PATCHES = 100, 2, 4
 WF_TIME_EVERY, WF_TIME_CHUNKS = 10, 4
 WF_CMP_STEPS, WF_RTOL = 3, 1e-4
-WF_CLARITY_STEPS, WF_CLARITY_BATCH, WF_CLARITY_EVAL = 3, 1, 2
+WF_CLARITY_STEPS, WF_CLARITY_BATCH, WF_CLARITY_EVAL = 20, 4, 2
 WF_CLARITY_TERMS, WF_DESCENT_STEPS = "0.5*iou_inv(uvs)+0.5*iou(u)", 20
-WF_CLIP_STEPS, WF_CLIP_TIMED = 3, 10
+WF_CLIP_STEPS, WF_CLIP_TIMED = 30, 10
 WF_WS, WF_GRID, WF_STROKES, WF_CANVAS = 64, 3, 5, 512
 WF_PROFILE_W_SAMPLES = 512
 WF_QUERY = "a dark ink brush stroke"
+# Phase 14, the data chain of scripts/run_r5_flagship.sh:12-28 through the
+# port's CLIs, at the reference's resolutions and cut only in count
+# (DC_CUTS): DC_MEDIA media images at DC_MEDIA_RES px
+# (tools/make_synthetic_media.py) packed into the style zip; DC_SPLINES
+# splines at DC_SPLINE_RES px (DC_WORKERS processes) -> triband -> the
+# geometry zip; patch_augment on the media (DC_PATCHES patches of
+# DC_PATCH_WIDTH px per image, every member at or above DC_MIN_ENTROPY);
+# reformat_triband_data_main (2,1,0: each output the input's channels
+# reversed); make_synthetic_styles (DC_STYLES at DC_MEDIA_RES px).  Then the
+# autoencoder trainer on the geometry zip, DC_AE_STEPS steps at width 128
+# (the loss falls: the mean of the last DC_AE_WINDOW steps below that of the
+# first), and tools/train.py on both zips with train_flags.txt,
+# CKPT_CLI_CUTS and --encoder_checkpt that AE, for DC_TRAIN_BATCHES
+# batches: K1, W and W^T launched on the schedule at held shapes.  Before
+# it, strokes/s of the native and the numpy rasterizer at DC_STROKE_WIDTHS
+# (DC_STROKES_NATIVE and DC_STROKES_NUMPY seeded splines), max abs
+# difference <= DC_STROKE_ATOL (the bound of tests/test_native.py).
+DC_MEDIA, DC_MEDIA_RES, DC_SPLINES, DC_SPLINE_RES = 256, 128, 256, 192
+DC_CUTS = ("counts only: media 256 (reference 4000), splines 256 (1000), "
+           "AE 300 steps (10000), tools/train.py 4 batches (3000 kimg)")
+DC_WORKERS, DC_PATCH_WIDTH, DC_PATCHES, DC_MIN_ENTROPY = 8, 64, 4, 1.0
+DC_STYLES, DC_AE_STEPS, DC_AE_WINDOW, DC_TRAIN_BATCHES = 64, 300, 20, 4
+DC_STROKE_WIDTHS, DC_STROKES_NATIVE, DC_STROKES_NUMPY = (128, 192, 256), 50, 3
+DC_STROKE_ATOL = 1e-4
 
 
 def fail(msg):
@@ -2685,6 +2725,20 @@ def _ckpt_variants(geom_batch, out):
           + json.dumps(result), flush=True)
 
 
+def _cli_schedule(tcfg, n):
+    """The phases of ``n`` batches of the training CLI after its warm
+    start, without eval hooks, and the K1, W and W^T launches they make:
+    (phase counts, launches)."""
+    sched = {k: sum(1 for i in range(n) if i % iv == 0) for k, iv in (
+        ("Dr1", tcfg.d_reg_interval), ("Gpl", tcfg.g_reg_interval),
+        ("Ggeom", tcfg.geom_interval))}
+    n_up = len(tcfg.gen_cfg.synthesis.block_resolutions) - 1
+    return sched, {"fir4_epilogue": n_up * (2 * n + sched["Gpl"]
+                                            + sched["Ggeom"]),
+                   "warp_twopass": 2 * n + 2 * sched["Dr1"] + n,
+                   "warp_twopass_t": sched["Dr1"] + n}
+
+
 def _ckpt_autoencoder(root, geom_iter, card, out):
     """(d) The autoencoder trainer on the card, then the training CLI with
     --encoder_checkpt: the AE checkpoint, then a reference .pt."""
@@ -2752,14 +2806,7 @@ def _ckpt_autoencoder(root, geom_iter, card, out):
               and _tree_equal(loop.enc_state, state),
               f"{src}: the run's encoder is not the trained one")
         n = loop.batch_idx
-        sched = {k: sum(1 for i in range(n) if i % iv == 0) for k, iv in (
-            ("Dr1", tcfg.d_reg_interval), ("Gpl", tcfg.g_reg_interval),
-            ("Ggeom", tcfg.geom_interval))}
-        n_up = len(tcfg.gen_cfg.synthesis.block_resolutions) - 1
-        want = {"fir4_epilogue": n_up * (2 * n + sched["Gpl"]
-                                         + sched["Ggeom"]),
-                "warp_twopass": 2 * n + 2 * sched["Dr1"] + n,
-                "warp_twopass_t": sched["Dr1"] + n}
+        sched, want = _cli_schedule(tcfg, n)
         check(launches == want, f"{src}: launches {launches}, the schedule "
               f"of {n} batches {sched} says {want}")
         _finite_stats(os.path.join(loop.run_dir, "stats.jsonl"))
@@ -3624,6 +3671,8 @@ def phase_brush_workflow(card, held, media):
             random_spline_stroke(rng, RES)[..., None] for _ in range(4)])
             for _ in range(WF_CLARITY_EVAL)]
         stroke_s = (time.perf_counter() - t0) / (4 * WF_CLARITY_EVAL)
+        print(f"[brush] host s per {RES}-px stroke {stroke_s:.6f} (the "
+              f"native rasterizer)", flush=True)
         lib_path = os.path.join(proj_dir, "ALL_projected_media.pkl")
         opt_dir = os.path.join(root, "opt")
         _, sec = counted("clarity", lambda: opt_clarity_main.main([
@@ -3895,11 +3944,242 @@ def phase_brush_workflow(card, held, media):
     return out
 
 
+def _stroke_rates():
+    """Strokes/s of ``draw_stroke`` (the native rasterizer) and of its numpy
+    form on the same seeded splines at each of DC_STROKE_WIDTHS, with their
+    max abs difference."""
+    import numpy as np
+    from brushstroke_engine_torch.data import curves
+    rows = []
+    for width in DC_STROKE_WIDTHS:
+        rng = np.random.default_rng(SEED + width)
+        splines = [(curves.random_spline_points(rng, width),
+                    curves.sample_radius(rng))
+                   for _ in range(DC_STROKES_NATIVE)]
+        t0 = time.perf_counter()
+        got = [curves.draw_stroke(width, p, r) for p, r in splines]
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [curves.draw_stroke_numpy(width, p, r)
+                for p, r in splines[:DC_STROKES_NUMPY]]
+        numpy_s = time.perf_counter() - t0
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        check(err <= DC_STROKE_ATOL, f"native strokes at {width} px are "
+              f"{err:.3e} from numpy's (bound {DC_STROKE_ATOL})")
+        rows.append({"width": width,
+                     "native_strokes_per_s": DC_STROKES_NATIVE / native_s,
+                     "numpy_strokes_per_s": DC_STROKES_NUMPY / numpy_s,
+                     "native_s_per_stroke": native_s / DC_STROKES_NATIVE,
+                     "numpy_s_per_stroke": numpy_s / DC_STROKES_NUMPY,
+                     "max_abs_diff": err})
+    return rows
+
+
+def _members(path):
+    """{name: decoded image as stored} of every member of a zip."""
+    import zipfile
+    from brushstroke_engine_torch.utils.img_proc import read_image
+    with zipfile.ZipFile(path) as zf:
+        return {n: read_image(zf.read(n), None) for n in zf.namelist()}
+
+
+def _check_chain_outputs(d, out):
+    """Every member of the chain's zips and folders (see DC_* above)."""
+    import numpy as np
+    from brushstroke_engine_torch.data.curves import triband_from_stroke
+    from brushstroke_engine_torch.utils.img_proc import (
+        patch_entropy, read_image,
+    )
+    style = _members(d["style_zip"])
+    check(len(style) == DC_MEDIA and all(
+        a.dtype == np.uint8 and a.shape == (DC_MEDIA_RES, DC_MEDIA_RES, 3)
+        for a in style.values()), f"style zip: {len(style)} members, "
+        f"shapes {sorted({a.shape for a in style.values()})}")
+    geom = _members(d["geom_zip"])
+    check(len(geom) == DC_SPLINES, f"geometry zip: {len(geom)} members")
+    for name, a in geom.items():
+        check(a.dtype == np.uint8
+              and a.shape == (DC_SPLINE_RES, DC_SPLINE_RES, 3),
+              f"geometry {name}: {a.dtype} {a.shape}")
+        g = a[..., 1]
+        check(set(np.unique(g)) <= {0, 255}, f"geometry {name}: G is not "
+              f"binary")
+        blur = triband_from_stroke(g.astype(np.float32) / 255.0)[..., 2]
+        check(np.array_equal(a[..., 2], (np.clip(blur, 0, 1) * 255).astype(
+            np.uint8)), f"geometry {name}: B is not the blur of G")
+    patches = _members(d["patch_zip"])
+    check(patches, "patch_augment wrote no patch")
+    low = [n for n, a in patches.items() if patch_entropy(
+        a.astype(np.float32).mean(-1) / 255.0) < DC_MIN_ENTROPY]
+    check(not low and all(a.shape == (DC_PATCH_WIDTH, DC_PATCH_WIDTH, 3)
+                          for a in patches.values()),
+          f"patches below --min_entropy {DC_MIN_ENTROPY}: {low[:4]}")
+    tri = sorted(os.listdir(d["triband"]))
+    check(sorted(os.listdir(d["reformat"])) == tri and len(tri) ==
+          DC_SPLINES, "reformat_triband_data_main: names differ")
+    for name in tri:
+        check(np.array_equal(
+            read_image(os.path.join(d["reformat"], name), None),
+            read_image(os.path.join(d["triband"], name), None)[..., ::-1]),
+            f"reformat {name}: channels not reversed")
+    styles = sorted(os.listdir(d["styles"]))
+    check(styles == [f"{i:04d}.png" for i in range(DC_STYLES)],
+          f"make_synthetic_styles: {len(styles)} images")
+    out["members"] = {"style_zip": len(style), "geom_zip": len(geom),
+                      "patch_zip": len(patches), "triband": len(tri),
+                      "styles": len(styles)}
+
+
+def phase_data_chain(card, held, warp_held):
+    """The data chain (see DC_* above, phase 14): the six data CLIs, the AE
+    trainer and ``tools/train.py`` on the zips they made.  ``held`` /
+    ``warp_held``: the K1 and W / W^T shapes phases 3 and 5 held."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch import native
+    from brushstroke_engine_torch.ops import warp as tw
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+    from brushstroke_engine_torch.tools import (
+        create_splines, dataset_tool, make_synthetic_media,
+        make_synthetic_styles, patch_augment, prep_geom_data,
+        reformat_triband_data_main, train_autoencoder,
+    )
+    from brushstroke_engine_torch.tools import train as train_cli
+
+    check(native.available(), f"the native stroke rasterizer is not "
+          f"loaded: {native.load_error()}")
+    set_precision_mode("strict")
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    out = {"card": card, "cuts": DC_CUTS}
+    try:
+        out["strokes"] = _stroke_rates()
+        for row in out["strokes"]:
+            print("[data] strokes " + json.dumps(row) + f" ({card})",
+                  flush=True)
+        d = {k: os.path.join(root, k) for k in (
+            "media", "splines", "triband", "reformat", "styles", "ae",
+            "runs")}
+        d.update({k: os.path.join(root, k + ".zip") for k in (
+            "style_zip", "geom_zip", "patch_zip")})
+        seconds = {}
+        runs = [
+            ("make_synthetic_media", make_synthetic_media, [
+                "--output_dir", d["media"], "--num_images", DC_MEDIA,
+                "--resolution", DC_MEDIA_RES, "--seed", SEED]),
+            ("dataset_tool style", dataset_tool, [
+                "--source", d["media"], "--dest", d["style_zip"],
+                "--resolution", DC_MEDIA_RES]),
+            ("create_splines", create_splines, [
+                "--output_dir", d["splines"], "--num_images", DC_SPLINES,
+                "--width", DC_SPLINE_RES, "--seed", SEED, "--workers",
+                DC_WORKERS]),
+            ("prep_geom_data", prep_geom_data, [
+                "--input_dir", d["splines"], "--output_dir", d["triband"]]),
+            ("dataset_tool geometry", dataset_tool, [
+                "--source", d["triband"], "--dest", d["geom_zip"],
+                "--resolution", DC_SPLINE_RES]),
+            ("patch_augment", patch_augment, [
+                "--input_dir", d["media"], "--output_zip", d["patch_zip"],
+                "--patch_width", DC_PATCH_WIDTH, "--patches_per_image",
+                DC_PATCHES, "--min_entropy", DC_MIN_ENTROPY, "--seed",
+                SEED]),
+            ("reformat_triband_data_main", reformat_triband_data_main, [
+                "--input_dir", d["triband"], "--output_dir", d["reformat"],
+                "--channel_order", "2,1,0"]),
+            ("make_synthetic_styles", make_synthetic_styles, [
+                "--output_dir", d["styles"], "--num_images", DC_STYLES,
+                "--resolution", DC_MEDIA_RES, "--seed", SEED]),
+        ]
+        for name, cli, argv in runs:
+            t0 = time.perf_counter()
+            cli.main([str(a) for a in argv])
+            seconds[name] = time.perf_counter() - t0
+        out["cli_seconds"] = seconds
+        print("[data] CLI seconds " + json.dumps(seconds) + f" ({card})",
+              flush=True)
+        _check_chain_outputs(d, out)
+        print(f"[data] members {json.dumps(out['members'])}; {DC_CUTS}",
+              flush=True)
+
+        # The AE on the geometry zip (no generator: no kernel launches).
+        t0 = time.perf_counter()
+        _, _, losses = train_autoencoder.main([
+            "--data", d["geom_zip"], "--run_dir", d["ae"], "--num_steps",
+            str(DC_AE_STEPS), "--widths", "128", "--seed", str(SEED),
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+        ae_s = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        first = float(np.mean(losses[:DC_AE_WINDOW]))
+        last = float(np.mean(losses[-DC_AE_WINDOW:]))
+        check(len(losses) == DC_AE_STEPS and np.isfinite(losses).all()
+              and last < first, f"AE on the geometry zip: first "
+              f"{DC_AE_WINDOW} mean {first:.4f}, last {last:.4f}")
+        out["autoencoder"] = {"steps": DC_AE_STEPS, "seconds": ae_s,
+                              "steps_per_s": DC_AE_STEPS / ae_s,
+                              "loss_first": first, "loss_last": last}
+        print("[data] autoencoder " + json.dumps(out["autoencoder"])
+              + f" ({card})", flush=True)
+
+        # tools/train.py on both zips with that encoder.
+        fir4_epilogue.launches = 0     # the data chain's training starts
+        fir4_epilogue.shapes.clear()
+        for fn in (tw.warp_twopass, tw.warp_twopass_t):
+            fn.launches = 0
+            fn.shapes.clear()
+        t0 = time.perf_counter()
+        loop, _ = train_cli.build(
+            ["--data", d["style_zip"], "--geom_data", d["geom_zip"],
+             "--encoder_checkpt", os.path.join(d["ae"], "ae_latest.pkl"),
+             "--outdir", d["runs"], "--device", "cuda"]
+            + _flag_lines("train_flags.txt") + CKPT_CLI_CUTS)
+        loop.profile_phases = True
+        loop.run(total_kimg=DC_TRAIN_BATCHES * TRAIN_BATCH / 1000.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"] = _launch_counts()    # the data chain ends here
+        n = loop.batch_idx
+        sched, want = _cli_schedule(loop.cfg, n)
+        check(n == DC_TRAIN_BATCHES and out["launches"] == want,
+              f"tools/train.py on the zips: {n} batches, launches "
+              f"{out['launches']}, the schedule {sched} says {want}")
+        _finite_stats(os.path.join(loop.run_dir, "stats.jsonl"))
+        launched = sorted(fir4_epilogue.shapes)
+        check(set(launched) <= held, f"K1 launched at shapes phase 3 did "
+              f"not hold: {sorted(set(launched) - held)}")
+        for name, fn in (("warp_twopass", tw.warp_twopass),
+                         ("warp_twopass_t", tw.warp_twopass_t)):
+            check(fn.shapes <= warp_held[name], f"{name} launched at "
+                  f"shapes phase 5 did not hold: "
+                  f"{sorted(fn.shapes - warp_held[name])}")
+        out["train"] = {"batches": n, "wall_s": wall,
+                        "phase_s": {k: sum(v) for k, v in
+                                    loop.phase_seconds.items()},
+                        "k1_shapes": [list(k) for k in launched]}
+        print("[data] tools/train.py on the zips " + json.dumps(out["train"])
+              + f"; launches {json.dumps(out['launches'])} ({card})",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    print(f"[data] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     card = phase_card()
     import torch
     sys.path.insert(0, REPO)
+    # Every host stroke of the run is drawn by the native rasterizer; the
+    # numpy fallback is not what the card's users run.
+    from brushstroke_engine_torch import native
+    check(native.available(), f"the native stroke rasterizer is not "
+          f"loaded: {native.load_error()}")
     # The training data starts prefetching now: rasterizing the synthetic
     # geometry on the host takes about as long as the kernel phases.
     from brushstroke_engine_torch.flagship import synthetic_data_iters
@@ -3920,6 +4200,7 @@ def main():
     ckpt = phase_checkpoint(geom_iter, card, held)
     stitch = phase_stitch(style_iter, geom_iter, card, held, warp_held)
     brush = phase_brush_workflow(card, held, media)
+    data = phase_data_chain(card, held, warp_held)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -3933,7 +4214,8 @@ def main():
         + train["launches"]["fir4_epilogue"] + paint["launches"]
         + serve["launches"] + train_cli["launches"]["fir4_epilogue"]
         + ckpt["launches"]["fir4_epilogue"]
-        + stitch["launches"]["fir4_epilogue"] + brush["launches"],
+        + stitch["launches"]["fir4_epilogue"] + brush["launches"]
+        + data["launches"]["fir4_epilogue"],
         "launches_render_path": main_stats["launches"],
         "launches_training_path": train["launches"]["fir4_epilogue"],
         "launches_paint_path": paint["launches"],
@@ -3942,6 +4224,7 @@ def main():
         "launches_checkpoint_path": ckpt["launches"]["fir4_epilogue"],
         "launches_stitch_path": stitch["launches"]["fir4_epilogue"],
         "launches_brush_workflow_path": brush["launches"],
+        "launches_data_chain_path": data["launches"]["fir4_epilogue"],
         "max_abs_err": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "backward_max_rel_err": fir_bwd["worst_rel_err"],
@@ -3965,11 +4248,12 @@ def main():
                         + ("125" if fn == "_fwd_kernel" else "156"),
             "launches": train["launches"][name]
             + train_cli["launches"][name] + ckpt["launches"][name]
-            + stitch["launches"][name],
+            + stitch["launches"][name] + data["launches"][name],
             "launches_training_path": train["launches"][name],
             "launches_train_run": train_cli["launches"][name],
             "launches_checkpoint_path": ckpt["launches"][name],
             "launches_stitch_path": stitch["launches"][name],
+            "launches_data_chain_path": data["launches"][name],
             "max_abs_err": warp_err[key],
             "ms": warp[f"{key}_ms"],
             "plain_ms": warp[f"{key}_plain_ms"],
@@ -3985,6 +4269,7 @@ def main():
                       "paint_path": paint, "serve_path": serve,
                       "train_run": train_cli, "checkpoint_path": ckpt,
                       "stitch_path": stitch, "brush_workflow": brush,
+                      "data_chain": data,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,11 +15,9 @@ embeddings, scores); uint8 sheets within 1 LSB; multi-step optimizations
 """
 
 import contextlib
-import importlib.util
 import io
 import os
 import pickle
-import sys
 
 import numpy as np
 import pytest
@@ -44,12 +42,11 @@ from brushstroke_engine_torch.utils.checkpoint import EngineBundle, \
     save_native
 from brushstroke_engine_torch.utils.img_proc import read_png
 from tests.torch_helpers import assert_optimized_close, jax_draws, \
-    small_model
+    run_script, small_model
 
 set_precision_mode("strict")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUERY = "a dark ink stroke"
 MERGES = rl.bpe_merges_for(["a", "dark", "ink", "stroke"])
 # One head of 64 (the converters take width // 64 heads), image 32 px (the
@@ -181,24 +178,6 @@ def test_clip_style_optimizer_equals_jax(model, monkeypatch):
         assert_optimized_close(got["noise"][k], v, lr_total)
 
 
-def _run_script(name, argv):
-    """The JAX package's ``scripts/<name>.py`` main with ``argv``, strict
-    f32; returns its standard output."""
-    spec = importlib.util.spec_from_file_location(
-        f"_script_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    out = io.StringIO()
-    old = sys.argv
-    sys.argv = [name] + [str(a) for a in argv]
-    try:
-        with precision_mode("strict"), contextlib.redirect_stdout(out):
-            mod.main()
-    finally:
-        sys.argv = old
-    return out.getvalue()
-
-
 def _run_port(cli, argv):
     """The port's CLI ``main`` on the CPU (the media maker, numpy only, has
     no device flag); returns its result and standard output."""
@@ -231,7 +210,7 @@ def workflow(tmp_path_factory, model):
         (root / pkg).mkdir()
     media = ["--num_images", 2, "--resolution", 48, "--seed", 7]
     out["media"] = (
-        _run_script("make_synthetic_media",
+        run_script("make_synthetic_media",
                     ["--output_dir", root / "jax" / "media"] + media),
         _run_port(make_synthetic_media,
                   ["--output_dir", root / "port" / "media"] + media))
@@ -241,7 +220,7 @@ def workflow(tmp_path_factory, model):
     draws = jax_draws(0, 3, 100, (1, num_ws, w_dim), n=2)
     proj = ["--gan_checkpoint", bundle, "--target_image", *targets,
             "--num_steps", 3, "--num_patches", 2, "--l1_fg_weight", 0.5]
-    _run_script("project_main", proj + ["--output_dir", root / "jax" / "proj"])
+    run_script("project_main", proj + ["--output_dir", root / "jax" / "proj"])
     parallel = tproj.project_parallel
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tproj, "project_parallel",
@@ -254,7 +233,7 @@ def workflow(tmp_path_factory, model):
     library = str(root / "jax" / "proj" / "ALL_projected_styles.pkl")
     clar = ["--gan_checkpoint", bundle, "--library", library,
             "--num_steps", 2, "--batch_size", 2, "--losses", CLARITY_LOSSES]
-    _run_script("opt_clarity_main",
+    run_script("opt_clarity_main",
                 clar + ["--output_dir", root / "jax" / "opt"])
     _run_port(opt_clarity_main,
               clar + ["--output_dir", root / "port" / "opt"])
@@ -264,7 +243,7 @@ def workflow(tmp_path_factory, model):
               "--num_steps", 2, "--clip_weights", clip_w,
               "--clip_bpe", clip_bpe]
     out["search"] = (
-        _run_script("clip_search_main",
+        run_script("clip_search_main",
                     search + ["--output_dir", root / "jax" / "clip"]),
         _run_port(clip_search_main,
                   search + ["--output_dir", root / "port" / "clip"]))
@@ -272,7 +251,7 @@ def workflow(tmp_path_factory, model):
         "--gan_checkpoint", bundle, "--library", library, "--query", QUERY,
         "--output_dir", root / "port" / "hashing"])
 
-    for pkg, run in (("jax", _run_script), ("port", None)):
+    for pkg, run in (("jax", run_script), ("port", None)):
         d = root / pkg
         specs = [
             ("get_ws_main", get_ws_main,

@@ -1,9 +1,8 @@
 """The port's copy of the training data pipeline against the JAX package's.
 
-Numpy on both sides, so the comparison is exact, except for rasterized
-strokes: the JAX package draws them with its C rasterizer in f32 where it is
-built, the port with the f64 numpy path, so strokes agree to 1e-5 and the
-uint8 geometry to 1 LSB."""
+Numpy on both sides, and strokes drawn by the same rasterizer on both sides
+(the C++ library of each package's ``native.py``, built from the same source
+with the same flags, or both numpy forms), so the comparison is exact."""
 
 import itertools
 import zipfile
@@ -17,6 +16,7 @@ from brushstroke_engine_tpu.utils.img_proc import resize_bilinear as jresize
 from brushstroke_engine_torch.data import curves as tcurves
 from brushstroke_engine_torch.train import dataset as tds
 from brushstroke_engine_torch.utils.img_proc import resize_bilinear
+from tests.torch_helpers import jax_native
 
 
 @pytest.mark.parametrize("idx", [0, 1, 7])
@@ -24,17 +24,23 @@ def test_synthetic_geometry_is_the_jax_package_s(idx):
     want = jds.SyntheticGeometryDataset(48, size=16, seed=3)[idx]
     got = tds.SyntheticGeometryDataset(48, size=16, seed=3)[idx]
     assert got.dtype == np.uint8 and got.shape == (48, 48, 3)
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("rasterizer", ["numpy", "native"])
 @pytest.mark.parametrize("seed", [0, 3])
-def test_synthetic_geometry_192px_is_exactly_the_jax_package_s(seed,
-                                                               monkeypatch):
-    """The port draws each item with ``draw_stroke_into`` (near each segment
-    only); the JAX package's numpy path draws the whole canvas.  Equal
-    uint8 items over 16 indices at the training size (128 px + 64)."""
-    from brushstroke_engine_tpu import native
-    monkeypatch.setattr(native, "get_lib", lambda: None)
+def test_synthetic_geometry_192px_is_exactly_the_jax_package_s(
+        seed, rasterizer, monkeypatch):
+    """Both packages draw each item through ``random_spline_stroke`` ->
+    ``draw_stroke``, with the rasterizer pinned alike on both sides: both
+    numpy forms, or both C++ libraries.  Equal uint8 items over 16 indices
+    at the training size (128 px + 64)."""
+    from brushstroke_engine_torch import native as tnative
+    for native in (jax_native(), tnative):
+        if rasterizer == "numpy":
+            monkeypatch.setattr(native, "get_lib", lambda: None)
+        else:
+            assert native.available()
     want = jds.SyntheticGeometryDataset(192, size=100, seed=seed)
     got = tds.SyntheticGeometryDataset(192, size=100, seed=seed)
     for idx in range(16):

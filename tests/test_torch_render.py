@@ -358,7 +358,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tools.project_main", "tools.opt_clarity_main",
                 "tools.clip_search_main", "tools.get_ws_main",
                 "tools.seed_expand", "tools.visualize_pca_main",
-                "tools.make_synthetic_media"):
+                "tools.make_synthetic_media", "native",
+                "tools.create_splines", "tools.prep_geom_data",
+                "tools.dataset_tool", "tools.patch_augment",
+                "tools.reformat_triband_data_main",
+                "tools.make_synthetic_styles"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

@@ -772,9 +772,11 @@ def test_save_native_bundle_renders_the_same_in_both_packages(tmp_path):
 @pytest.mark.parametrize("case", ["dot", "dot_at_edge", "spline",
                                   "spline_to_edge", "spline_leaving"])
 def test_draw_stroke_into_equals_draw_stroke(case):
-    """Tolerance 1e-6: both evaluate the same f64 distances and round once
-    to f32; the box of ``draw_stroke_into`` only skips pixels that are
-    background for a segment."""
+    """``draw_stroke_into`` against ``draw_stroke``'s numpy form (the
+    native form of two or more points reads f32 points).  Tolerance 1e-6:
+    both evaluate the same f64 distances and round once to f32; the box of
+    ``draw_stroke_into`` only skips pixels that are background for a
+    segment."""
     rng = np.random.default_rng(["dot", "dot_at_edge", "spline",
                                  "spline_to_edge", "spline_leaving"]
                                 .index(case))
@@ -790,7 +792,7 @@ def test_draw_stroke_into_equals_draw_stroke(case):
         elif case == "spline_leaving":      # centred on the right edge
             pts = pts - pts.mean(axis=0) + np.array([w / 2, w - 1.0])
     radius = float(rng.uniform(1.5, 6.0))
-    want = curves.draw_stroke(w, pts, radius)
+    want = curves.draw_stroke_numpy(w, pts, radius)
     got = np.ones((w, w), np.float32)
     curves.draw_stroke_into(got, pts, radius)
     assert want.min() < 0.5

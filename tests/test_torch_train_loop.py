@@ -1,13 +1,14 @@
 """The port's train state and training loop on the CPU, strict f32: the JAX
 train state converted leaf by leaf, the FIR-epilogue kernel's backward with
-the launch stood in for, and ``TrainingLoop`` over a few batches.
+the launch stood in for, and ``TrainingLoop``'s warm start, persistence,
+stitch phase and unported options (its plain batches are in
+``tests/test_torch_train_loop_batches.py``).
 
 Small shapes: 32 px, B = 4, <= 32 channels.  Tolerances: converted trees
 and the networks they drive 2e-5 abs; phase stats 1e-4 relative (+1e-5
 abs); the FIR-epilogue gradients as stated in that test.
 """
 
-import json
 import os
 import random
 
@@ -24,14 +25,14 @@ from brushstroke_engine_tpu.train import stitching as jstitching
 from brushstroke_engine_torch.models import discriminator as tdisc
 from brushstroke_engine_torch.ops import fir_epilogue as fe
 from brushstroke_engine_torch.ops.filters import setup_filter
-from brushstroke_engine_torch.train import state as tstate
 from brushstroke_engine_torch.train.loop import TrainingLoop
 from brushstroke_engine_torch.utils.checkpoint import (
     params_from_jax, train_state_from_jax,
 )
 from brushstroke_engine_torch.utils.util import tree_leaves
 from tests.torch_train_helpers import (  # noqa: F401 (_strict: autouse)
-    _strict, RES, B, _np_tree, _train_cfgs, _jax_state, _batch,
+    _strict, RES, B, _np_tree, _train_cfgs, _jax_state, _batch, read_stats,
+    small_loop,
 )
 
 
@@ -153,78 +154,13 @@ def test_fir_epilogue_function_backward_and_double_backward(monkeypatch):
 # The loop
 # ---------------------------------------------------------------------------
 
-class _Const:
-    def __init__(self, batch):
-        self.batch = batch
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        return self.batch
-
-
-def _loop(tmp_path, name, **kw):
-    m, _, tcfg = _train_cfgs(
-        "bgc", noise_mode="random", style_mixing_prob=0.9, d_reg_interval=2,
-        g_reg_interval=2, geom_interval=2, ada_interval=1,
-        kimg_per_tick=B / 1000.0, **kw)
-    rng = np.random.RandomState(4)
-    style = rng.randint(0, 256, (B, RES, RES, 3)).astype(np.uint8)
-    tri = rng.randint(0, 256, (B, RES + 8, RES + 8, 3)).astype(np.uint8)
-    loop = TrainingLoop(tcfg, m["torch"]["enc_params"],
-                        m["torch"]["enc_state"], _Const(style), _Const(tri),
-                        run_dir=str(tmp_path / name), seed=5, device="cpu")
-    return loop, tcfg
-
-
-def _read_stats(loop):
-    with open(loop.stats_path) as f:
-        return [json.loads(line) for line in f]
-
-
-def test_training_loop_three_batches_on_cpu(tmp_path):
-    loop, cfg = _loop(tmp_path, "a", geom_warmstart_kimg=0)
-    p0 = [t.clone() for t in tree_leaves(loop.state["g_params"])]
-    d0 = [t.clone() for t in tree_leaves(loop.state["d_params"])]
-    ticks = []
-    loop.run(total_kimg=3 * B / 1000.0,
-             progress_fn=lambda cur, total: ticks.append(cur))
-    assert loop.batch_idx == 3 and loop.cur_nimg == 3 * B
-    assert ticks == [0, B, 2 * B, 3 * B]
-    rows = _read_stats(loop)
-    assert len(rows) == 3
-    for row in rows:
-        assert all(np.isfinite(v) for v in row.values())
-        assert row["Progress/ada_p"] >= 0
-    # Batch 0 and 2 run every phase; batch 1 only Dmain and Gmain.
-    for k in ("Loss/D/loss", "Loss/D/reg", "Loss/G/loss", "Loss/G/reg",
-              "Loss/forger/Ggeom/total", "Loss/forger/Gmain/iou_inv_uvs"):
-        assert k in rows[0] and k in rows[2], k
-    assert "Loss/D/reg" not in rows[1] and "Loss/G/reg" not in rows[1]
-    assert any(not torch.equal(a, b) for a, b in
-               zip(p0, tree_leaves(loop.state["g_params"])))
-    assert any(not torch.equal(a, b) for a, b in
-               zip(d0, tree_leaves(loop.state["d_params"])))
-    assert loop.state["g_opt"]["count"] == 5       # 3 Gmain + 2 Gpl
-    assert loop.state["d_opt"]["count"] == 5
-    assert loop.state["geom_opt"]["count"] == 2
-
-    # Same seed, same numbers.
-    loop2, _ = _loop(tmp_path, "b", geom_warmstart_kimg=0)
-    loop2.run(total_kimg=3 * B / 1000.0)
-    for a, b in zip(tree_leaves(loop.state["g_params"]),
-                    tree_leaves(loop2.state["g_params"])):
-        assert torch.equal(a, b)
-
-
 def test_training_loop_warm_start_and_unported_options(tmp_path):
-    loop, cfg = _loop(tmp_path, "w", geom_warmstart_kimg=2 * B / 1000.0)
+    loop, cfg = small_loop(tmp_path, "w", geom_warmstart_kimg=2 * B / 1000.0)
     assert loop.in_warmstart()
     d0 = [t.clone() for t in tree_leaves(loop.state["d_params"])]
     loop.run(total_kimg=1.0, exit_after_warmstart=True)
     assert loop.batch_idx == 2 and not loop.in_warmstart()
-    rows = _read_stats(loop)
+    rows = read_stats(loop)
     assert all("Loss/forger/Ggeom-warm/total" in r for r in rows)
     assert all("Loss/D/loss" not in r for r in rows)
     for a, b in zip(d0, tree_leaves(loop.state["d_params"])):
@@ -254,7 +190,7 @@ def test_training_loop_warm_start_and_unported_options(tmp_path):
     # The stitch phase runs (it raised before it was ported): Gstitch after
     # Greg, its second crop from the loop's seeded stream, which draws what
     # the JAX stitcher draws from a global ``random`` seeded alike.
-    st, _ = _loop(tmp_path, "s", geom_warmstart_kimg=0, stitch_interval=1,
+    st, _ = small_loop(tmp_path, "s", geom_warmstart_kimg=0, stitch_interval=1,
                   stitch_phase_losses="1.0*gan(fake)+1.0*l1(patch)")
     assert st.stitch_on
     crop2 = st.stitcher.gen_overlapping_square_crop(
@@ -263,16 +199,7 @@ def test_training_loop_warm_start_and_unported_options(tmp_path):
     assert crop2 == jstitching.RandomStitcher().gen_overlapping_square_crop(
         RES + 8, (3, 5, RES, RES))
     st.run(total_kimg=B / 1000.0)
-    row = _read_stats(st)[-1]
+    row = read_stats(st)[-1]
     for k in ("total", "gan_fake", "l1_patch"):
         assert np.isfinite(row[f"Loss/forger/Gstitch/{k}"]), k
     assert st.state["g_opt"]["count"] == 3     # Gmain, Gpl, Gstitch
-
-
-def test_training_loop_needs_cuda_unless_cpu(tmp_path, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    _, _, cfg = _train_cfgs()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        TrainingLoop(cfg, {}, {}, None, None, run_dir=str(tmp_path / "c"))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tstate.init_train_state(cfg)

@@ -1,7 +1,12 @@
 """Shared fixtures of the torch-port parity tests: one small engine config
 in both packages, and numpy weight trees in the JAX layout for both."""
 
+import contextlib
 import dataclasses
+import importlib.util
+import io
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -9,6 +14,7 @@ import numpy as np
 
 from brushstroke_engine_tpu.models.generator import make_generator_config
 from brushstroke_engine_tpu.models.geo_encoder import GeoEncoderConfig
+from brushstroke_engine_tpu.ops.precision import precision_mode
 from brushstroke_engine_torch.utils.checkpoint import (
     configs_from_dicts, init_native_params, params_from_jax,
 )
@@ -113,3 +119,37 @@ def assert_optimized_close(got, want, lr_total, share=0.01):
     loose = err > 1e-4 * np.abs(want) + 1e-5
     assert loose.mean() <= share, (loose.mean(), err.max())
     assert err.max() <= 1e-4 * np.abs(want).max() + lr_total, err.max()
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_script(name, argv):
+    """The JAX package's ``scripts/<name>.py`` main with ``argv``, strict
+    f32; returns its standard output."""
+    spec = importlib.util.spec_from_file_location(
+        f"_script_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    old = sys.argv
+    sys.argv = [name] + [str(a) for a in argv]
+    try:
+        with precision_mode("strict"), contextlib.redirect_stdout(out):
+            mod.main()
+    finally:
+        sys.argv = old
+    return out.getvalue()
+
+
+def jax_native():
+    """The JAX package's ``native`` module with its library loaded.  That
+    package builds its library in place, so a test process that loads it
+    while another process writes it fails once and keeps the failure: load
+    it again before a test needs it."""
+    from brushstroke_engine_tpu import native
+    if not native.available():
+        native._load_failed = False
+        native.get_lib()
+    assert native.available(), "the JAX package's native library"
+    return native
