@@ -8,7 +8,8 @@ over ``Style``.  What the reference file formats force (the seed-txt
 grammar, the W-pkl schema, ``RandomState(seed)`` bit-compatibility so brush
 identities carry over, the interpolated-style-id grammar, the CLI
 library-spec grammar) sits in the "reference format compat" section.
-``PIL`` is imported only where an icon is read or written.
+Icons are read through ``utils.img_proc.read_image``; they are JPEG, so
+writing one (and reading it) needs Pillow, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -172,9 +173,8 @@ class IconStore:
         name = str(style_id) + self.extension
         if name not in self._zip.namelist():
             return None
-        import PIL.Image
-        with self._zip.open(name, "r") as f:
-            return np.array(PIL.Image.open(f))
+        from brushstroke_engine_torch.utils.img_proc import read_image
+        return np.array(read_image(self._zip.read(name), None))
 
     def put(self, style_id, image_u8: np.ndarray) -> None:
         import PIL.Image

@@ -88,7 +88,8 @@ def load_detector(path: str, device="cuda") -> InceptionV3:
     torchvision (``Mixed_5b.branch1x1.conv.weight``) or the StyleGAN2-ADA
     TorchScript detector (``layers.mixed.tower...``)."""
     if zipfile.is_zipfile(path):
-        obj = torch.load(path, map_location="cpu", weights_only=False)
+        from brushstroke_engine_torch.utils.weights import load_state_dict
+        obj = load_state_dict(path)
     else:
         with open(path, "rb") as f:
             obj = pickle.load(f)

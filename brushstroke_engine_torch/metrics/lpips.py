@@ -51,13 +51,15 @@ def resize_bilinear(x, h: int, w: int):
 class LPIPSModel:
     convs: List[Dict[str, torch.Tensor]]  # weight OIHW, bias [out]
     lins: List[torch.Tensor]              # per-layer calibration [C]
+    # 'lpips_alex' for loaded weights, 'lpips_random' for the fallback.
+    kind: str = "lpips_alex"
 
     @property
     def device(self) -> torch.device:
         return self.lins[0].device
 
     @staticmethod
-    def _build(convs, lins, device) -> "LPIPSModel":
+    def _build(convs, lins, device, kind="lpips_alex") -> "LPIPSModel":
         dev = resolve_device(device)
 
         def t(a):
@@ -66,7 +68,7 @@ class LPIPSModel:
         return LPIPSModel(
             convs=[{"weight": t(c["weight"]), "bias": t(c["bias"])}
                    for c in convs],
-            lins=[t(lin) for lin in lins])
+            lins=[t(lin) for lin in lins], kind=kind)
 
     @staticmethod
     def random_init(seed: int = 0, device="cuda") -> "LPIPSModel":
@@ -83,7 +85,7 @@ class LPIPSModel:
             cin = cout
         # Raw-application semantics (see lpips_pair): 1/c per layer.
         lins = [np.ones((c,), np.float32) / c for (c, *_rest) in _ALEX_PLAN]
-        return LPIPSModel._build(convs, lins, device)
+        return LPIPSModel._build(convs, lins, device, kind="lpips_random")
 
     @staticmethod
     def from_torch_state(state: Dict[str, np.ndarray],
@@ -131,11 +133,11 @@ def get_default_model(device="cuda") -> LPIPSModel:
         from brushstroke_engine_torch.utils.weights import find_weights
         path = find_weights("lpips")
         if path:
-            obj = torch.load(path, map_location="cpu", weights_only=False)
-            state = obj.get("state_dict", obj) if isinstance(obj, dict) \
-                else obj.state_dict()
+            from brushstroke_engine_torch.utils.weights import \
+                load_state_dict
             _DEFAULT_MODELS[key] = LPIPSModel.from_torch_state(
-                {k: v.numpy() for k, v in state.items()}, device=key)
+                {k: v.numpy() for k, v in load_state_dict(path).items()},
+                device=key)
         else:
             _DEFAULT_MODELS[key] = LPIPSModel.random_init(0, device=key)
     return _DEFAULT_MODELS[key]

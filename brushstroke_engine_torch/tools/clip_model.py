@@ -24,7 +24,6 @@ from __future__ import annotations
 import gzip
 import html
 import re
-import zipfile
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Dict, List, Optional
@@ -334,15 +333,6 @@ def from_openai_state(state: Dict):
     return cfg, params
 
 
-def _is_torchscript(path: str) -> bool:
-    """A TorchScript archive: a zip with a ``code/`` directory (a state-dict
-    pickle saved by ``torch.save`` has ``data.pkl`` and ``data/`` only)."""
-    if not zipfile.is_zipfile(path):
-        return False
-    with zipfile.ZipFile(path) as z:
-        return any("/code/" in name for name in z.namelist())
-
-
 def load_openai_clip(weights_path: str, bpe_path: Optional[str] = None,
                      device="cuda"):
     """Load a CLIP checkpoint -> (config, params on ``device``, tokenizer).
@@ -352,13 +342,9 @@ def load_openai_clip(weights_path: str, bpe_path: Optional[str] = None,
     with ``weights_only=True``, so a file that names any other callable is
     refused.  The tokenizer needs the BPE merges file (None without one).
     """
+    from brushstroke_engine_torch.utils.weights import load_state_dict
     dev = resolve_device(device)
-    if _is_torchscript(weights_path):
-        state = torch.jit.load(weights_path, map_location="cpu").state_dict()
-    else:
-        state = torch.load(weights_path, map_location="cpu",
-                           weights_only=True)
-    cfg, params = from_openai_state(state)
+    cfg, params = from_openai_state(load_state_dict(weights_path))
     tokenizer = SimpleTokenizer(bpe_path, cfg.context_length) \
         if bpe_path else None
     return cfg, tree_to(params, dev), tokenizer

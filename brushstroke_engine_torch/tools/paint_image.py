@@ -2,7 +2,7 @@
 
 The port's counterpart of ``scripts/paint_image_main.py``, with its flags
 (minus the int8 path): reads a geometry image (``.npy`` directly, PNG or
-JPEG through PIL), tiles it into overlapping patches, renders them through
+JPEG through ``utils.img_proc.read_image``; a PNG needs no Pillow), tiles it into overlapping patches, renders them through
 the paint engine with feature blending across seams, and writes the RGBA
 canvas (optionally composited on white) as a PNG.  Style interpolation
 (``--style_id2``/``--style_blend_alpha``) and color presets as there.
@@ -37,10 +37,13 @@ def set_colors(color_mode: int, brush_options):
 
 
 def read_image(path: str) -> np.ndarray:
+    """The drawing as stored: ``.npy`` directly, else through
+    ``utils.img_proc.read_image`` in the file's own mode (a PNG needs no
+    Pillow)."""
     if path.endswith(".npy"):
         return np.load(path)
-    import PIL.Image
-    return np.asarray(PIL.Image.open(path))
+    from brushstroke_engine_torch.utils import img_proc
+    return img_proc.read_image(path, None)
 
 
 def main(argv=None):
@@ -132,13 +135,13 @@ def main(argv=None):
     else:
         canvas = stylize_image_ondevice(engine, geom, opts, **kw)
 
-    import PIL.Image
+    from brushstroke_engine_torch.utils.img_proc import write_image
     os.makedirs(args.output_dir, exist_ok=True)
     base = os.path.splitext(os.path.basename(args.geo_image))[0]
     out_path = os.path.join(
         args.output_dir,
         f"{base}_style{opts.style_id}_c{args.color_mode}.png")
-    PIL.Image.fromarray(canvas).save(out_path)
+    write_image(out_path, canvas)
     print(f"Wrote {out_path}")
     return out_path
 

@@ -19,10 +19,16 @@ takes an AE checkpoint (``tools/train_autoencoder.py``, either package's)
 or else a reference encoder ``.pt``, converted on the way; without it the
 flagship encoder's weights are random from the seed.
 
-``--d_arch`` builds the discriminator it names ('orig' or 'resnet').  Flags
-of parts that are not ported yet raise, naming ROADMAP.md: ``--fused``,
-``--dp``, ``--device_dataset``, ``--steps_per_dispatch`` other than 1,
-``--profile_dir`` and the multi-host flags.
+``--d_arch`` builds the discriminator it names ('orig' or 'resnet').  The
+production path (``scripts/run_r5_flagship_torch.sh``, the clarity finetune
+of ``scripts/run_r5_finetune_torch.sh``) adds ``--fused --device_dataset
+--steps_per_dispatch 16``: one fused step per batch (``train/fused.py``),
+the datasets decoded once into uint8 banks on the card
+(``train/device_dataset.py``; the synthetic geometry stand-in then has 2048
+items, not 10000, and no host iterator is built) and 16 batches per step
+call.  ``--profile_dir D`` writes a ``torch.profiler`` trace of batches
+10-12 into D.  Flags of parts that are not ported yet raise, naming
+ROADMAP.md item 2.9: ``--dp`` and the multi-host flags.
 """
 
 from __future__ import annotations
@@ -117,15 +123,35 @@ def build_parser():
     ap.add_argument("--partial_loss_with_triband_input", type=int, default=1)
     ap.add_argument("--geom_input_channel", type=int, default=1)
     ap.add_argument("--geom_truth_channel", type=int, default=2)
-    # Misc (the throughput and multi-host flags are not ported yet).
-    ap.add_argument("--fused", action="store_true")
-    ap.add_argument("--dp", type=int, default=0)
-    ap.add_argument("--device_dataset", action="store_true")
-    ap.add_argument("--steps_per_dispatch", type=int, default=1)
-    ap.add_argument("--coordinator_address", default="")
-    ap.add_argument("--num_processes", type=int, default=0)
-    ap.add_argument("--process_id", type=int, default=-1)
-    ap.add_argument("--profile_dir", default=None)
+    # Misc (--dp and the multi-host flags are not ported yet).
+    ap.add_argument("--fused", action="store_true",
+                    help="One fused step per batch: every phase of the "
+                         "batch cycle in one call from one geometry "
+                         "encode (train/fused.py).")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="Data-parallel over N devices (not ported yet).")
+    ap.add_argument("--device_dataset", action="store_true",
+                    help="Decode the whole dataset once and keep it on the "
+                         "card as uint8 banks; the fused step then samples "
+                         "each batch there (no per-step host decode or "
+                         "host->device batch copies). Requires --fused; "
+                         "see train/device_dataset.py for the size guard.")
+    ap.add_argument("--steps_per_dispatch", type=int, default=1,
+                    help="With --device_dataset: run N batches per fused "
+                         "step call (crops, warm-start flag and EMA "
+                         "schedule computed per batch without a host "
+                         "sync); ticks land on dispatch boundaries.")
+    ap.add_argument("--coordinator_address", default="",
+                    help="Multi-host: coordinator host:port (not ported "
+                         "yet).")
+    ap.add_argument("--num_processes", type=int, default=0,
+                    help="Multi-host: total process count (not ported "
+                         "yet).")
+    ap.add_argument("--process_id", type=int, default=-1,
+                    help="Multi-host: this process's id (not ported yet).")
+    ap.add_argument("--profile_dir", default=None,
+                    help="Write a torch.profiler trace of batches 10-12 "
+                         "here (view in Perfetto or TensorBoard).")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics", default="fid,forger")
     ap.add_argument("--dry-run", action="store_true", dest="dry_run")
@@ -137,10 +163,7 @@ def build_parser():
 
 def _reject_unported(args):
     asked = {
-        "--fused": args.fused, "--dp": args.dp,
-        "--device_dataset": args.device_dataset,
-        "--steps_per_dispatch": args.steps_per_dispatch != 1,
-        "--profile_dir": args.profile_dir,
+        "--dp": args.dp,
         "--coordinator_address": args.coordinator_address,
         "--num_processes": args.num_processes,
         "--process_id": args.process_id >= 0,
@@ -148,7 +171,7 @@ def _reject_unported(args):
     for flag, on in asked.items():
         if on:
             raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md, 'Modules to port')")
+                f"{flag} is not ported yet (ROADMAP.md item 2.9, the mesh)")
 
 
 def load_encoder(path: str):
@@ -285,10 +308,16 @@ def build(argv=None):
     if args.geom_data:
         geom_ds = ImageFolderDataset(args.geom_data, res + 64, channels=3)
     else:
-        geom_ds = SyntheticGeometryDataset(res + 64, size=10000)
+        # The banks decode the whole dataset up front: a smaller synthetic
+        # stand-in keeps the start quick.
+        geom_ds = SyntheticGeometryDataset(
+            res + 64, size=2048 if args.device_dataset else 10000)
 
-    style_iter = BatchIterator(style_ds, cfg.batch_size, seed=args.seed)
-    geom_iter = BatchIterator(geom_ds, cfg.batch_size, seed=args.seed + 1)
+    style_iter = geom_iter = None
+    if not args.device_dataset:
+        style_iter = BatchIterator(style_ds, cfg.batch_size, seed=args.seed)
+        geom_iter = BatchIterator(geom_ds, cfg.batch_size,
+                                  seed=args.seed + 1)
 
     resume_state = None
     if args.resume:
@@ -319,10 +348,21 @@ def build(argv=None):
             fid_real_batches=fid_real, geom_iterator=metric_geom_iter,
             metrics=metric_names)
 
+    device_banks = None
+    if args.device_dataset:
+        if not args.fused:
+            raise SystemExit("--device_dataset requires --fused")
+        from brushstroke_engine_torch.train.device_dataset import \
+            build_device_banks
+        device_banks = build_device_banks(style_ds, geom_ds,
+                                          log_fn=logger.info, device=device)
+
     loop = TrainingLoop(cfg, enc_params, enc_state, style_iter, geom_iter,
                         run_dir=run_dir, seed=args.seed, hooks=hooks,
                         resume_state=resume_state, snapshot_ticks=args.snap,
-                        device=device)
+                        use_fused=args.fused, device_banks=device_banks,
+                        steps_per_dispatch=args.steps_per_dispatch,
+                        profile_dir=args.profile_dir, device=device)
     return loop, args
 
 

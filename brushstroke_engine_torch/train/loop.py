@@ -23,9 +23,20 @@ crop stream (a ``random.Random``; a state file without it starts that stream
 from the seed), so that a resumed run goes on as the uninterrupted one
 would.
 
-Not ported yet, and raising where asked for: the fused step, device-resident
-data banks, multi-batch dispatch, a device mesh, profiling and the Orbax
-train-state backend.
+The production path (the JAX loop's ``use_fused`` branch): ``use_fused``
+runs each batch as one fused step (``train/fused.py``, one geometry encode,
+stats with NaN for the phases that did not run); ``device_banks``
+(``train/device_dataset.py``) samples the batch from uint8 banks on the
+device, the host drawing only the crop offsets; ``steps_per_dispatch=K``
+runs K batches per step call, the crops drawn from the host stream, with
+the counters advancing by ``B * K`` and ``K`` and ticks on dispatch
+boundaries.  At a tick each stat keeps its most recent finite value (a
+chunk's stats are ``[K]``).  ``profile_dir`` writes a ``torch.profiler``
+trace of batches ``profile_batches`` (Chrome trace JSON: Perfetto,
+TensorBoard's profiler plugin).
+
+Not ported yet, and raising where asked for: a device mesh (ROADMAP.md item
+2.9) and the Orbax train-state backend.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from brushstroke_engine_torch.train import steps as train_steps
 from brushstroke_engine_torch.train.dataset import (
     geom_batch_to_float, style_batch_to_float,
 )
+from brushstroke_engine_torch.train.device_dataset import gen_crops
 from brushstroke_engine_torch.train.state import TrainConfig, \
     init_train_state
 from brushstroke_engine_torch.train.stitching import RandomStitcher
@@ -75,6 +87,28 @@ def _to_numpy(t):
     return t
 
 
+def _fetch_stats(stats: Dict) -> Dict[str, float]:
+    """Host floats of a batch's stats in one transfer: each key keeps its
+    most recent finite entry (0-d and ``[K]`` values alike); keys with none
+    are dropped."""
+    tensors = {k: v for k, v in stats.items() if isinstance(v, torch.Tensor)}
+    values = {k: np.asarray([v], np.float64) for k, v in stats.items()
+              if k not in tensors}
+    if tensors:
+        flat = torch.cat([v.detach().reshape(-1).float()
+                          for v in tensors.values()]).cpu().numpy()
+        at = 0
+        for k, v in tensors.items():
+            values[k] = flat[at:at + v.numel()].astype(np.float64)
+            at += v.numel()
+    out = {}
+    for k, a in values.items():
+        a = a[np.isfinite(a)]
+        if a.size:
+            out[k] = float(a[-1])
+    return out
+
+
 class TrainingLoop:
     def __init__(self, cfg: TrainConfig, enc_params, enc_state,
                  style_iter, geom_iter, run_dir: str,
@@ -83,15 +117,26 @@ class TrainingLoop:
                  profile_phases: bool = False,
                  use_fused: bool = False, mesh=None, device_banks=None,
                  steps_per_dispatch: int = 1, profile_dir=None,
-                 snapshot_ticks: int = 1, device="cuda"):
-        for name, asked in (("use_fused", use_fused), ("mesh", mesh),
-                            ("device_banks", device_banks),
-                            ("steps_per_dispatch", steps_per_dispatch != 1),
-                            ("profile_dir", profile_dir)):
-            if asked:
-                raise NotImplementedError(
-                    f"TrainingLoop({name}=...) is not ported yet")
+                 profile_batches=(10, 13), snapshot_ticks: int = 1,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "TrainingLoop(mesh=...): a device mesh is not ported yet "
+                "(ROADMAP.md item 2.9)")
+        if device_banks is not None and not use_fused:
+            raise ValueError("device_banks requires use_fused=True")
+        self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
+        if self.steps_per_dispatch > 1 and device_banks is None:
+            raise ValueError("steps_per_dispatch > 1 requires device_banks "
+                             "(per-step data must live on-device)")
         self.device = resolve_device(device)
+        self.device_banks = device_banks
+        # A torch.profiler trace of batches profile_batches[0] up to
+        # profile_batches[1] (dispatch boundaries with steps_per_dispatch).
+        self.profile_dir = profile_dir
+        self.profile_batches = tuple(profile_batches)
+        self._profiler, self._profile_from = None, 0
+        self._profiled = False
         # profile_phases: synchronise after each phase, report its seconds
         # as Timing/<phase> in the tick stats and keep every call's seconds
         # in phase_seconds[<phase>].
@@ -126,6 +171,16 @@ class TrainingLoop:
             if cfg.geom_interval > 0 and cfg.losses("geom").items else None
         self.warm_step = train_steps.make_geom_step(cfg, warmstart=True) \
             if cfg.geom_warmstart_kimg > 0 else None
+        self.fused_step = None
+        if use_fused:
+            from brushstroke_engine_torch.train.fused import \
+                make_fused_train_step
+            self.fused_step = make_fused_train_step(
+                cfg, device_data=device_banks is not None,
+                chunk=self.steps_per_dispatch
+                if self.steps_per_dispatch > 1 else 0,
+                crop_margin=self.stitcher.crop_margin,
+                min_overlap=self.stitcher.min_overlap)
 
         # Network snapshot and train state every snapshot_ticks ticks (the
         # final tick always persists).
@@ -289,6 +344,70 @@ class TrainingLoop:
         geom_truth = tri_crop[..., 2:3]
         return style, tri, crop1, geom_input, geom_truth
 
+    def _fused_call(self, warm: bool, ema_beta: float):
+        """One call of the fused step: a batch, or a chunk of
+        ``steps_per_dispatch`` batches.  The host draws the crops: crop1
+        from the host stream, crop2 from the stitch stream (a chunk draws
+        both from the host stream, ``device_dataset.gen_crops``)."""
+        cfg, banks = self.cfg, self.device_banks
+        common = dict(rng=self.device_rng, g_orig_params=self.g_orig_params)
+        if self.steps_per_dispatch > 1:
+            return self.fused_step(
+                self.state, self.enc_params, self.enc_state, banks.style,
+                banks.tri, self.batch_idx, self.cur_nimg, self.rng, **common)
+        if banks is not None:
+            crop1, _ = gen_crops(self.rng, banks.tri_hw,
+                                 cfg.gen_cfg.img_resolution, False)
+            crop2 = self.stitcher.gen_overlapping_square_crop(
+                banks.tri_hw[0], crop1, self.stitch_rng) \
+                if self.stitch_on else None
+            return self.fused_step(
+                self.state, self.enc_params, self.enc_state, banks.style,
+                banks.tri, self.batch_idx, warm, ema_beta, crop1, crop2,
+                host_rng=self.rng, **common)
+        style, tri_full, crop1, geom_input, geom_truth = self._fetch_batch()
+        stitch = {}
+        if self.stitch_on:
+            crop2 = self.stitcher.gen_overlapping_square_crop(
+                tri_full.shape[1], crop1, self.stitch_rng)
+            stitch = dict(
+                geom_input2=self._data(
+                    tri_full[:, crop2[0]:crop2[0] + crop2[2],
+                             crop2[1]:crop2[1] + crop2[3], 1:2]),
+                crop1=crop1, crop2=crop2)
+        return self.fused_step(
+            self.state, self.enc_params, self.enc_state, self._data(style),
+            self._data(geom_input), self._data(geom_truth), self.batch_idx,
+            warm, ema_beta, host_rng=self.rng, **common, **stitch)
+
+    def _profile_window(self, done: bool):
+        """Start the profiler at the first dispatch from
+        ``profile_batches[0]`` on; stop it and write the trace at the first
+        dispatch boundary from ``profile_batches[1]`` on, or when the run
+        ends."""
+        if self.profile_dir is None or self._profiled:
+            return
+        start, stop = self.profile_batches
+        if self._profiler is not None:
+            if done or self.batch_idx >= stop:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self._profiler.stop()
+                os.makedirs(self.profile_dir, exist_ok=True)
+                path = os.path.join(
+                    self.profile_dir, f"batches_{self._profile_from}-"
+                    f"{self.batch_idx}.pt.trace.json")
+                self._profiler.export_chrome_trace(path)
+                self._profiler, self._profiled = None, True
+                logger.info("Wrote the profiler trace to %s", path)
+        elif not done and self.batch_idx >= start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=acts)
+            self._profiler.start()
+            self._profile_from = self.batch_idx
+
     def run(self, total_kimg: Optional[float] = None,
             exit_after_warmstart: bool = False,
             progress_fn: Optional[Callable] = None,
@@ -305,12 +424,8 @@ class TrainingLoop:
         loss_draws = {"loss_rng": self.rng}
 
         while True:
+            self._profile_window(done=False)
             warm = self.in_warmstart()
-            style, tri_full, crop1, geom_input, geom_truth = \
-                self._fetch_batch()
-            feats = train_steps.encode_geometry(
-                cfg, self.enc_params, self.enc_state, self._data(geom_input))
-            geom_truth_t = self._data(geom_truth)
             stats: Dict = {}
             phase_t0 = [time.time()]
 
@@ -330,7 +445,18 @@ class TrainingLoop:
             ema_beta = self._ema_beta()
             bs, zd = cfg.batch_size, cfg.gen_cfg.z_dim
 
-            if warm:
+            if self.fused_step is None:
+                style, tri_full, crop1, geom_input, geom_truth = \
+                    self._fetch_batch()
+                feats = train_steps.encode_geometry(
+                    cfg, self.enc_params, self.enc_state,
+                    self._data(geom_input))
+                geom_truth_t = self._data(geom_truth)
+                phase_t0[0] = time.time()
+            if self.fused_step is not None:
+                self.state, s = self._fused_call(warm, ema_beta)
+                note(s, "fused")
+            elif warm:
                 z = self._host_normal(bs, zd)
                 self.state, s = self.warm_step(
                     self.state, feats, geom_truth_t, z, rng, ema_beta,
@@ -387,8 +513,8 @@ class TrainingLoop:
                         float(cfg.batch_size * cfg.ada_interval))
                     note({}, "ada")
 
-            self.cur_nimg += cfg.batch_size
-            self.batch_idx += 1
+            self.cur_nimg += cfg.batch_size * self.steps_per_dispatch
+            self.batch_idx += self.steps_per_dispatch
             self._last_stats = stats
 
             finishing_warm = warm and not self.in_warmstart()
@@ -400,9 +526,10 @@ class TrainingLoop:
 
             # ---- tick maintenance ----
             tick_time = time.time() - tick_start_time
-            # One readback per tick; non-finite values are dropped.
-            fetched = {k: float(v) for k, v in stats.items()}
-            stats = {k: v for k, v in fetched.items() if np.isfinite(v)}
+            # One readback per tick: each key keeps its most recent finite
+            # value (the fused step reports NaN for the phases it skipped,
+            # and a chunk's stats are [K]).
+            stats = _fetch_stats(stats)
             stats["Progress/tick"] = self.cur_tick
             stats["Progress/kimg"] = self.cur_nimg / 1e3
             stats["Progress/ada_p"] = float(self.state["ada_p"])
@@ -447,6 +574,7 @@ class TrainingLoop:
             tick_start_nimg = self.cur_nimg
             tick_start_time = time.time()
             if done:
+                self._profile_window(done=True)
                 if self.tb_writer is not None:
                     # Ends the writer's thread; a later run() reopens it.
                     self.tb_writer.close()

@@ -18,7 +18,11 @@ JAX package's layout (as ``init_native_params`` draws them) become
 
   * a CLIP checkpoint in OpenAI's state-dict layout at given widths
     (ViT-B/32's by default) -- :func:`clip_state_dict` -- and a byte-BPE
-    merges file in CLIP's format -- :func:`write_bpe_merges`.
+    merges file in CLIP's format -- :func:`write_bpe_merges`;
+  * the metric detectors' published layouts: torchvision's Inception-v3
+    feature extractor (:func:`inception_state_dict`), the ``lpips``
+    package's AlexNet (:func:`lpips_state_dict`) and torchvision's VGG16 at
+    a width divisor (:func:`vgg16_state_dict`).
 
 So a smoke run or a test can build the files a user of the reference owns
 from seeded weights, with no code of the reference.  The pickles name the
@@ -419,3 +423,76 @@ def write_bpe_merges(path: str, merges) -> None:
     else:
         with open(path, "w", encoding="utf-8") as f:
             f.write(text)
+
+
+def inception_state_dict(seed: int = 0) -> Dict[str, torch.Tensor]:
+    """torchvision ``inception_v3`` names and layouts (``<conv>.conv.weight``
+    OIHW, ``<conv>.bn.*``) for every conv of the feature extractor: He-init
+    weights from ``np.random.RandomState(seed)``, batch norms perturbed from
+    identity."""
+    from brushstroke_engine_torch.metrics.inception import CONVS
+    rng = np.random.RandomState(seed)
+    sd: Dict[str, torch.Tensor] = {}
+    for (name, cin, cout, (kh, kw), _s, _p) in CONVS:
+        std = float(np.sqrt(2.0 / (kh * kw * cin)))
+        sd[f"{name}.conv.weight"] = _tensor(
+            (std * rng.randn(cout, cin, kh, kw)).astype(np.float32))
+        sd[f"{name}.bn.weight"] = _tensor(
+            (1 + 0.05 * rng.randn(cout)).astype(np.float32))
+        sd[f"{name}.bn.bias"] = _tensor(
+            (0.05 * rng.randn(cout)).astype(np.float32))
+        sd[f"{name}.bn.running_mean"] = _tensor(
+            (0.05 * rng.randn(cout)).astype(np.float32))
+        sd[f"{name}.bn.running_var"] = _tensor(
+            (1 + 0.1 * rng.rand(cout)).astype(np.float32))
+    return sd
+
+
+def lpips_state_dict(seed: int = 0) -> Dict[str, torch.Tensor]:
+    """The ``lpips`` package's AlexNet state dict (``net.slice{i}.{j}`` convs
+    OIHW, ``lin{i}.model.1.weight`` ``[1, C, 1, 1]`` calibration) of seeded
+    weights."""
+    from brushstroke_engine_torch.metrics.lpips import _ALEX_PLAN
+    rng = np.random.RandomState(seed)
+    sd: Dict[str, torch.Tensor] = {}
+    cin = 3
+    for i, ((cout, k, _s, _p), j) in enumerate(zip(_ALEX_PLAN,
+                                                    (0, 3, 6, 8, 10))):
+        std = float(np.sqrt(2.0 / (k * k * cin)))
+        sd[f"net.slice{i + 1}.{j}.weight"] = _tensor(
+            (std * rng.randn(cout, cin, k, k)).astype(np.float32))
+        sd[f"net.slice{i + 1}.{j}.bias"] = _tensor(
+            (0.01 * rng.randn(cout)).astype(np.float32))
+        sd[f"lin{i}.model.1.weight"] = _tensor(
+            (rng.rand(1, cout, 1, 1) / cout).astype(np.float32))
+        cin = cout
+    return sd
+
+
+def vgg16_state_dict(seed: int = 0, width_div: int = 1,
+                     fc: int = 4096) -> Dict[str, torch.Tensor]:
+    """torchvision ``vgg16`` names and layouts (``features.N`` convs OIHW,
+    ``classifier.0`` / ``.3`` ``[out, in]``) with every conv width divided
+    by ``width_div`` and ``fc`` units per hidden layer: He-init weights from
+    ``np.random.RandomState(seed)``."""
+    from brushstroke_engine_torch.metrics.pr import _VGG_PLAN
+    rng = np.random.RandomState(seed)
+    sd: Dict[str, torch.Tensor] = {}
+    cin, idx = 3, 0
+    for spec in _VGG_PLAN:
+        if spec == "M":
+            idx += 1
+            continue
+        cout = int(spec) // width_div
+        std = float(np.sqrt(2.0 / (9 * cin)))
+        sd[f"features.{idx}.weight"] = _tensor(
+            (std * rng.randn(cout, cin, 3, 3)).astype(np.float32))
+        sd[f"features.{idx}.bias"] = _tensor(np.zeros(cout, np.float32))
+        cin, idx = cout, idx + 2
+    fin = cin * 49
+    for i in (0, 3):
+        sd[f"classifier.{i}.weight"] = _tensor(
+            (np.sqrt(2.0 / fin) * rng.randn(fc, fin)).astype(np.float32))
+        sd[f"classifier.{i}.bias"] = _tensor(np.zeros(fc, np.float32))
+        fin = fc
+    return sd

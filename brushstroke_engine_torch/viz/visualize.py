@@ -23,7 +23,7 @@ import torch
 from brushstroke_engine_torch.data.curated_geometry import (
     MAPPER_SHAPES, curated_geometry_batch,
 )
-from brushstroke_engine_torch.utils.img_proc import write_png
+from brushstroke_engine_torch.utils.img_proc import write_image, write_png
 
 logger = logging.getLogger(__name__)
 
@@ -121,6 +121,13 @@ def output_encoder_diagnostics(path: Optional[str], enc_cfg, enc_params,
     if path is not None:
         write_png(path, out)
     return out
+
+
+def save_image(path: str, img: np.ndarray):
+    """Write a uint8 image, making its directory: ``write_image`` (a PNG
+    needs no Pillow)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_image(path, img)
 
 
 class TrainingVisualizer:

@@ -182,7 +182,20 @@ Phases, in order; any failure exits non-zero:
     zip (300 steps, the loss falls) and ``tools/train.py`` on both zips with
     ``train_flags.txt`` and ``--encoder_checkpt`` that AE for 4 batches: K1,
     W and W^T launched on the schedule, each shape held in phases 3 and 5.
-15. Prints the kernel table as JSON, then the final JSON line.
+15. The fused trainer (``[fused]`` lines; see FUSED_* below): phase 7's
+    configuration through ``TrainingLoop`` phase by phase, with
+    ``use_fused``, with device banks and with ``steps_per_dispatch`` 16
+    (s/batch, images/s, peak memory and the idle share of each over the
+    same batches; launches on the schedule); one fused step card against
+    CPU; the fused step against the phase functions in its draw order;
+    ``tools/train.py --fused --device_dataset --steps_per_dispatch 16
+    --profile_dir`` on phase 14's zips (the trace names K1; resume bitwise
+    across a dispatch boundary); ``scripts/run_r5_finetune_torch.sh``'s
+    flags, both variants; ``tools/visualize_main.py`` and
+    ``tools/diagnose_color_control.py`` on the finetuned snapshot;
+    ``tools/fetch_and_verify_weights.py`` on seeded files of every family.
+    Every K1, W and W^T shape it launched was held in phases 3 and 5.
+16. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
@@ -395,6 +408,36 @@ DC_WORKERS, DC_PATCH_WIDTH, DC_PATCHES, DC_MIN_ENTROPY = 8, 64, 4, 1.0
 DC_STYLES, DC_AE_STEPS, DC_AE_WINDOW, DC_TRAIN_BATCHES = 64, 300, 20, 4
 DC_STROKE_WIDTHS, DC_STROKES_NATIVE, DC_STROKES_NUMPY = (128, 192, 256), 50, 3
 DC_STROKE_ATOL = 1e-4
+# Phase 15, the fused trainer.  (a) phase 7's configuration (geom_interval
+# 8) through TrainingLoop in four modes -- phase by phase, use_fused,
+# use_fused + device banks, and those with steps_per_dispatch FUSED_CHUNK --
+# from the same seeded state, FUSED_BATCHES batches each, a tick every
+# FUSED_CHUNK: the first FUSED_CHUNK batches (the chunked mode's first
+# dispatch) warm up, and the rest, the same batches in every mode, are timed
+# under a CUDA-only profiler window (s/batch, images/s, peak memory, the
+# idle share 1 - device busy / wall).  (b) one fused step at
+# FUSED_CHECK_BATCH (every phase; geom_interval 1) on the card and on the
+# CPU with the same draws: stats within TRAIN_RTOL.  (c) on the card at
+# TRAIN_BATCH, the fused step against the phase functions called in the
+# fused draw order with the same draws (cudnn.deterministic): stats within
+# TRAIN_RTOL, the G and D updates by phase 12's Adam rule over the summed
+# learning rate.  (d) tools/train.py with train_flags.txt, FUSED_CLI_CUTS and
+# --fused --device_dataset --steps_per_dispatch FUSED_CHUNK --profile_dir on
+# phase 14's zips: two dispatches (--kimg is an int: 2 kimg = 32 batches of
+# 64), the trace names K1, and the resume check of phase 10 across a
+# dispatch boundary with FUSED_RESUME_K batches per dispatch.  (e)
+# scripts/run_r5_finetune_torch.sh's flags parsed from the file, both
+# variants, KIMG FUSED_FT_KIMG (two dispatches).  (f) visualize_main modes 0
+# and 1 over FUSED_VIZ_LIBRARY and diagnose_color_control on (e)'s snapshot:
+# the UVS masses sum to 1 within 1e-5, LAB_E% finite.  (g)
+# fetch_and_verify_weights on seeded files of every family at the published
+# widths (reference_layout), the manifest's digests against hashlib's, the
+# default detectors' kinds from random to real.
+FUSED_BATCHES, FUSED_CHUNK, FUSED_CHECK_BATCH = 32, 16, 8
+FUSED_CLI_CUTS = ["--kimg", "2", "--geom_warmstart_kimg", "0",
+                  "--geom_interval", "8", "--snap", "1", "--image_snap", "1",
+                  "--metrics", ""]
+FUSED_RESUME_K, FUSED_FT_KIMG, FUSED_VIZ_LIBRARY = 2, 2, "rand8"
 
 
 def fail(msg):
@@ -647,6 +690,31 @@ def phase_kernel_vs_plain():
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
         train_rows.append(row)
         print("[fir4-train] " + json.dumps(row), flush=True)
+
+    # The other f32 batches of the trainer's layers: Gpl's half batch and
+    # phase 15's card-vs-CPU fused step (B = FUSED_CHECK_BATCH and its Gpl
+    # half), checked.
+    for b in (TRAIN_BATCH // 2, FUSED_CHECK_BATCH, FUSED_CHECK_BATCH // 2):
+        for res in flagship_generator_config(TRAIN_RES).synthesis \
+                .block_resolutions[1:]:
+            c = flagship_generator_config(TRAIN_RES).synthesis.channels(res)
+            x = torch.randn((b, res + 3, res + 3, c), generator=gen,
+                            device="cuda") * 2
+            d = torch.rand((b, c), generator=gen, device="cuda") + 0.5
+            noise = torch.randn((b, res, res, 1), generator=gen,
+                                device="cuda")
+            bias = torch.randn((c,), generator=gen, device="cuda")
+            got = fe.fir4_epilogue(x, f, d, noise, bias, act_gain, 256.0)
+            want = fe.fir4_epilogue_plain(x, taps, d, noise, bias, act_gain,
+                                          256.0)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            check(not bool((err > F32_RTOL * want.abs() + ATOL).any()),
+                  f"kernel != plain at [{b},{res},{res},{c}] f32: max err "
+                  f"{err.max().item():.3e}")
+            max_err[torch.float32] = max(max_err[torch.float32],
+                                         err.max().item())
+            held.add((b, res, res, c, str(torch.float32)))
 
     # The CLI training run's bf16 rows (--num_bf16_res 4: the 16-128 px
     # conv0 layers, C = 128, noise and clamp) at every batch that run
@@ -905,10 +973,12 @@ WARP_STRESS_SHAPES = ((67, 5), (128, 3), (33, 11))
 # W and W^T against the plain version at the trainer's batch, a small one,
 # and the batches phase 12's Gstitch launches them at: its discriminator
 # sees both crops, 2 x 64 in the timed loop and the CLI, 2 x
-# STITCH_CHECK_BATCH in the card-vs-CPU step.
+# STITCH_CHECK_BATCH in the card-vs-CPU step; and phase 15's card-vs-CPU
+# fused step at FUSED_CHECK_BATCH.
 WARP_BATCHES = ((TRAIN_BATCH, TRAIN_RES), (8, 64),
                 (2 * TRAIN_BATCH, TRAIN_RES), (2 * STITCH_CHECK_BATCH,
-                                               TRAIN_RES))
+                                               TRAIN_RES),
+                (FUSED_CHECK_BATCH, TRAIN_RES))
 
 
 def _warp_stress(tw, taug, gen, worst):
@@ -1580,12 +1650,15 @@ def _finite_stats(path):
     return rows
 
 
-def _resume_bitwise(loop, style_iter, geom_iter, root, tag):
-    """X resumes ``loop``'s train state, takes RESUME_N batches, saves, and
-    takes RESUME_M more; Y resumes X's save in the same directory and takes
-    the same RESUME_M batches.  Fails unless both end bitwise equal, with
-    cuDNN's deterministic algorithms (every other op of the step is
-    deterministic)."""
+def _resume_bitwise(loop, style_iter, geom_iter, root, tag, n_calls=RESUME_N,
+                    m_calls=RESUME_M, **loop_kw):
+    """X resumes ``loop``'s train state, takes ``n_calls`` step calls,
+    saves, and takes ``m_calls`` more; Y resumes X's save in the same
+    directory and takes the same ``m_calls``.  Fails unless both end
+    bitwise equal, with cuDNN's deterministic algorithms (every other op of
+    the step is deterministic).  ``loop_kw`` go to both loops (the fused
+    step, device banks, ``steps_per_dispatch``: a call is then a dispatch of
+    that many batches, and the save falls on a dispatch boundary)."""
     import dataclasses
     import shutil
     import numpy as np
@@ -1595,9 +1668,11 @@ def _resume_bitwise(loop, style_iter, geom_iter, root, tag):
 
     t0 = time.time()
     cfg, n = loop.cfg, loop.batch_idx
+    k = loop_kw.get("steps_per_dispatch", 1)
     rcfg = dataclasses.replace(cfg, kimg_per_tick=cfg.batch_size / 1000.0)
-    batches = [(next(style_iter), next(geom_iter))
-               for _ in range(RESUME_N + RESUME_M)]
+    banks = loop_kw.get("device_banks") is not None
+    batches = [] if banks else [(next(style_iter), next(geom_iter))
+                                for _ in range((n_calls + m_calls) * k)]
     xdir = os.path.join(root, f"resume_{len(os.listdir(root))}")
     os.makedirs(xdir)
     shutil.copy(os.path.join(loop.run_dir, "train_state.pkl"), xdir)
@@ -1606,49 +1681,52 @@ def _resume_bitwise(loop, style_iter, geom_iter, root, tag):
     xs, ys = [], []
     try:
         def make(start, rows):
+            its = (None, None) if banks else (
+                iter([b[0] for b in batches[start * k:]]),
+                iter([b[1] for b in batches[start * k:]]))
             return TrainingLoop(
-                rcfg, loop.enc_params, loop.enc_state,
-                iter([b[0] for b in batches[start:]]),
-                iter([b[1] for b in batches[start:]]), xdir,
+                rcfg, loop.enc_params, loop.enc_state, *its, xdir,
                 seed=SEED + 5, auto_resume=True,
                 hooks=LoopHooks(on_tick=lambda lp, st: rows.append(
                     dict(st))),
-                snapshot_ticks=10 ** 9, device="cuda")
+                snapshot_ticks=10 ** 9, device="cuda", **loop_kw)
         x = make(0, xs)
         check((x.cur_nimg, x.batch_idx) == (loop.cur_nimg, n),
               "X did not resume the run's state")
-        x.run(total_kimg=(x.cur_nimg + RESUME_N * cfg.batch_size) / 1000.0)
+        x.run(total_kimg=(x.cur_nimg + n_calls * k * cfg.batch_size)
+              / 1000.0)
         x.save_train_state()
-        y = make(RESUME_N, ys)
-        check(y.batch_idx == n + RESUME_N, "Y did not resume X's save")
-        end = (x.cur_nimg + RESUME_M * cfg.batch_size) / 1000.0
+        y = make(n_calls, ys)
+        check(y.batch_idx == n + n_calls * k, "Y did not resume X's save")
+        end = (x.cur_nimg + m_calls * k * cfg.batch_size) / 1000.0
         x.run(total_kimg=end)
         y.run(total_kimg=end)
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = det
     for i, row in enumerate(xs + ys):
-        bad = [k for k, v in row.items() if not np.isfinite(v)]
+        bad = [key for key, v in row.items() if not np.isfinite(v)]
         check(not bad, f"resume row {i}: non-finite {bad}")
 
     def strip(rs):
-        return [{k: v for k, v in r.items() if not k.startswith(
+        return [{key: v for key, v in r.items() if not key.startswith(
             "Timing/")} for r in rs]
-    stats_equal = strip(xs[-RESUME_M:]) == strip(ys[-RESUME_M:])
+    stats_equal = strip(xs[-m_calls:]) == strip(ys[-m_calls:])
     leaves = [(a, b) for a, b in zip(tree_leaves(x.state),
                                      tree_leaves(y.state))
               if isinstance(a, torch.Tensor)]
     params_equal = all(torch.equal(a, b) for a, b in leaves)
-    ran = sorted({k for r in xs[-RESUME_N - RESUME_M:] for k in r
-                  if k.startswith("Loss/")})
-    print(f"{tag} resume: X {RESUME_N} + {RESUME_M} batches from the run's "
-          f"state (batch {n} on), Y resumed after {RESUME_N}: stats equal "
-          f"{stats_equal}, {len(leaves)} state tensors equal {params_equal} "
-          f"(bitwise, cudnn.deterministic); phases {ran}; "
-          f"{time.time() - t0:.1f} s", flush=True)
+    ran = sorted({key for r in xs[-n_calls - m_calls:] for key in r
+                  if key.startswith("Loss/")})
+    print(f"{tag} resume: X {n_calls} + {m_calls} calls of {k} batch(es) "
+          f"from the run's state (batch {n} on), Y resumed after "
+          f"{n_calls}: stats equal {stats_equal}, {len(leaves)} state "
+          f"tensors equal {params_equal} (bitwise, cudnn.deterministic); "
+          f"phases {ran}; {time.time() - t0:.1f} s", flush=True)
     check(stats_equal and params_equal and x.state["d_opt"]["count"]
           == y.state["d_opt"]["count"]
-          and x.stitch_rng.getstate() == y.stitch_rng.getstate(),
+          and x.stitch_rng.getstate() == y.stitch_rng.getstate()
+          and x.rng.bit_generator.state == y.rng.bit_generator.state,
           "a resumed run is not bitwise the uninterrupted one")
     return ran
 
@@ -2896,7 +2974,7 @@ def _stitch_step_on(cfg, device, draws, z, tri_u8, crops):
         new["g_params"]
 
 
-def _update_parity(before, card, cpu, lr):
+def _update_parity(before, card, cpu, lr, label="Gstitch card vs CPU"):
     """The port's parity rule for one Adam step (see STITCH_* above);
     returns the worst per-tensor mean |dG_card - dG_cpu| / lr."""
     import torch
@@ -2909,8 +2987,8 @@ def _update_parity(before, card, cpu, lr):
         diff = (dg - dc).abs()
         check(float(diff.mean()) < 0.02 * lr
               and float((diff < 0.1 * lr).double().mean()) > 0.99,
-              f"Gstitch card vs CPU: G update differs beyond one Adam "
-              f"step's rounding ({float(diff.mean()) / lr:.3e} of lr)")
+              f"{label}: the update differs beyond one Adam step's "
+              f"rounding ({float(diff.mean()) / lr:.3e} of lr)")
         worst = max(worst, float(diff.mean()) / lr)
     return worst
 
@@ -4030,10 +4108,13 @@ def _check_chain_outputs(d, out):
                       "styles": len(styles)}
 
 
-def phase_data_chain(card, held, warp_held):
+def phase_data_chain(card, held, warp_held, keep=None):
     """The data chain (see DC_* above, phase 14): the six data CLIs, the AE
     trainer and ``tools/train.py`` on the zips they made.  ``held`` /
-    ``warp_held``: the K1 and W / W^T shapes phases 3 and 5 held."""
+    ``warp_held``: the K1 and W / W^T shapes phases 3 and 5 held.  ``keep``:
+    a directory that receives ``style.zip``, ``geom.zip`` and
+    ``ae/ae_latest.pkl`` (the layout ``run_r5_flagship_torch.sh`` leaves in
+    ``_data/torch``) for phase 15."""
     import shutil
     import tempfile
     import numpy as np
@@ -4163,10 +4244,533 @@ def phase_data_chain(card, held, warp_held):
         print("[data] tools/train.py on the zips " + json.dumps(out["train"])
               + f"; launches {json.dumps(out['launches'])} ({card})",
               flush=True)
+        if keep is not None:
+            os.makedirs(os.path.join(keep, "ae"), exist_ok=True)
+            shutil.copy(d["style_zip"], os.path.join(keep, "style.zip"))
+            shutil.copy(d["geom_zip"], os.path.join(keep, "geom.zip"))
+            shutil.copy(os.path.join(d["ae"], "ae_latest.pkl"),
+                        os.path.join(keep, "ae", "ae_latest.pkl"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.time() - t_phase
     print(f"[data] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _fused_draws(cfg, b, seed):
+    """Explicit draws (CPU tensors) for one fused batch of size ``b``: the
+    fused step's latents z1 / z2 / z3 and the phase draws of Dmain, Dr1,
+    Gmain, Gpl (on z2's shrunk half) and Ggeom."""
+    d = _phase_draws(cfg, b, seed)
+    return {"z1": d["z"][0], "z2": d["z"][1], "z3": d["z"][2],
+            "dmain": d["Dmain"], "dreg": d["Dr1"], "gmain": d["Gmain"],
+            "greg": d["Gpl"],
+            "ggeom": {"g": _phase_draws(cfg, b, seed + 1)["Gmain"]["g"]}}
+
+
+def _fused_setup(cfg, device):
+    """Phase 7's seeded state (ADA p = 0.5) and encoder on ``device``."""
+    import torch
+    from brushstroke_engine_torch.flagship import flagship_train_setup
+    from brushstroke_engine_torch.utils.util import tree_to
+    state, enc_p, enc_s = flagship_train_setup(cfg, SEED, NOISE_STRENGTH,
+                                               device)
+    state["ada_p"] = torch.full((), 0.5, device=device)
+    return state, tree_to(enc_p, device), tree_to(enc_s, device)
+
+
+def _fused_batch(real_u8, tri_u8, res, device):
+    """A host batch as the loop feeds it: (real, geom_input, geom_truth)
+    from the top-left training-resolution crop."""
+    import torch
+    from brushstroke_engine_torch.train.dataset import (
+        geom_batch_to_float, style_batch_to_float,
+    )
+    real = torch.from_numpy(style_batch_to_float(real_u8)).to(device)
+    tri = torch.from_numpy(geom_batch_to_float(tri_u8)[:, :res, :res]).to(
+        device)
+    return real, tri[..., 1:2], tri[..., 2:3]
+
+
+def _fused_modes(style_iter, geom_iter, card, held, warp_held, out):
+    """(a) phase 7's configuration through TrainingLoop in four modes."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from brushstroke_engine_torch.flagship import flagship_train_config
+    from brushstroke_engine_torch.ops import warp as tw
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.train.device_dataset import \
+        build_device_banks
+    from brushstroke_engine_torch.train.loop import TrainingLoop
+
+    b = TRAIN_BATCH
+    cfg = flagship_train_config(
+        TRAIN_RES, b, geom_warmstart_kimg=0, geom_interval=8,
+        kimg_per_tick=(FUSED_CHUNK * b - 0.5) / 1000.0)
+    t0 = time.perf_counter()
+    banks = build_device_banks(style_iter.dataset, geom_iter.dataset,
+                               device="cuda")
+    print(f"[fused] banks: {banks.style.shape[0]} style + "
+          f"{banks.tri.shape[0]} geometry images, "
+          f"{(banks.style.numel() + banks.tri.numel()) / 2 ** 20:.1f} MiB "
+          f"uint8 in {time.perf_counter() - t0:.1f} s", flush=True)
+    modes = {"phases": {}, "fused": dict(use_fused=True),
+             "fused_banks": dict(use_fused=True, device_banks=banks),
+             "fused_banks_chunk": dict(use_fused=True, device_banks=banks,
+                                       steps_per_dispatch=FUSED_CHUNK)}
+    sched, want = _cli_schedule(cfg, FUSED_BATCHES)
+    rows = {}
+    launches = {k: 0 for k in want}
+    for name, kw in modes.items():
+        state, enc_p, enc_s = _fused_setup(cfg, "cuda")
+        run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_fused_{name}_")
+        try:
+            loop = TrainingLoop(cfg, enc_p, enc_s, style_iter, geom_iter,
+                                run_dir, seed=SEED, resume_state=state,
+                                snapshot_ticks=10 ** 9, device="cuda", **kw)
+            del state
+            for fn in (fir4_epilogue, tw.warp_twopass, tw.warp_twopass_t):
+                fn.launches = 0       # the mode's training starts here
+            torch.cuda.reset_peak_memory_stats()
+            # Warm-up: the first FUSED_CHUNK batches (the chunked mode's
+            # first dispatch); then the same batches timed in every mode.
+            loop.run(total_kimg=(FUSED_CHUNK * b - 0.5) / 1000.0)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                loop.run(total_kimg=(FUSED_BATCHES * b - 0.5) / 1000.0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = _launch_counts()    # the mode's training ends here
+            wall -= loop._last_snapshot_sec or 0.0
+            busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA) / 1e6
+            check(busy > 0, f"[fused] {name}: the CUDA-only profiler "
+                  f"recorded no device time")
+            timed = FUSED_BATCHES - FUSED_CHUNK
+            check(loop.batch_idx == FUSED_BATCHES and got == want,
+                  f"[fused] {name}: {loop.batch_idx} batches, launches "
+                  f"{got}, the schedule {sched} says {want}")
+            rows[name] = {
+                "s_per_batch": wall / timed,
+                "images_per_s": timed * b / wall,
+                "device_busy_s_per_batch": busy / timed,
+                "idle_share": max(0.0, 1.0 - busy / wall),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "timed_batches": timed, "launches": got}
+            rows[name]["stats"] = _finite_stats(os.path.join(
+                run_dir, "stats.jsonl"))[-1]
+            for k in launches:
+                launches[k] += got[k]
+            print(f"[fused] mode {name}: {rows[name]['s_per_batch']:.4f} "
+                  f"s/batch, {rows[name]['images_per_s']:.1f} images/s, "
+                  f"idle {rows[name]['idle_share']:.3f}, peak "
+                  f"{rows[name]['peak_gib']:.2f} GiB over batches "
+                  f"{FUSED_CHUNK}-{FUSED_BATCHES - 1} ({card})", flush=True)
+            del loop, prof
+        finally:
+            shutil.rmtree(run_dir, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    check(set(fir4_epilogue.shapes) <= held
+          and tw.warp_twopass.shapes <= warp_held["warp_twopass"]
+          and tw.warp_twopass_t.shapes <= warp_held["warp_twopass_t"],
+          f"[fused] the modes launched at shapes phases 3 / 5 did not "
+          f"hold: K1 {sorted(set(fir4_epilogue.shapes) - held)}")
+    for name in rows:
+        rows[name].pop("stats")
+    out["modes"] = rows
+    out["schedule"] = sched
+    print("[fused] modes " + json.dumps(rows) + f" ({card})", flush=True)
+    return launches
+
+
+def _fused_card_checks(style_iter, geom_iter, out):
+    """(b) one fused step at FUSED_CHECK_BATCH on the card and on the CPU
+    with the same draws; (c) the fused step against the phase functions in
+    the fused order, on the card, same draws."""
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.flagship import flagship_train_config
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.train import steps
+    from brushstroke_engine_torch.train.fused import make_fused_train_step
+    from brushstroke_engine_torch.utils.util import tree_leaves, tree_to
+
+    real_u8, tri_u8 = next(style_iter), next(geom_iter)
+    # ---- (b) card against CPU, B = FUSED_CHECK_BATCH ------------------
+    b = FUSED_CHECK_BATCH
+    cfg8 = flagship_train_config(TRAIN_RES, b, geom_warmstart_kimg=0,
+                                 geom_interval=1)
+    draws = _fused_draws(cfg8, b, SEED + 11)
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        state, enc_p, enc_s = _fused_setup(cfg8, dev)
+        step = make_fused_train_step(cfg8)
+        k1 = fir4_epilogue.launches
+        _, st = step(state, enc_p, enc_s,
+                     *_fused_batch(real_u8[:b], tri_u8[:b], TRAIN_RES, dev),
+                     0, False, 0.5, draws=tree_to(draws, dev))
+        check((fir4_epilogue.launches > k1) == (dev == "cuda"),
+              f"(b) on {dev}: K1 launches {fir4_epilogue.launches - k1}")
+        stats[dev] = {k: float(v) for k, v in st.items()}
+    gpu, cpu = stats["cuda"], stats["cpu"]
+    check(set(gpu) == set(cpu) and all(np.isfinite(v) for v in cpu.values()),
+          f"(b) stats keys or NaN differ: {sorted(set(gpu) ^ set(cpu))}")
+    errs = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-3) for k in cpu}
+    worst = max(errs.values())
+    check(worst <= TRAIN_RTOL, f"(b) fused step card vs CPU: worst rel err "
+          f"{worst:.3e} ({max(errs, key=errs.get)})")
+    out["card_vs_cpu"] = {"batch": b, "stats": len(cpu),
+                          "worst_rel_err": worst}
+    print(f"[fused] (b) one fused step at B={b}, every phase, card vs CPU, "
+          f"{len(cpu)} stats: worst rel err {worst:.3e}", flush=True)
+
+    # ---- (c) fused against the phase functions, B = TRAIN_BATCH -------
+    b = TRAIN_BATCH
+    cfg = flagship_train_config(TRAIN_RES, b, geom_warmstart_kimg=0,
+                                geom_interval=8)
+    draws = tree_to(_fused_draws(cfg, b, SEED + 12), "cuda")
+    state, enc_p, enc_s = _fused_setup(cfg, "cuda")
+    real, geom, truth = _fused_batch(real_u8, tri_u8, TRAIN_RES, "cuda")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fused, fst = make_fused_train_step(cfg)(
+            state, enc_p, enc_s, real, geom, truth, 0, False, 0.5,
+            draws=draws)
+        feats = steps.encode_geometry(cfg, enc_p, enc_s, geom)
+        man, mst = steps.d_main_step(cfg, state, real, feats, draws["z1"],
+                                     draws=draws["dmain"])
+        man, s = steps.d_reg_step(cfg, man, real, draws=draws["dreg"])
+        mst.update(s)
+        man, s = steps.g_main_step(cfg, man, feats, truth, draws["z2"],
+                                   ema_beta=0.5, draws=draws["gmain"])
+        mst.update(s)
+        man, s = steps.g_reg_step(cfg, man, feats, draws["z2"],
+                                  ema_beta=0.5, draws=draws["greg"])
+        mst.update(s)
+        man, s = steps.make_geom_step(cfg, warmstart=False)(
+            man, feats, truth, draws["z3"], ema_beta=0.5,
+            draws=draws["ggeom"])
+        mst.update(s)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(set(fst) == set(mst), f"(c) stats keys differ: "
+          f"{sorted(set(fst) ^ set(mst))}")
+    errs = {k: abs(float(fst[k]) - float(mst[k])) / max(abs(float(mst[k])),
+                                                        1e-3) for k in mst}
+    worst = max(errs.values())
+    check(worst <= TRAIN_RTOL, f"(c) fused vs phase functions: worst rel err "
+          f"{worst:.3e} ({max(errs, key=errs.get)})")
+    upd = {}
+    for key, n_steps in (("g_params", 3), ("d_params", 2)):
+        upd[key] = _update_parity(state[key], fused[key],
+                                  tree_to(man[key], "cpu"),
+                                  cfg.g_lr * n_steps,
+                                  label=f"(c) fused vs phase functions "
+                                        f"{key}")
+    leaves = [(a, m) for a, m in zip(tree_leaves(fused), tree_leaves(man))
+              if isinstance(a, torch.Tensor)]
+    bitwise = sum(bool(torch.equal(a, m)) for a, m in leaves)
+    out["fused_vs_phases"] = {"batch": b, "stats": len(mst),
+                              "worst_rel_err": worst,
+                              "worst_update_share_of_lr": upd,
+                              "bitwise_equal_tensors": bitwise,
+                              "tensors": len(leaves)}
+    print(f"[fused] (c) fused step vs Dmain+Dr1+Gmain+Gpl+Ggeom in the "
+          f"fused draw order, B={b}, on the card: worst stat rel err "
+          f"{worst:.3e}, {bitwise}/{len(leaves)} state tensors bitwise "
+          f"equal (cudnn.deterministic)", flush=True)
+
+
+def _hook_launches(loop):
+    """Wraps the loop's eval hooks so that the kernel launches they make are
+    counted apart; returns the dict those counts add up in."""
+    counts = {k: 0 for k in _launch_counts()}
+
+    def wrap(fn):
+        def call(*a):
+            before = _launch_counts()
+            fn(*a)
+            for k, v in _launch_counts().items():
+                counts[k] += v - before[k]
+        return call
+
+    if loop.hooks.on_tick is not None:
+        loop.hooks.on_tick = wrap(loop.hooks.on_tick)
+    if loop.hooks.on_snapshot is not None:
+        loop.hooks.on_snapshot = wrap(loop.hooks.on_snapshot)
+    return counts
+
+
+def _finetune_argv(script, subs):
+    """The tools/train.py argv of a port shell script's ``exec python -m``
+    line, its shell variables substituted from ``subs``."""
+    import shlex
+    import string
+    with open(os.path.join(REPO, script)) as f:
+        text = f.read()
+    cmd = text[text.index("exec python -m "):].replace("\\\n", " ")
+    argv = shlex.split(string.Template(cmd.splitlines()[0]).substitute(
+        subs))
+    check(argv[:4] == ["exec", "python", "-m",
+                       "brushstroke_engine_torch.tools.train"],
+          f"{script}: no exec of the port's tools/train.py")
+    return argv[4:]
+
+
+def _finetune_losses(script, variant):
+    """LOSSES as the script assembles it for ``variant``."""
+    import re
+    with open(os.path.join(REPO, script)) as f:
+        text = f.read()
+    losses = re.search(r"^LOSSES='([^']*)'$", text, re.M).group(1)
+    extra = re.search(r'^  LOSSES="\$\{LOSSES\}([^"]*)"$', text, re.M)
+    if variant == "color":
+        losses += extra.group(1)
+    return losses
+
+
+def phase_fused(style_iter, geom_iter, card, held, warp_held, data_dir):
+    """The fused trainer (see the module doc, phase 15).  ``held`` /
+    ``warp_held``: the K1 and W / W^T shapes phases 3 and 5 held;
+    ``data_dir``: phase 14's zips and AE checkpoint."""
+    import glob
+    import hashlib
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.metrics import fid as fid_lib
+    from brushstroke_engine_torch.metrics import lpips as lpips_lib
+    from brushstroke_engine_torch.ops import warp as tw
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+    from brushstroke_engine_torch.tools import (
+        diagnose_color_control, fetch_and_verify_weights, visualize_main,
+    )
+    from brushstroke_engine_torch.tools import train as cli
+    from brushstroke_engine_torch.utils import reference_layout as rl
+
+    set_precision_mode("strict")
+    t_phase = time.time()
+    out = {"card": card}
+    for fn in (fir4_epilogue, tw.warp_twopass, tw.warp_twopass_t):
+        fn.shapes.clear()
+    # ---- (a) the four modes -------------------------------------------
+    total = _fused_modes(style_iter, geom_iter, card, held, warp_held, out)
+    # ---- (b), (c) -----------------------------------------------------
+    _fused_card_checks(style_iter, geom_iter, out)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_fused_")
+    env_before = os.environ.get("NEUBE_WEIGHTS_DIR")
+    try:
+        # ---- (d) the production CLI on phase 14's zips ------------------
+        prof_dir = os.path.join(root, "trace")
+        data = ["--data", os.path.join(data_dir, "style.zip"),
+                "--geom_data", os.path.join(data_dir, "geom.zip"),
+                "--encoder_checkpt", os.path.join(data_dir, "ae",
+                                                  "ae_latest.pkl")]
+        for fn in (fir4_epilogue, tw.warp_twopass, tw.warp_twopass_t):
+            fn.launches = 0           # the fused path's CLI run starts here
+        t0 = time.perf_counter()
+        loop, args = cli.build(
+            data + ["--outdir", os.path.join(root, "runs"),
+                    "--device", "cuda"] + _flag_lines("train_flags.txt")
+            + FUSED_CLI_CUTS + ["--fused", "--device_dataset",
+                                "--steps_per_dispatch", str(FUSED_CHUNK),
+                                "--profile_dir", prof_dir])
+        loop.run(exit_after_warmstart=args.exit_after_warmstart)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _launch_counts()        # the fused path's CLI run ends here
+        n = loop.batch_idx
+        sched, want = _cli_schedule(loop.cfg, n)
+        check(n == 2 * FUSED_CHUNK and got == want,
+              f"(d) the chunked CLI: {n} batches, launches {got}, the "
+              f"schedule {sched} says {want}")
+        _finite_stats(os.path.join(loop.run_dir, "stats.jsonl"))
+        traces = glob.glob(os.path.join(prof_dir, "*.json"))
+        check(len(traces) == 1, f"(d) --profile_dir wrote {traces}")
+        with open(traces[0]) as f:
+            trace = f.read()
+        check("fir4_epilogue" in trace, "(d) the trace names no K1 launch")
+        for k in total:
+            total[k] += got[k]
+        out["cli"] = {"batches": n, "wall_s": wall, "launches": got,
+                      "trace": os.path.basename(traces[0]),
+                      "trace_mib": len(trace) / 2 ** 20,
+                      "k1_in_trace": trace.count("fir4_epilogue")}
+        print("[fused] (d) tools/train.py --fused --device_dataset "
+              f"--steps_per_dispatch {FUSED_CHUNK} --profile_dir on phase "
+              f"14's zips: " + json.dumps(out["cli"]) + f" ({card})",
+              flush=True)
+        before = _launch_counts()
+        out["resume_phases"] = _resume_bitwise(
+            loop, None, None, root, "[fused] (d)", n_calls=1, m_calls=1,
+            use_fused=True, device_banks=loop.device_banks,
+            steps_per_dispatch=FUSED_RESUME_K)
+        for k, v in _launch_counts().items():
+            total[k] += v - before[k]
+        snap = sorted(glob.glob(os.path.join(loop.run_dir,
+                                             "network-snapshot-*.pkl")))[-1]
+        del loop
+
+        # ---- (e) run_r5_finetune_torch.sh's flags, both variants --------
+        script = "scripts/run_r5_finetune_torch.sh"
+        out["finetune"] = {}
+        for variant in ("faithful", "color"):
+            argv = _finetune_argv(script, {
+                "D": data_dir, "SNAP": snap, "VARIANT": variant,
+                "KIMG": str(FUSED_FT_KIMG),
+                "LOSSES": _finetune_losses(script, variant)})
+            argv[argv.index("--outdir") + 1] = os.path.join(
+                root, f"finetune_{variant}")
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            loop, args = cli.build(argv + ["--device", "cuda"])
+            hooks = _hook_launches(loop)
+            loop.run(exit_after_warmstart=args.exit_after_warmstart)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps_k1 = {k: v - before[k] - hooks[k]
+                        for k, v in _launch_counts().items()}
+            n = loop.batch_idx
+            n_up = len(loop.cfg.gen_cfg.synthesis.block_resolutions) - 1
+            # Warm batches only: G and the frozen G_orig, n_up each.
+            want = {"fir4_epilogue": 2 * n_up * n, "warp_twopass": 0,
+                    "warp_twopass_t": 0}
+            check(n >= 2 * FUSED_CHUNK and n % FUSED_CHUNK == 0
+                  and steps_k1 == want and not loop.in_warmstart(),
+                  f"(e) {variant}: {n} batches, training launches "
+                  f"{steps_k1}, want {want}")
+            rows = _finite_stats(os.path.join(loop.run_dir, "stats.jsonl"))
+            lp = rows[-1].get("Loss/forger/Ggeom-warm/lpips_fake_orig")
+            check(lp is not None and lp > 0, f"(e) {variant}: the LPIPS "
+                  f"term is missing or 0: {lp}")
+            check(("Loss/forger/Ggeom-warm/iou_u" in rows[-1])
+                  == (variant == "color"), f"(e) {variant}: the losses "
+                  f"are not the script's")
+            for k in total:
+                total[k] += _launch_counts()[k] - before[k]
+            out["finetune"][variant] = {
+                "batches": n, "wall_s": wall, "training_launches": steps_k1,
+                "hook_launches": dict(hooks), "lpips_fake_orig": lp}
+            print(f"[fused] (e) {script} {variant}, KIMG {FUSED_FT_KIMG}: "
+                  + json.dumps(out["finetune"][variant]) + f" ({card})",
+                  flush=True)
+            ft_snap = sorted(glob.glob(os.path.join(
+                loop.run_dir, "network-snapshot-*.pkl")))[-1]
+            del loop
+
+        # ---- (f) visualize_main and diagnose on the finetune snapshot ---
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        for mode in (0, 1):
+            vdir = os.path.join(root, f"viz{mode}")
+            ids = visualize_main.main([
+                "--gan_checkpoint", ft_snap, "--library", FUSED_VIZ_LIBRARY,
+                "--output_dir", vdir, "--mode", str(mode),
+                "--device", "cuda"])
+            check(len(os.listdir(vdir)) == len(ids) > 0,
+                  f"(f) visualize_main mode {mode}: {os.listdir(vdir)}")
+        ddir = os.path.join(root, "diag")
+        reports = diagnose_color_control.main(
+            [ft_snap, "--out", ddir, "--device", "cuda"])
+        raw = {}
+        diagnose_color_control.diagnose(ft_snap, ddir, device="cuda",
+                                        raw=raw)
+        for k in ("fg_mass_uvs", "bg_mass_uvs"):
+            check(abs(float(np.sum(raw[k])) - 1.0) <= 1e-5,
+                  f"(f) the UVS {k} sums to {float(np.sum(raw[k]))}")
+        lab = raw["lab_e_primary_only"] + raw["lab_e_primary_and_secondary"]
+        check(np.isfinite(lab).all() and os.path.isfile(os.path.join(
+            ddir, "report.json")) and len(os.listdir(ddir)) == 3,
+            f"(f) diagnose: LAB_E% {lab}, files {os.listdir(ddir)}")
+        for k in total:
+            total[k] += _launch_counts()[k] - before[k]
+        out["tools"] = {"seconds": time.perf_counter() - t0,
+                        "report": reports[0]}
+        print("[fused] (f) visualize_main modes 0 and 1, "
+              "diagnose_color_control: " + json.dumps(out["tools"]),
+              flush=True)
+
+        # ---- (g) the weights installer on seeded files ------------------
+        t0 = time.perf_counter()
+        src = os.path.join(root, "weights_src")
+        os.makedirs(src)
+        files = {"inception": "inception.pt", "lpips": "lpips_alex.pth",
+                 "vgg16": "vgg16.pth", "clip": "ViT-B-32.pt",
+                 "clip_bpe": "bpe_simple_vocab_16e6.txt.gz"}
+        files = {k: os.path.join(src, v) for k, v in files.items()}
+        torch.save(rl.inception_state_dict(SEED), files["inception"])
+        torch.save(rl.lpips_state_dict(SEED), files["lpips"])
+        torch.save(rl.vgg16_state_dict(SEED), files["vgg16"])
+        torch.save(rl.clip_state_dict(SEED), files["clip"])
+        rl.write_bpe_merges(files["clip_bpe"], rl.bpe_merges_for(
+            ["a", "painted", "brush", "stroke"]))
+        os.environ["NEUBE_WEIGHTS_DIR"] = os.path.join(root, "weights")
+        fid_lib._DEFAULTS.clear()
+        lpips_lib._DEFAULT_MODELS.clear()
+        probes = ("fid", "lpips", "clip")
+        kinds_before = {k: fetch_and_verify_weights.kind_probe(k, "cuda")
+                        for k in probes}
+        argv = [a for fam, path in files.items()
+                for a in (f"--{fam}", path)]
+        rc = fetch_and_verify_weights.main(
+            argv + ["--reference_pkl", ft_snap, "--device", "cuda"])
+        kinds_after = {k: fetch_and_verify_weights.kind_probe(k, "cuda")
+                       for k in probes}
+        check(rc == 0, f"(g) the installer failed (rc {rc})")
+        with open(os.path.join(root, "weights", "manifest.json")) as f:
+            manifest = json.load(f)
+        digests_ok = all(
+            manifest[fam]["sha256"] == hashlib.sha256(
+                open(path, "rb").read()).hexdigest()
+            for fam, path in files.items())
+        check(rc == 0 and digests_ok and set(manifest) == set(files)
+              and kinds_before == {"fid": "random", "lpips": "lpips_random",
+                                   "clip": "HashingBackbone"}
+              and kinds_after == {"fid": "inception_v3",
+                                  "lpips": "lpips_alex",
+                                  "clip": "CLIPBackbone"},
+              f"(g) the installer: rc {rc}, digests equal {digests_ok}, "
+              f"kinds {kinds_before} -> {kinds_after}")
+        out["weights"] = {"seconds": time.perf_counter() - t0,
+                          "families": sorted(manifest),
+                          "kinds_before": kinds_before,
+                          "kinds_after": kinds_after}
+        print("[fused] (g) fetch_and_verify_weights on seeded files: "
+              + json.dumps(out["weights"]), flush=True)
+    finally:
+        if env_before is None:
+            os.environ.pop("NEUBE_WEIGHTS_DIR", None)
+        else:
+            os.environ["NEUBE_WEIGHTS_DIR"] = env_before
+        fid_lib._DEFAULTS.clear()
+        lpips_lib._DEFAULT_MODELS.clear()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # ---- (h) every launch of the phase at a held shape ------------------
+    launched = set(fir4_epilogue.shapes)
+    check(launched <= held, f"K1 launched at shapes phase 3 did not hold: "
+          f"{sorted(launched - held)}")
+    for name, fn in (("warp_twopass", tw.warp_twopass),
+                     ("warp_twopass_t", tw.warp_twopass_t)):
+        check(fn.shapes <= warp_held[name], f"{name} launched at shapes "
+              f"phase 5 did not hold: {sorted(fn.shapes - warp_held[name])}")
+    out["launches"] = total
+    out["k1_shapes"] = len(launched)
+    out["seconds"] = time.time() - t_phase
+    print(f"[fused] launches {json.dumps(total)}, K1 at {len(launched)} "
+          f"shapes, each held in phase 3; phase {out['seconds']:.1f} s",
+          flush=True)
     return out
 
 
@@ -4200,7 +4804,10 @@ def main():
     ckpt = phase_checkpoint(geom_iter, card, held)
     stitch = phase_stitch(style_iter, geom_iter, card, held, warp_held)
     brush = phase_brush_workflow(card, held, media)
-    data = phase_data_chain(card, held, warp_held)
+    data_dir = os.path.join(BUILD_DIR, "fused_data")
+    data = phase_data_chain(card, held, warp_held, keep=data_dir)
+    fused = phase_fused(style_iter, geom_iter, card, held, warp_held,
+                        data_dir)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -4215,7 +4822,8 @@ def main():
         + serve["launches"] + train_cli["launches"]["fir4_epilogue"]
         + ckpt["launches"]["fir4_epilogue"]
         + stitch["launches"]["fir4_epilogue"] + brush["launches"]
-        + data["launches"]["fir4_epilogue"],
+        + data["launches"]["fir4_epilogue"]
+        + fused["launches"]["fir4_epilogue"],
         "launches_render_path": main_stats["launches"],
         "launches_training_path": train["launches"]["fir4_epilogue"],
         "launches_paint_path": paint["launches"],
@@ -4225,6 +4833,7 @@ def main():
         "launches_stitch_path": stitch["launches"]["fir4_epilogue"],
         "launches_brush_workflow_path": brush["launches"],
         "launches_data_chain_path": data["launches"]["fir4_epilogue"],
+        "launches_fused_path": fused["launches"]["fir4_epilogue"],
         "max_abs_err": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "backward_max_rel_err": fir_bwd["worst_rel_err"],
@@ -4248,12 +4857,14 @@ def main():
                         + ("125" if fn == "_fwd_kernel" else "156"),
             "launches": train["launches"][name]
             + train_cli["launches"][name] + ckpt["launches"][name]
-            + stitch["launches"][name] + data["launches"][name],
+            + stitch["launches"][name] + data["launches"][name]
+            + fused["launches"][name],
             "launches_training_path": train["launches"][name],
             "launches_train_run": train_cli["launches"][name],
             "launches_checkpoint_path": ckpt["launches"][name],
             "launches_stitch_path": stitch["launches"][name],
             "launches_data_chain_path": data["launches"][name],
+            "launches_fused_path": fused["launches"][name],
             "max_abs_err": warp_err[key],
             "ms": warp[f"{key}_ms"],
             "plain_ms": warp[f"{key}_plain_ms"],
@@ -4269,7 +4880,7 @@ def main():
                       "paint_path": paint, "serve_path": serve,
                       "train_run": train_cli, "checkpoint_path": ckpt,
                       "stitch_path": stitch, "brush_workflow": brush,
-                      "data_chain": data,
+                      "data_chain": data, "fused_trainer": fused,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

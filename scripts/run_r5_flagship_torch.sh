@@ -3,9 +3,10 @@
 # port's counterpart of run_r5_flagship.sh, with its seeds and sizes): style
 # media -> style zip; splines -> triband -> geometry zip; the stroke
 # autoencoder; then a continuous train_flags.txt run with that encoder.
-# Outputs go to _data/torch/ and runs/r5_torch.  The JAX run's --fused,
-# --device_dataset and --steps_per_dispatch are not ported (the port's
-# tools/train.py refuses them), so the trainer takes one batch per step.
+# Outputs go to _data/torch/ and runs/r5_torch.  The trainer runs the
+# production path of the JAX run: --fused --device_dataset
+# --steps_per_dispatch 16 (the zips as uint8 banks on the card, 16 fused
+# batches per step call).
 set -ex
 cd "$(dirname "$0")/.."
 export PYTHONPATH="$PWD${PYTHONPATH:+:$PYTHONPATH}"
@@ -48,4 +49,5 @@ exec python -m brushstroke_engine_torch.tools.train \
   --geom_phase_losses '1.0*iou_inv(uvs)' --geom_phase_mode last_and_rgb \
   --geom_interval 200 \
   --kimg 3000 --snap 50 --image_snap 25 \
+  --fused --device_dataset --steps_per_dispatch 16 \
   --seed 0 --metrics fid,forger

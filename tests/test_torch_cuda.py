@@ -910,3 +910,103 @@ def test_project_parallel_step_on_the_card_equals_the_cpu():
                 + lr_total
         err = np.abs(g["w"] - w["w"])
         assert err.max() <= 1e-4 * np.abs(w["w"]).max() + lr_total
+
+
+def _fused_setup(device):
+    """The small configuration with every phase (constant noise, no style
+    mixing, ADA 'bgc' at p = 0.6), its train state, the encoder and uint8
+    banks, on ``device``."""
+    from brushstroke_engine_torch.models.discriminator import \
+        DiscriminatorConfig
+    from brushstroke_engine_torch.train.augment import AugmentConfig
+    from brushstroke_engine_torch.train.device_dataset import \
+        build_device_banks
+    from brushstroke_engine_torch.train.state import TrainConfig, \
+        init_train_state
+    from brushstroke_engine_torch.utils.util import tree_to
+    eng = _small_engine(device)
+    cfg = TrainConfig(
+        gen_cfg=eng.gen_cfg, enc_cfg=eng.enc_cfg, enc_res=(0, 1),
+        disc_cfg=DiscriminatorConfig(
+            c_dim=0, img_resolution=32, img_channels=3, architecture="orig",
+            channel_base=2048, channel_max=32),
+        batch_size=4, augment=AugmentConfig.from_spec("bgc"),
+        noise_mode="const", style_mixing_prob=0.0, d_reg_interval=2,
+        g_reg_interval=2, geom_interval=2, geom_warmstart_kimg=0)
+    state = tree_to(init_train_state(cfg, 0, device="cpu"), device)
+    state["ada_p"] = torch.full((), 0.6, device=device)
+    rng = np.random.RandomState(23)
+    banks = build_device_banks(
+        list(rng.randint(0, 256, (6, 32, 32, 3)).astype(np.uint8)),
+        list(rng.randint(0, 256, (5, 40, 40, 3)).astype(np.uint8)),
+        device=device)
+    return cfg, state, eng.enc_params, eng.enc_state, banks
+
+
+def _fused_draws(cfg, seed):
+    """Every draw of one fused batch of 4, made on the CPU."""
+    from brushstroke_engine_torch.train.augment import draw_augment
+    gen = torch.Generator().manual_seed(seed)
+
+    def aug():
+        return draw_augment(cfg.augment, gen, 4, (32, 32, 3), "cpu")
+
+    z = [torch.randn((4, 16), generator=gen) for _ in range(3)]
+    return {"z1": z[0], "z2": z[1], "z3": z[2],
+            "bank": (torch.randint(0, 6, (4,), generator=gen),
+                     torch.randint(0, 5, (4,), generator=gen)),
+            "dmain": {"aug_fake": aug(), "aug_real": aug()},
+            "dreg": {"aug": aug()}, "gmain": {"aug": aug()},
+            "greg": {"pl_noise": torch.randn((2, 32, 32, 3), generator=gen)}}
+
+
+def _stat_close(got, want):
+    assert set(got) == set(want)
+    for k, v in want.items():
+        g, w = got[k].detach().cpu().double(), v.detach().double()
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), k
+        g, w = torch.nan_to_num(g), torch.nan_to_num(w)
+        assert bool(((g - w).abs() <= 1e-4 * w.abs().clamp_min(1e-3)).all()), k
+
+
+def test_fused_step_on_the_card_equals_the_cpu():
+    """One fused step from the banks at batch 0 (Dmain, Dr1, Gmain, Gpl,
+    Ggeom) on the card and on the CPU with the same draws: every stat
+    within 1e-4 relative; on the card K1 on the four generator passes, W on
+    Dmain's two discriminator passes, Dr1's (and its double backward) and
+    Gmain's, W^T in Dr1's and Gmain's backward."""
+    from brushstroke_engine_torch.train.fused import make_fused_train_step
+    from brushstroke_engine_torch.utils.util import tree_to
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        cfg, state, enc_p, enc_s, banks = _fused_setup(dev)
+        before = (fe.fir4_epilogue.launches, tw.warp_twopass.launches,
+                  tw.warp_twopass_t.launches)
+        _, stats[dev] = make_fused_train_step(cfg, device_data=True)(
+            state, enc_p, enc_s, banks.style, banks.tri, 0, False, 0.5,
+            (3, 5, 32, 32), draws=tree_to(_fused_draws(cfg, 1), dev))
+        after = (fe.fir4_epilogue.launches, tw.warp_twopass.launches,
+                 tw.warp_twopass_t.launches)
+        n_up = len(cfg.gen_cfg.synthesis.block_resolutions) - 1
+        want = (4 * n_up, 5, 2) if dev == "cuda" else (0, 0, 0)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+    _stat_close(stats["cuda"], stats["cpu"])
+
+
+def test_fused_chunk_on_the_card_equals_the_cpu():
+    """A chunk of two batches (0: every phase; 1: Dmain and Gmain, then the
+    ADA update) on the card and on the CPU: the stacked stats within 1e-4
+    relative, NaN in the same places, ADA p within 1e-6."""
+    from brushstroke_engine_torch.train.fused import make_fused_train_step
+    from brushstroke_engine_torch.utils.util import tree_to
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg, state, enc_p, enc_s, banks = _fused_setup(dev)
+        step = make_fused_train_step(cfg, device_data=True, chunk=2)
+        draws = [tree_to(_fused_draws(cfg, s), dev) for s in (2, 3)]
+        out[dev] = step(state, enc_p, enc_s, banks.style, banks.tri, 0, 0,
+                        np.random.default_rng(4), draws=draws)
+    (s_gpu, st_gpu), (s_cpu, st_cpu) = out["cuda"], out["cpu"]
+    assert all(v.shape == (2,) for v in st_gpu.values())
+    _stat_close(st_gpu, st_cpu)
+    assert abs(float(s_gpu["ada_p"]) - float(s_cpu["ada_p"])) <= 1e-6

@@ -315,6 +315,27 @@ def test_entry_points_need_cuda_unless_cpu(model, monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
+    # The fused trainer's banks and the round-5 tools.
+    from brushstroke_engine_torch.tools import (
+        diagnose_color_control, drive_brush_server,
+        fetch_and_verify_weights, visualize_main,
+    )
+    from brushstroke_engine_torch.train.device_dataset import \
+        build_device_banks
+    u8 = np.zeros((2, 8, 8, 3), np.uint8)
+    for make in (
+            lambda: build_device_banks(u8, u8),
+            lambda: visualize_main.main(["--gan_checkpoint", bundle,
+                                         "--output_dir", str(tmp_path)]),
+            lambda: diagnose_color_control.main([bundle, "--out",
+                                                 str(tmp_path)]),
+            lambda: drive_brush_server.main([
+                "--gan_checkpoint", bundle, "--libraries", "L:rand2:x",
+                "--out_dir", str(tmp_path)]),
+            lambda: fetch_and_verify_weights.main(["--clip_bpe", bundle])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
     cuda_loop = types.SimpleNamespace(
         device=torch.device("cuda"),
         cfg=dataclasses.replace(cfg, gen_cfg=tgen, enc_cfg=tenc),
@@ -362,7 +383,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tools.create_splines", "tools.prep_geom_data",
                 "tools.dataset_tool", "tools.patch_augment",
                 "tools.reformat_triband_data_main",
-                "tools.make_synthetic_styles"):
+                "tools.make_synthetic_styles", "train.device_dataset",
+                "train.fused", "tools.visualize_main",
+                "tools.diagnose_color_control", "tools.drive_brush_server",
+                "tools.plot_colors", "tools.fetch_and_verify_weights"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

@@ -136,9 +136,53 @@ def test_setup_config_equals_jax(files, d_arch):
     "--profile_dir=x", "--coordinator_address=h:1", "--num_processes=2",
     "--process_id=0"])
 def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttrain.main(["--outdir", str(tmp_path), "--device", "cpu",
-                     "--dry-run", flag])
+    """Only the mesh's flags are unported (ROADMAP.md item 2.9); the
+    production path's flags pass the dry run, as in the JAX CLI."""
+    argv = ["--outdir", str(tmp_path), "--device", "cpu", "--dry-run", flag]
+    if flag.split("=")[0] in ("--fused", "--device_dataset",
+                              "--steps_per_dispatch", "--profile_dir"):
+        assert ttrain.main(argv) is None
+        jargs = _jax_cli().build_parser().parse_args(argv[:2] + [flag])
+        targs = ttrain.build_parser().parse_args(argv)
+        dest = flag.split("=")[0][2:]
+        assert getattr(targs, dest) == getattr(jargs, dest)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 2.9"):
+        ttrain.main(argv)
+
+
+def test_production_flags_error_paths_as_the_jax_cli(tmp_path, monkeypatch):
+    """--device_dataset without --fused exits with the JAX CLI's message,
+    --steps_per_dispatch > 1 without banks raises the JAX loop's error; with
+    --device_dataset the synthetic geometry has 2048 items and no host
+    iterator is built."""
+    base = ["--outdir", str(tmp_path), "--device", "cpu",
+            "--output_resolution", "32", "--batch", "4", "--channel_max",
+            "32", "--metrics", ""]
+    with pytest.raises(SystemExit, match="^--device_dataset requires "
+                       "--fused$"):
+        ttrain.build(base + ["--device_dataset"])
+    with pytest.raises(ValueError, match="requires device_banks"):
+        ttrain.build(base + ["--fused", "--steps_per_dispatch", "2"])
+    from brushstroke_engine_torch.train import device_dataset
+    seen = {}
+    real = device_dataset.build_device_banks
+
+    def banks(style_ds, geom_ds, **kw):
+        # Decode 4 items of each, not all 2048 synthetic geometries.
+        seen.update(style=len(style_ds), geom=len(geom_ds), kw=kw)
+        return real([style_ds[i] for i in range(4)],
+                    [geom_ds[i] for i in range(4)], **kw)
+
+    monkeypatch.setattr(device_dataset, "build_device_banks", banks)
+    loop, args = ttrain.build(base + ["--fused", "--device_dataset",
+                                      "--steps_per_dispatch", "2",
+                                      "--profile_dir", str(tmp_path / "t")])
+    assert seen["geom"] == 2048 and seen["kw"]["device"] == loop.device
+    assert loop.style_iter is None and loop.geom_iter is None
+    assert loop.device_banks.tri.shape == (4, 96, 96, 3)
+    assert loop.fused_step is not None and loop.steps_per_dispatch == 2
+    assert loop.profile_dir == str(tmp_path / "t")
 
 
 def test_dry_run_and_cuda(tmp_path, capsys, monkeypatch):

@@ -176,12 +176,17 @@ def test_training_loop_warm_start_and_unported_options(tmp_path):
     assert loop._ema_beta() == pytest.approx(
         0.5 ** (B / (cfg.ema_kimg * 1000.0)), rel=1e-6)
 
-    for kw in (dict(use_fused=True), dict(device_banks=object()),
-               dict(steps_per_dispatch=4), dict(mesh=object()),
-               dict(profile_dir="x")):
-        with pytest.raises(NotImplementedError):
+    # The production path is ported (tests/test_torch_fused.py); its
+    # guards are the JAX loop's, and only the mesh raises.
+    for kw, err in ((dict(device_banks=object()), ValueError),
+                    (dict(steps_per_dispatch=4), ValueError),
+                    (dict(mesh=object()), NotImplementedError)):
+        with pytest.raises(err):
             TrainingLoop(cfg, {}, {}, None, None, run_dir=str(tmp_path / "n"),
                          device="cpu", **kw)
+    for kw in (dict(use_fused=True), dict(profile_dir="x")):
+        TrainingLoop(cfg, {}, {}, None, None, run_dir=str(tmp_path / "n"),
+                     device="cpu", **kw)
     # auto_resume with nothing saved starts fresh.
     fresh = TrainingLoop(cfg, loop.enc_params, loop.enc_state, None, None,
                          run_dir=str(tmp_path / "n"), device="cpu",

@@ -11,6 +11,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from brushstroke_engine_tpu.models.generator import make_generator_config
 from brushstroke_engine_tpu.models.geo_encoder import GeoEncoderConfig
@@ -60,6 +61,18 @@ def small_model(seed=0, noise_strength=0.4, **config):
     return dict(jax_cfg=(jgen, jenc), cfg=(tgen, tenc), np=trees,
                 jax=jax.tree_util.tree_map(jnp.asarray, trees),
                 torch={k: params_from_jax(v) for k, v in trees.items()})
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's torch ops: its tensors are small,
+    and under the parallel test runner the default pool of one thread per
+    core oversubscribes the machine (tens of times slower there)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def replay_augment_draws(cfg, key, batch, shape):
