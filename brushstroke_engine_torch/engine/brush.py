@@ -4,8 +4,9 @@ Counterpart of ``brushstroke_engine_tpu/engine/brush.py``:
 ``GanBrushOptions``, the ``PaintEngine`` interface, ``GanPaintEngine`` with
 its triad and canvas forms, ``MockPaintEngine`` and ``PaintEngineFactory``.
 The numeric path is :func:`render.render_core`; these classes handle uint8
-<-> device conversion and brush state.  The int8 path and the serving mesh
-are not ported.
+<-> device conversion and brush state.  ``set_serving_mesh`` splits a
+batched render's rows over the cards of a local mesh
+(``parallel/mesh.py``).  The int8 path is not ported.
 """
 
 from __future__ import annotations
@@ -14,11 +15,14 @@ import logging
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from brushstroke_engine_torch.engine.library import seed_to_z
 from brushstroke_engine_torch.engine.render import render_core
 from brushstroke_engine_torch.models.generator import GeneratorConfig
 from brushstroke_engine_torch.models.geo_encoder import GeoEncoderConfig
+from brushstroke_engine_torch.parallel.mesh import same_device, \
+    shard_tile_render
 from brushstroke_engine_torch.utils.util import resolve_device, tree_to
 
 logger = logging.getLogger(__name__)
@@ -169,6 +173,9 @@ class GanPaintEngine(PaintEngine):
         self.patch_width = gen_cfg.img_resolution
         self.render_modes = {"clear", "full"}
         self.render_mode = "clear"
+        self.serving_mesh = None
+        # The weights on each other mesh device, copied there once.
+        self._device_params = {}
 
         # Imported here to avoid a cycle (the mapper renders via this engine).
         from brushstroke_engine_torch.engine.mapper import StyleUVSMapper
@@ -179,6 +186,34 @@ class GanPaintEngine(PaintEngine):
             raise RuntimeError(f"Render mode should be one of "
                                f"{self.render_modes}")
         self.render_mode = mode
+
+    def set_serving_mesh(self, mesh):
+        """Split batched renders (``render_batch``, the batcher's flushes)
+        over a local mesh (``parallel.mesh.make_mesh``): with N cards and M
+        concurrent painters each card renders ~M/N patches per flush.  The
+        rows are padded to a multiple of the mesh size by repeating the last
+        one, every card's chunk is issued before any is gathered, and the
+        output comes back on the engine's device without the padding.  The
+        weights are copied to each card once and cached.  ``None``
+        restores single-device rendering."""
+        if mesh is not None and mesh.group is not None:
+            raise ValueError("serving splits rows over a local mesh")
+        self.serving_mesh = mesh
+        self._device_params = {}
+
+    def _params_on(self, device):
+        """(gen_params, gen_state, enc_params, enc_state) on ``device``:
+        the engine's own on its device, elsewhere copies made on first use
+        (until the next ``set_serving_mesh``)."""
+        own = (self.gen_params, self.gen_state, self.enc_params,
+               self.enc_state)
+        device = torch.device(device)
+        if same_device(device, self.device):
+            return own
+        if device not in self._device_params:
+            self._device_params[device] = tuple(tree_to(t, device)
+                                                for t in own)
+        return self._device_params[device]
 
     def summary(self):
         return "{} GAN: {} encoder: {}".format(
@@ -196,16 +231,27 @@ class GanPaintEngine(PaintEngine):
         return (1.0 - alpha)[None]
 
     def _render(self, geom, z, ws, positions, noise_buffers, override, mask,
-                blended_features, sfactor, return_features):
-        return render_core(
-            self.gen_cfg, self.enc_cfg, self.enc_res, self.render_mode,
-            tuple(return_features), self.color_format,
-            self.gen_params, self.gen_state, self.enc_params, self.enc_state,
-            geom, z, ws, positions, noise_buffers, override, mask,
-            blended_features, sfactor, device=self.device)
+                blended_features, sfactor, return_features, mesh=None):
+        """The render core on the engine's device, or with ``mesh`` (a
+        local mesh) its rows split over the mesh's devices
+        (``parallel.mesh.shard_tile_render``)."""
+        def one(geom, z, ws, positions, override, mask, blended_features,
+                device):
+            return render_core(
+                self.gen_cfg, self.enc_cfg, self.enc_res, self.render_mode,
+                tuple(return_features), self.color_format,
+                *self._params_on(device), geom, z, ws, positions,
+                noise_buffers, override, mask, blended_features, sfactor,
+                device=device)
+
+        if mesh is None:
+            return one(geom, z, ws, positions, override, mask,
+                       blended_features, self.device)
+        return shard_tile_render(mesh, one, device=self.device)(
+            geom, z, ws, positions, override, mask, blended_features)
 
     def _run_core(self, geom, opts: GanBrushOptions,
-                  blended_features=None, return_features=()):
+                  blended_features=None, return_features=(), mesh=None):
         b = geom.shape[0]
         opts.prepare_style(b)
         override, mask = opts.color_override(b)
@@ -218,7 +264,8 @@ class GanPaintEngine(PaintEngine):
                 np.asarray(v).shape[-2:]) for k, v in noise_buffers.items()}
         return self._render(geom, opts.style_z, opts.style_ws,
                             opts.get_position(), noise_buffers, override,
-                            mask, blended_features, sfactor, return_features)
+                            mask, blended_features, sfactor, return_features,
+                            mesh=mesh)
 
     def render_batch(self, geoms, opts_list, blended_features=None,
                      return_features=()):
@@ -231,7 +278,8 @@ class GanPaintEngine(PaintEngine):
             noise buffers or UVS mapping.
           blended_features: {res: (feats [B,R,R,C], alpha [B,R,R,1])} or None.
 
-        Returns the render-core output dict ('rgba' [B,W,W,4], ...).
+        Returns the render-core output dict ('rgba' [B,W,W,4], ...), on the
+        engine's device; with a serving mesh the rows split over its cards.
         """
         b = geoms.shape[0]
         use_ws = opts_list[0].style_ws is not None
@@ -264,7 +312,7 @@ class GanPaintEngine(PaintEngine):
         return self._render(geoms, None if use_ws else style,
                             style if use_ws else None, positions, None,
                             override, mask, blended_features, None,
-                            return_features)
+                            return_features, mesh=self.serving_mesh)
 
     def _render_stroke_device(self, geom, canvas, opts, **generator_kwargs):
         """Render on the engine's device; returns (rgba ``[B,W,W,4]`` float

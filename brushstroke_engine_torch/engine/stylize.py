@@ -15,7 +15,8 @@ renderers:
   canvas on the device.  The RGBA canvas is assembled on the host.
 * :func:`stylize_image_ondevice`: the same waves with the geometry, the
   feature canvas and the uint8 RGBA canvas all on the device; one copy to
-  the host at the end.
+  the host at the end.  With ``mesh`` (a local mesh,
+  ``parallel/mesh.py``) each chunk's tiles split over the mesh's cards.
 """
 
 from __future__ import annotations
@@ -233,7 +234,7 @@ def _feature_canvas(engine, rows, cols, patch_width, feature_blending_level,
 
 def _stylize_waves(engine, geom, brush_options, overlap_margin,
                    crop_margin, feature_blending_level, batch_size, on_white,
-                   mode, on_device):
+                   mode, on_device, mesh=None):
     """The checkerboard-wave renderer behind both wave stylizers: the chunks
     of :func:`_prepare_wave_chunks` in order, each a gather of its feature
     windows, one ``_run_core`` of ``batch_size`` tiles, a scatter of the
@@ -290,7 +291,8 @@ def _stylize_waves(engine, geom, brush_options, overlap_margin,
                 ffeat, fmask, fys, fxs, border)
             blended = {blend_res: (feats_win, alpha)}
         out = engine._run_core(geoms, brush_options,
-                               blended_features=blended, return_features=rf)
+                               blended_features=blended, return_features=rf,
+                               mesh=mesh)
         if blend_res is not None:
             _scatter_feature_windows(
                 ffeat, fmask, out[f"features{blend_res}"].float(), upds,
@@ -324,15 +326,24 @@ def stylize_image_ondevice(engine, geom: np.ndarray, brush_options, *,
     Same wave decomposition as :func:`stylize_image_batched`.  The geometry
     goes to the device once; the feature canvas and the uint8 RGBA canvas
     live there; the chunk loop runs in Python over those tensors; the only
-    copy back is the finished canvas.  ``mesh`` (sharding the waves over
-    several devices) is not ported.
+    copy back is the finished canvas.
+
+    ``mesh``: a local mesh (``parallel.mesh.make_mesh``) over which each
+    chunk's ``batch_size`` tiles split, every card's share issued before
+    any is gathered; ``batch_size`` must divide by the mesh size.  The
+    weights are copied to each card once and cached on the engine; the
+    geometry, the feature canvas and the RGBA canvas stay on the engine's
+    device.
     """
     if mesh is not None:
-        raise NotImplementedError("stylizing over a device mesh is not "
-                                  "ported yet")
+        if mesh.group is not None:
+            raise ValueError("stylizing splits tiles over a local mesh")
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} must divide by the "
+                             f"mesh size {mesh.size}")
     return _stylize_waves(engine, geom, brush_options, overlap_margin,
                           crop_margin, feature_blending_level, batch_size,
-                          on_white, mode, on_device=True)
+                          on_white, mode, on_device=True, mesh=mesh)
 
 
 def stylize_image_batched(engine, geom: np.ndarray, brush_options, *,

@@ -20,6 +20,7 @@ from brushstroke_engine_torch.models.mapping import MappingConfig, \
     mapping_apply
 from brushstroke_engine_torch.models.synthesis import SynthesisConfig, \
     synthesis_apply
+from brushstroke_engine_torch.parallel.distributed import draw_rows
 
 
 @dataclass(frozen=True)
@@ -105,8 +106,9 @@ def generate_positional_encoding(cfg: GeneratorConfig, positions, batch: int,
     if positions is None:
         if rng is None:
             raise ValueError("positional encoding needs positions or an rng")
-        positions = torch.randint(0, cfg.img_resolution, (batch, 2),
-                                  generator=rng, device=rng.device)
+        positions = draw_rows(
+            lambda s, **kw: torch.randint(0, cfg.img_resolution, s, **kw),
+            (batch, 2), generator=rng, device=rng.device)
     positions = torch.as_tensor(positions, device=device)
     fmaps = [2 ** (2 + r) for r in cfg.posenc_inject_resolutions]
     if cfg.posenc_featuremap_mode == "fixed":
@@ -127,7 +129,8 @@ def draw_style_mixing(rng, z_shape, device) -> Dict:
     return {
         "cutoff_u": torch.rand((), generator=rng, device=gdev).to(device),
         "apply_u": torch.rand((), generator=rng, device=gdev).to(device),
-        "z2": torch.randn(z_shape, generator=rng, device=gdev).to(device),
+        "z2": draw_rows(torch.randn, z_shape, generator=rng,
+                        device=gdev).to(device),
     }
 
 

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from brushstroke_engine_torch.parallel.distributed import \
+    batch_mean as global_batch_mean
 from brushstroke_engine_torch.models.layers import fc_apply, \
     normalize_2nd_moment
 
@@ -70,7 +72,8 @@ def update_w_avg(cfg: MappingConfig, w, w_avg):
         return w_avg
     if w.dim() == 3:
         w = w[:, 0]
-    batch_mean = w.detach().mean(dim=0)
+    # The global batch's mean under a data-parallel group.
+    batch_mean = global_batch_mean(w.detach(), dim=0)
     return batch_mean + (w_avg - batch_mean) * cfg.w_avg_beta
 
 

@@ -32,6 +32,7 @@ from brushstroke_engine_torch.ops import (
     wrapped_const_noise,
 )
 from brushstroke_engine_torch.models.layers import fc_apply
+from brushstroke_engine_torch.parallel.distributed import draw_rows
 
 
 @dataclass(frozen=True)
@@ -129,8 +130,9 @@ def _synthesis_layer_apply(cfg: SynthesisConfig, params, x, w, *,
     noise = None
     if noise_mode == "random":
         if random_noise is None:
-            random_noise = torch.randn(
-                (x.shape[0], resolution, resolution, 1), generator=rng,
+            random_noise = draw_rows(
+                torch.randn, (x.shape[0], resolution, resolution, 1),
+                generator=rng,
                 device=x.device if rng is None else rng.device).to(x.device)
         noise = random_noise.float() * params["noise_strength"]
     elif noise_mode == "const":

@@ -9,12 +9,15 @@ built at import: the first launch (or :func:`build_all`) builds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
 import threading
 from typing import Dict, List
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -102,6 +105,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
         return lib
+
+
+def on_device(device):
+    """The context a ctypes launch runs in: the CUDA runtime launches on
+    the *current* device, so make it the tensor's (a mesh's second card);
+    nothing for a tensor elsewhere (a launch stubbed in a test)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def count_launch(fn) -> None:

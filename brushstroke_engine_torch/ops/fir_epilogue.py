@@ -155,13 +155,14 @@ def _launch_kernel(x, taps, dcoefs, noise, bias, act_gain, clamp, alpha,
     out = torch.empty((b, h, w, c), dtype=out_dtype, device=dev)
 
     fn, err_str = _kernel_fns()
-    rc = fn(x.data_ptr(), out.data_ptr(), dcoefs.data_ptr(),
-            None if noise is None else noise.data_ptr(), noise_bstride,
-            bias.data_ptr(), ctypes.addressof(taps16),
-            b, h, w, c, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-            float(alpha), float(act_gain),
-            float("inf") if clamp is None else float(clamp), *tile,
-            torch.cuda.current_stream(dev).cuda_stream)
+    with cuda_build.on_device(dev):
+        rc = fn(x.data_ptr(), out.data_ptr(), dcoefs.data_ptr(),
+                None if noise is None else noise.data_ptr(), noise_bstride,
+                bias.data_ptr(), ctypes.addressof(taps16),
+                b, h, w, c, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+                float(alpha), float(act_gain),
+                float("inf") if clamp is None else float(clamp), *tile,
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fir4_epilogue kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")

@@ -187,13 +187,14 @@ def _launch(imgs, scalars, transposed: bool, band: int = 0):
     fwd, bwd, _, err_str = _kernel_fns()
     out = torch.empty_like(imgs)
     stream = torch.cuda.current_stream(imgs.device).cuda_stream
-    if transposed:
-        scratch = torch.empty_like(imgs)
-        rc = bwd(imgs.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                 scalars.data_ptr(), b, n, c, stream)
-    else:
-        rc = fwd(imgs.data_ptr(), out.data_ptr(), scalars.data_ptr(), b, n, c,
-                 band, stream)
+    with cuda_build.on_device(imgs.device):
+        if transposed:
+            scratch = torch.empty_like(imgs)
+            rc = bwd(imgs.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                     scalars.data_ptr(), b, n, c, stream)
+        else:
+            rc = fwd(imgs.data_ptr(), out.data_ptr(), scalars.data_ptr(), b,
+                     n, c, band, stream)
     if rc != 0:
         raise RuntimeError(f"warp_twopass kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")

@@ -27,8 +27,20 @@ the datasets decoded once into uint8 banks on the card
 (``train/device_dataset.py``; the synthetic geometry stand-in then has 2048
 items, not 10000, and no host iterator is built) and 16 batches per step
 call.  ``--profile_dir D`` writes a ``torch.profiler`` trace of batches
-10-12 into D.  Flags of parts that are not ported yet raise, naming
-ROADMAP.md item 2.9: ``--dp`` and the multi-host flags.
+10-12 into D.
+
+Data parallelism, one card per rank (``parallel/``): ``--dp N`` on one
+host spawns N ranks (``torch.multiprocessing``, the *spawn* start method),
+rank i on ``cuda:i``, in an NCCL group (gloo with ``--device cpu``); with
+``--dp 1`` the one rank is this process, in a group of one.  Under
+torchrun (``RANK`` and ``WORLD_SIZE`` set) each process is the rank the
+launcher made.  Across hosts, ``--coordinator_address host:port
+--num_processes P --process_id p`` with ``--dp N`` ranks per host: the world
+is P x N and this host's ranks are p x N + local rank.  Each rank loads
+``batch / world`` rows (``infinite_indices(rank=, num_ranks=)``) or draws its
+rows of the global bank batch; the ranks together take the step one
+process takes at the same global batch (``train/loop.py``).  A group that
+cannot form raises.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import json
 import logging
 import os
 import re
+import sys
 
 import numpy as np
 
@@ -123,13 +136,15 @@ def build_parser():
     ap.add_argument("--partial_loss_with_triband_input", type=int, default=1)
     ap.add_argument("--geom_input_channel", type=int, default=1)
     ap.add_argument("--geom_truth_channel", type=int, default=2)
-    # Misc (--dp and the multi-host flags are not ported yet).
+    # Misc.
     ap.add_argument("--fused", action="store_true",
                     help="One fused step per batch: every phase of the "
                          "batch cycle in one call from one geometry "
                          "encode (train/fused.py).")
     ap.add_argument("--dp", type=int, default=0,
-                    help="Data-parallel over N devices (not ported yet).")
+                    help="Data-parallel over N cards of this host, one "
+                         "rank per card (0 = one process, no group). "
+                         "batch must divide by the world.")
     ap.add_argument("--device_dataset", action="store_true",
                     help="Decode the whole dataset once and keep it on the "
                          "card as uint8 banks; the fused step then samples "
@@ -142,13 +157,13 @@ def build_parser():
                          "schedule computed per batch without a host "
                          "sync); ticks land on dispatch boundaries.")
     ap.add_argument("--coordinator_address", default="",
-                    help="Multi-host: coordinator host:port (not ported "
-                         "yet).")
+                    help="Multi-host: the rank-0 host's host:port where "
+                         "the process group forms.")
     ap.add_argument("--num_processes", type=int, default=0,
-                    help="Multi-host: total process count (not ported "
-                         "yet).")
+                    help="Multi-host: the number of hosts (each running "
+                         "--dp ranks).")
     ap.add_argument("--process_id", type=int, default=-1,
-                    help="Multi-host: this process's id (not ported yet).")
+                    help="Multi-host: this host's index.")
     ap.add_argument("--profile_dir", default=None,
                     help="Write a torch.profiler trace of batches 10-12 "
                          "here (view in Perfetto or TensorBoard).")
@@ -159,19 +174,6 @@ def build_parser():
     ap.add_argument("--device", default="cuda",
                     help="Where to train: 'cuda' (needs a GPU) or 'cpu'.")
     return ap
-
-
-def _reject_unported(args):
-    asked = {
-        "--dp": args.dp,
-        "--coordinator_address": args.coordinator_address,
-        "--num_processes": args.num_processes,
-        "--process_id": args.process_id >= 0,
-    }
-    for flag, on in asked.items():
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md item 2.9, the mesh)")
 
 
 def load_encoder(path: str):
@@ -208,7 +210,6 @@ def setup_config(args):
         init_encoder_trees, params_from_jax,
     )
 
-    _reject_unported(args)
     inject = tuple(int(x) for x in
                    args.geom_inject_resolutions.split(",") if x != "")
     if args.encoder_checkpt:
@@ -270,16 +271,37 @@ def setup_config(args):
 def build(argv=None):
     """Parse ``argv``, write the run directory's options and build the
     ``TrainingLoop`` with its data and eval hooks; returns ``(loop, args)``
-    (None for ``--dry-run``).  :func:`main` runs it."""
+    (None for ``--dry-run``).  :func:`main` runs it.  In a process group
+    (:func:`main` forms it) the loop trains on a mesh over the group: rank
+    0 names the run directory and writes the options, and each rank's host
+    iterators load its rows."""
+    import torch.distributed as dist
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level)
+    from brushstroke_engine_torch.parallel.distributed import host_shard_info
     from brushstroke_engine_torch.utils.util import resolve_device
-    device = resolve_device(args.device)
+    mesh = None
+    rank, num_ranks = host_shard_info()
+    if dist.is_initialized():
+        from brushstroke_engine_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(device=args.device)
+        device = mesh.devices[0]
+    else:
+        device = resolve_device(args.device)
 
     cfg, enc_cfg, enc_params, enc_state = setup_config(args)
+    if cfg.batch_size % num_ranks:
+        raise ValueError(f"batch {cfg.batch_size} not divisible by "
+                         f"{num_ranks} ranks")
+    local_bs = cfg.batch_size // num_ranks
     desc = (f"{args.color_format}-res{args.output_resolution}"
             f"-batch{args.batch}")
-    run_dir = next_run_dir(args.outdir, desc)
+    run_dir = next_run_dir(args.outdir, desc) if rank == 0 else None
+    if mesh is not None:
+        # One run directory for every rank: rank 0's.
+        box = [run_dir]
+        dist.broadcast_object_list(box, src=0)
+        run_dir = box[0]
 
     if args.dry_run:
         print("Resolved training options:")
@@ -289,8 +311,9 @@ def build(argv=None):
         return None
 
     os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "training_options.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if rank == 0:
+        with open(os.path.join(run_dir, "training_options.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
 
     from brushstroke_engine_torch.train.dataset import (
         BatchIterator, ImageFolderDataset, NoiseStyleDataset,
@@ -315,9 +338,11 @@ def build(argv=None):
 
     style_iter = geom_iter = None
     if not args.device_dataset:
-        style_iter = BatchIterator(style_ds, cfg.batch_size, seed=args.seed)
-        geom_iter = BatchIterator(geom_ds, cfg.batch_size,
-                                  seed=args.seed + 1)
+        # This rank's rows: batch / world items from its index stream.
+        style_iter = BatchIterator(style_ds, local_bs, seed=args.seed,
+                                   rank=rank, num_ranks=num_ranks)
+        geom_iter = BatchIterator(geom_ds, local_bs, seed=args.seed + 1,
+                                  rank=rank, num_ranks=num_ranks)
 
     resume_state = None
     if args.resume:
@@ -355,27 +380,103 @@ def build(argv=None):
         from brushstroke_engine_torch.train.device_dataset import \
             build_device_banks
         device_banks = build_device_banks(style_ds, geom_ds,
-                                          log_fn=logger.info, device=device)
+                                          log_fn=logger.info, mesh=mesh,
+                                          device=device)
 
     loop = TrainingLoop(cfg, enc_params, enc_state, style_iter, geom_iter,
                         run_dir=run_dir, seed=args.seed, hooks=hooks,
                         resume_state=resume_state, snapshot_ticks=args.snap,
                         use_fused=args.fused, device_banks=device_banks,
                         steps_per_dispatch=args.steps_per_dispatch,
-                        profile_dir=args.profile_dir, device=device)
+                        profile_dir=args.profile_dir, mesh=mesh,
+                        device=device)
     return loop, args
 
 
-def main(argv=None):
-    """Run the CLI; returns the finished ``TrainingLoop`` (None for
-    ``--dry-run``)."""
-    built = build(argv)
-    if built is None:
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _under_torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def group_plan(args):
+    """Where and how the ranks of this host meet: ``(coordinator, world,
+    first rank of this host, ranks on this host)``, or None for a plain
+    single-process run and under torchrun (the launcher's environment says
+    it)."""
+    if _under_torchrun():
         return None
-    loop, args = built
-    loop.run(exit_after_warmstart=args.exit_after_warmstart)
-    print(f"Training finished; run dir: {loop.run_dir}")
-    return loop
+    local = max(args.dp, 1)
+    if args.coordinator_address or args.num_processes or \
+            args.process_id >= 0:
+        if not (args.coordinator_address and args.num_processes > 0 and
+                args.process_id >= 0):
+            raise ValueError("the multi-host flags go together: "
+                             "--coordinator_address, --num_processes and "
+                             "--process_id")
+        return (args.coordinator_address, args.num_processes * local,
+                args.process_id * local, local)
+    if args.dp <= 0:
+        return None
+    return f"localhost:{_free_port()}", local, 0, local
+
+
+def _run_rank(local_rank, argv, plan):
+    """One rank: form the group of ``plan`` (or, without one, join
+    torchrun's), train, leave."""
+    import torch.distributed as dist
+    from brushstroke_engine_torch.parallel.distributed import \
+        maybe_initialize_distributed
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=args.log_level)
+    if plan is not None:
+        coordinator, world, first, _ = plan
+        os.environ["LOCAL_RANK"] = str(local_rank)
+        maybe_initialize_distributed(coordinator, world, first + local_rank,
+                                     device=args.device)
+    else:
+        maybe_initialize_distributed(device=args.device)
+    try:
+        loop, args = build(argv)
+        loop.run(exit_after_warmstart=args.exit_after_warmstart)
+        if loop.rank == 0:
+            print(f"Training finished; run dir: {loop.run_dir}")
+        return loop
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def main(argv=None):
+    """Run the CLI; returns the finished ``TrainingLoop`` of this process
+    (None for ``--dry-run`` and when the ranks were spawned)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    if args.dry_run:
+        return build(argv)
+    plan = group_plan(args)
+    if plan is not None and plan[3] > 1:
+        # This host's ranks, one process each; spawn, never fork after CUDA
+        # is touched.
+        import torch
+        import torch.multiprocessing as mp
+        if torch.device(args.device).type == "cuda" and \
+                plan[3] > torch.cuda.device_count():
+            raise RuntimeError(f"--dp {plan[3]} needs {plan[3]} cards; "
+                               f"this host has {torch.cuda.device_count()}")
+        mp.spawn(_run_rank, args=(argv, plan), nprocs=plan[3], join=True)
+        return None
+    if plan is None and not _under_torchrun():
+        loop, args = build(argv)
+        loop.run(exit_after_warmstart=args.exit_after_warmstart)
+        print(f"Training finished; run dir: {loop.run_dir}")
+        return loop
+    return _run_rank(0, argv, plan)
 
 
 if __name__ == "__main__":

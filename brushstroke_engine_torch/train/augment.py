@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from brushstroke_engine_torch.ops.warp import (
     affine_warp_twopass, warp_twopass_plain,
 )
+from brushstroke_engine_torch.parallel.distributed import draw_rows
 
 
 @dataclass(frozen=True)
@@ -133,7 +134,8 @@ def draw_augment(cfg: AugmentConfig, generator, batch: int,
     default generator of ``device``)."""
     fns = {"uniform": torch.rand, "normal": torch.randn}
     gdev = device if generator is None else generator.device
-    return {name: fns[kind](shp, generator=generator, device=gdev).to(device)
+    return {name: draw_rows(fns[kind], shp, generator=generator,
+                            device=gdev).to(device)
             for name, kind, shp in draw_spec(cfg, batch, shape)}
 
 

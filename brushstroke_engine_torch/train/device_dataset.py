@@ -21,7 +21,10 @@ host sync on every batch.  So :func:`gen_crops` draws both crops on the host
 from the loop's seeded numpy stream, with the distribution of the JAX
 ``gen_crops``: two ints per batch, and the step stays free of syncs.
 
-A device mesh (``mesh=``) is not ported (ROADMAP.md item 2.9).
+Under a mesh the banks are replicated on every rank's card (each rank
+decodes the whole dataset), and the index draw is made at the global batch
+from the seeded generator that every rank shares, each rank keeping its
+rows: the ranks together sample the batch one process samples.
 """
 
 from __future__ import annotations
@@ -32,17 +35,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from brushstroke_engine_torch.parallel.distributed import draw_rows
 from brushstroke_engine_torch.utils.util import resolve_device
 
 # Refuse banks that would crowd out the model, the optimizer and the
 # activations.
 DEFAULT_MAX_BANK_BYTES = 6 << 30
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP.md item 2.9)")
 
 
 @dataclass
@@ -57,14 +55,14 @@ def build_device_banks(style_ds, geom_ds, max_bytes: int =
                        DEFAULT_MAX_BANK_BYTES, log_fn=None, mesh=None,
                        device="cuda") -> DeviceBanks:
     """Decode every image of both datasets once and put uint8 banks on
-    ``device``.
+    ``device`` (a group mesh's: the rank's card, each rank holding the whole
+    banks; a local mesh's first device).
 
     ``style_ds`` / ``geom_ds``: len()-able datasets of uniform uint8 HWC
     images (``ImageFolderDataset`` or the synthetic ones).  Banks larger
     than ``max_bytes`` are refused.
     """
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     style = np.stack([style_ds[i] for i in range(len(style_ds))])
     tri = np.stack([geom_ds[i] for i in range(len(geom_ds))])
     if style.dtype != np.uint8 or tri.dtype != np.uint8:
@@ -85,18 +83,21 @@ def build_device_banks(style_ds, geom_ds, max_bytes: int =
 
 def sample_banks(style_bank: torch.Tensor, tri_bank: torch.Tensor,
                  batch_size: int, generator: Optional[torch.Generator] = None,
-                 draws=None, mesh=None):
+                 draws=None):
     """One batch drawn on the banks' device: (style ``[B, r, r, 3]`` f32 in
     [-1, 1], tri ``[B, H, W, 3]`` f32 in [0, 1]), the conversions of
     ``train/dataset.py``.  Indices are i.i.d. uniform with replacement from
-    ``generator``; ``draws = (style_idx, tri_idx)`` replaces them."""
-    _no_mesh(mesh)
+    ``generator``; ``draws = (style_idx, tri_idx)`` replaces them.  Under a
+    data-parallel group ``batch_size`` is this rank's row count and the
+    indices are drawn for the global batch (``draw_rows``)."""
     dev = style_bank.device
     if draws is None:
-        idx_s = torch.randint(0, style_bank.shape[0], (batch_size,),
-                              generator=generator, device=dev)
-        idx_g = torch.randint(0, tri_bank.shape[0], (batch_size,),
-                              generator=generator, device=dev)
+        idx_s = draw_rows(
+            lambda s, **kw: torch.randint(0, style_bank.shape[0], s, **kw),
+            (batch_size,), generator=generator, device=dev)
+        idx_g = draw_rows(
+            lambda s, **kw: torch.randint(0, tri_bank.shape[0], s, **kw),
+            (batch_size,), generator=generator, device=dev)
     else:
         idx_s, idx_g = (
             d.to(dev, torch.long) if isinstance(d, torch.Tensor)

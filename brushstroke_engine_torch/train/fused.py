@@ -38,9 +38,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from brushstroke_engine_torch.parallel.distributed import (
+    draw_rows, rank_context,
+)
+from brushstroke_engine_torch.parallel.mesh import mean_stats
 from brushstroke_engine_torch.train import steps as ts
 from brushstroke_engine_torch.train.device_dataset import (
-    _no_mesh, crop_tri, gen_crops, sample_banks,
+    crop_tri, gen_crops, sample_banks,
 )
 from brushstroke_engine_torch.train.state import TrainConfig
 from brushstroke_engine_torch.train.stitching import RandomStitcher
@@ -100,6 +104,12 @@ def ema_beta_f32(cfg: TrainConfig, nimg) -> float:
         np.float32(ema_nimg), np.float32(1e-8))))
 
 
+def _global(out):
+    """(state, stats) with the stats' mean over the active ranks."""
+    state, stats = out
+    return state, mean_stats(stats)
+
+
 def make_fused_train_step(cfg: TrainConfig, device_data: bool = False,
                           chunk: int = 0, crop_margin: int = 10,
                           min_overlap: int = 50, mesh=None):
@@ -125,10 +135,24 @@ def make_fused_train_step(cfg: TrainConfig, device_data: bool = False,
     ``rng``: the device ``torch.Generator`` of latents, noise, augment and
     bank draws.  ``g_orig_params``: the frozen original generator, which
     the warm and Ggeom phases need when their losses read ``fake_orig``
-    (the clarity finetune).  A device mesh (``mesh=``) is not ported
-    (ROADMAP.md item 2.9).
+    (the clarity finetune).
+
+    ``mesh``: a group mesh (``parallel.mesh.make_mesh`` over a process
+    group), in every mode: the data are this rank's rows (host data) or
+    this rank's rows of the global bank draw, every draw is made at the
+    global batch and sliced, each phase's gradients are averaged over the
+    ranks, and the stats come back as their global means
+    (``parallel.distributed``).  A local mesh of one device is the same as
+    none.
     """
-    _no_mesh(mesh)
+    if mesh is not None and mesh.group is None and mesh.size > 1:
+        raise ValueError("training runs one card per process: make the "
+                         "mesh over a process group")
+    ranks = mesh.ranks() if mesh is not None else None
+    local_batch = cfg.batch_size // (ranks.world if ranks else 1)
+    if local_batch * (ranks.world if ranks else 1) != cfg.batch_size:
+        raise ValueError(f"batch {cfg.batch_size} does not split over "
+                         f"{ranks.world} ranks")
     if chunk and not device_data:
         raise ValueError("chunk > 0 needs device_data=True (per-batch data "
                          "must live on the device)")
@@ -145,7 +169,7 @@ def make_fused_train_step(cfg: TrainConfig, device_data: bool = False,
         cfg.losses("warmstart").require_original_fake_image()
     needs_orig_geom = geom_step is not None and \
         cfg.losses("geom").require_original_fake_image()
-    rounds = ts._num_rounds(cfg, cfg.batch_size)
+    rounds = ts._num_rounds(cfg, local_batch)
     res = cfg.gen_cfg.img_resolution
 
     def core(state, enc_params, enc_state, real_img, geom_input, geom_truth,
@@ -158,7 +182,8 @@ def make_fused_train_step(cfg: TrainConfig, device_data: bool = False,
         def z(name):
             if name in d:
                 return d[name].to(dev)
-            return torch.randn((n, zdim), generator=rng, device=dev)
+            return draw_rows(torch.randn, (n, zdim), generator=rng,
+                             device=dev)
 
         def pd(name, rounded=True):
             """The draws of a phase; the loss DSL's crops come from
@@ -227,9 +252,11 @@ def make_fused_train_step(cfg: TrainConfig, device_data: bool = False,
                  host_rng=None, geom_input2=None, crop1=None, crop2=None,
                  g_orig_params=None):
             need_stitch_data(geom_input2, crop1, crop2)
-            return core(state, enc_params, enc_state, real_img, geom_input,
-                        geom_truth, batch_idx, warm, ema_beta, rng, draws,
-                        host_rng, geom_input2, crop1, crop2, g_orig_params)
+            with rank_context(ranks):
+                return _global(core(
+                    state, enc_params, enc_state, real_img, geom_input,
+                    geom_truth, batch_idx, warm, ema_beta, rng, draws,
+                    host_rng, geom_input2, crop1, crop2, g_orig_params))
 
         return step
 
@@ -237,7 +264,7 @@ def make_fused_train_step(cfg: TrainConfig, device_data: bool = False,
                 batch_idx, warm, ema_beta, crop1, crop2, rng, draws,
                 host_rng, g_orig_params):
         need_stitch_data(crop1, crop2)
-        real_img, tri = sample_banks(style_bank, tri_bank, cfg.batch_size,
+        real_img, tri = sample_banks(style_bank, tri_bank, local_batch,
                                      rng, (draws or {}).get("bank"))
         geom_input, geom_truth = crop_tri(tri, crop1, res)
         geom_input2 = crop_tri(tri, crop2, res)[0] if stitching else None
@@ -250,9 +277,11 @@ def make_fused_train_step(cfg: TrainConfig, device_data: bool = False,
                         batch_idx, warm, ema_beta, crop1, crop2=None,
                         rng=None, draws=None, host_rng=None,
                         g_orig_params=None):
-            return sampled(state, enc_params, enc_state, style_bank,
-                           tri_bank, batch_idx, warm, ema_beta, crop1, crop2,
-                           rng, draws, host_rng, g_orig_params)
+            with rank_context(ranks):
+                return _global(sampled(
+                    state, enc_params, enc_state, style_bank, tri_bank,
+                    batch_idx, warm, ema_beta, crop1, crop2, rng, draws,
+                    host_rng, g_orig_params))
 
         return device_step
 
@@ -267,19 +296,21 @@ def make_fused_train_step(cfg: TrainConfig, device_data: bool = False,
             raise ValueError(f"a chunk of {chunk} batches needs {chunk} "
                              f"draws")
         per = []
-        for i in range(chunk):
-            nimg = float(np.float32(nimg0 + i * cfg.batch_size))
-            warm = warm_step is not None and nimg >= warm_start and \
-                nimg - warm_start < warm_len
-            crop1, crop2 = gen_crops(host_rng, tri_hw, res, stitching,
-                                     crop_margin, min_overlap)
-            state, s = sampled(
-                state, enc_params, enc_state, style_bank, tri_bank,
-                batch_idx0 + i, warm, ema_beta_f32(cfg, nimg), crop1, crop2,
-                rng, None if draws is None else draws[i], host_rng,
-                g_orig_params)
-            per.append(s)
-        return state, {k: torch.stack([torch.as_tensor(p[k]).float()
-                                       for p in per]) for k in per[0]}
+        with rank_context(ranks):
+            for i in range(chunk):
+                nimg = float(np.float32(nimg0 + i * cfg.batch_size))
+                warm = warm_step is not None and nimg >= warm_start and \
+                    nimg - warm_start < warm_len
+                crop1, crop2 = gen_crops(host_rng, tri_hw, res, stitching,
+                                         crop_margin, min_overlap)
+                state, s = sampled(
+                    state, enc_params, enc_state, style_bank, tri_bank,
+                    batch_idx0 + i, warm, ema_beta_f32(cfg, nimg), crop1,
+                    crop2, rng, None if draws is None else draws[i],
+                    host_rng, g_orig_params)
+                per.append(s)
+            return state, mean_stats(
+                {k: torch.stack([torch.as_tensor(p[k]).float() for p in per])
+                 for k in per[0]})
 
     return chunk_step

@@ -35,8 +35,29 @@ chunk's stats are ``[K]``).  ``profile_dir`` writes a ``torch.profiler``
 trace of batches ``profile_batches`` (Chrome trace JSON: Perfetto,
 TensorBoard's profiler plugin).
 
-Not ported yet, and raising where asked for: a device mesh (ROADMAP.md item
-2.9) and the Orbax train-state backend.
+Data parallelism (the JAX loop's ``mesh``): ``mesh`` is a group mesh
+(``parallel.mesh.make_mesh`` after ``parallel.distributed.
+maybe_initialize_distributed``), one card per rank.  The batch size must
+divide by the world; the state and the encoder are broadcast from rank 0;
+the host iterators give this rank's rows (``infinite_indices(rank=,
+num_ranks=)``), the host normals are drawn for the global batch and
+sliced, and every step runs under the group's rank context
+(``parallel/distributed.py``), so the ranks together take the step one
+process takes at the same global batch.  Rank 0 alone writes
+``stats.jsonl``, TensorBoard, the snapshots and the train state and runs
+the eval hooks; the others wait at a barrier where they must.
+
+``save_train_state`` / ``load_train_state(backend="orbax")``: the JAX
+package's tensor-wise backend, for large state and multi-rank saves.  The
+name is kept so that callers port unchanged, but the format is
+``torch.distributed.checkpoint`` (DCP), not Orbax's: the card's machine has
+no ``orbax``.  A directory (default ``run_dir/train_state_orbax``) holds the
+state, the counters and the device generator's state, one tensor each;
+``<dir>.nprng.pkl`` beside it holds the numpy and stitch streams, as the
+JAX package keeps its numpy stream there.  It round-trips bitwise, is
+written once under a group (rank 0) and read on every rank, and does not
+depend on the world that wrote it: a state saved by 2 ranks resumes in 1,
+and the other way round.
 """
 
 from __future__ import annotations
@@ -46,6 +67,7 @@ import logging
 import os
 import pickle
 import random
+import shutil
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
@@ -53,6 +75,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from brushstroke_engine_torch.parallel.distributed import rank_context
+from brushstroke_engine_torch.parallel.mesh import mean_stats, replicate
 from brushstroke_engine_torch.train import steps as train_steps
 from brushstroke_engine_torch.train.dataset import (
     geom_batch_to_float, style_batch_to_float,
@@ -119,10 +143,21 @@ class TrainingLoop:
                  steps_per_dispatch: int = 1, profile_dir=None,
                  profile_batches=(10, 13), snapshot_ticks: int = 1,
                  device="cuda"):
+        if mesh is not None and mesh.group is None and mesh.size > 1:
+            raise ValueError("training runs one card per process: make the "
+                             "mesh over a process group (make_mesh after "
+                             "maybe_initialize_distributed)")
+        # One card per rank: rank / num_ranks shard the host data, rank 0
+        # persists.  No mesh, or a local mesh of one device: (0, 1).
+        self.mesh = mesh
+        self._ranks = mesh.ranks() if mesh is not None else None
+        self.rank, self.num_ranks = (self._ranks.rank, self._ranks.world) \
+            if self._ranks is not None else (0, 1)
+        if cfg.batch_size % self.num_ranks:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                             f"{self.num_ranks} ranks")
         if mesh is not None:
-            raise NotImplementedError(
-                "TrainingLoop(mesh=...): a device mesh is not ported yet "
-                "(ROADMAP.md item 2.9)")
+            device = mesh.devices[0]
         if device_banks is not None and not use_fused:
             raise ValueError("device_banks requires use_fused=True")
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
@@ -154,6 +189,12 @@ class TrainingLoop:
         self.state = tree_to(resume_state, self.device) \
             if resume_state is not None else \
             init_train_state(cfg, seed, device=self.device)
+        if self._ranks is not None:
+            # Replicated from rank 0, as the JAX loop replicates over its
+            # mesh.
+            self.state = replicate(mesh, self.state)
+            self.enc_params = replicate(mesh, self.enc_params)
+            self.enc_state = replicate(mesh, self.enc_state)
         # Host stream: latents, crops and loss crops.  Device stream: noise
         # planes, style mixing and augment draws, made where they are used.
         self.rng = np.random.default_rng(seed)
@@ -176,7 +217,7 @@ class TrainingLoop:
             from brushstroke_engine_torch.train.fused import \
                 make_fused_train_step
             self.fused_step = make_fused_train_step(
-                cfg, device_data=device_banks is not None,
+                cfg, device_data=device_banks is not None, mesh=mesh,
                 chunk=self.steps_per_dispatch
                 if self.steps_per_dispatch > 1 else 0,
                 crop_margin=self.stitcher.crop_margin,
@@ -192,11 +233,13 @@ class TrainingLoop:
         # TensorBoard events beside stats.jsonl, where the package is
         # installed.
         self.tb_writer = None
-        try:
-            from torch.utils.tensorboard import SummaryWriter
-            self.tb_writer = SummaryWriter(log_dir=run_dir)
-        except ImportError:
-            logger.info("TensorBoard unavailable; writing stats.jsonl only")
+        if self.rank == 0:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.tb_writer = SummaryWriter(log_dir=run_dir)
+            except ImportError:
+                logger.info(
+                    "TensorBoard unavailable; writing stats.jsonl only")
         self._last_stats: Dict[str, float] = {}
         self._last_snapshot_sec: Optional[float] = None
         # Eval-hook failures, reported in the tick stats as
@@ -225,11 +268,97 @@ class TrainingLoop:
     def save_train_state(self, path: Optional[str] = None,
                          backend: str = "pickle") -> str:
         """Write the whole resumable state (see the module doc) to ``path``
-        (default ``run_dir/train_state.pkl``), atomically."""
-        if backend != "pickle":
-            raise NotImplementedError(
-                f"the {backend!r} train-state backend is not ported yet")
-        return self._write_train_state(path, self.cur_tick)
+        (default ``run_dir/train_state.pkl``, or ``run_dir/
+        train_state_orbax`` for ``backend="orbax"``), atomically; under a
+        group rank 0 writes and every rank returns once it has."""
+        if backend not in ("pickle", "orbax"):
+            raise ValueError(f"unknown train-state backend {backend!r}")
+        if backend == "orbax":
+            path = path or os.path.join(self.run_dir, "train_state_orbax")
+            write = self._write_tensorwise
+        else:
+            path = path or os.path.join(self.run_dir, "train_state.pkl")
+            write = self._write_train_state
+        if self.rank == 0:
+            write(path, self.cur_tick)
+        self._barrier()
+        return path
+
+    def _barrier(self):
+        """Wait for every rank (nothing without a group)."""
+        if self._ranks is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self._ranks.group)
+
+    def _tensorwise_payload(self, cur_tick: int):
+        """The flat ``{key: tensor}`` of the tensor-wise backend: the state
+        leaves (ints as int64 0-d tensors), the counters and the device
+        generator's state."""
+        flat = {}
+
+        def walk(t, prefix):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, f"{prefix}/{k}")
+            elif isinstance(t, torch.Tensor):
+                flat[prefix] = t.detach().to("cpu", copy=True)
+            else:
+                flat[prefix] = torch.tensor(int(t), dtype=torch.int64)
+
+        walk(self.state, "state")
+        for k, v in (("cur_nimg", self.cur_nimg),
+                     ("batch_idx", self.batch_idx), ("cur_tick", cur_tick)):
+            flat[f"counters/{k}"] = torch.tensor(int(v), dtype=torch.int64)
+        flat["rng/device"] = self.device_rng.get_state()
+        return flat
+
+    def _write_tensorwise(self, path: str, cur_tick: int) -> str:
+        import torch.distributed.checkpoint as dcp
+        tmp = path + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        dcp.save(self._tensorwise_payload(cur_tick), checkpoint_id=tmp,
+                 no_dist=True)
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+        with open(path + ".nprng.pkl.tmp", "wb") as f:
+            pickle.dump({"magic": TRAIN_STATE_MAGIC,
+                         "np_rng": self.rng.bit_generator.state,
+                         "stitch_rng": self.stitch_rng.getstate()}, f,
+                        protocol=4)
+        os.replace(path + ".nprng.pkl.tmp", path + ".nprng.pkl")
+        return path
+
+    def _load_tensorwise(self, path: str) -> bool:
+        import torch.distributed.checkpoint as dcp
+        if not os.path.isdir(path):
+            return False
+        with open(path + ".nprng.pkl", "rb") as f:
+            streams = pickle.load(f)
+        if streams.get("magic") != TRAIN_STATE_MAGIC:
+            raise ValueError(f"not a train state of this package: {path}")
+        # The current state is the template: same configuration, same
+        # leaves; DCP fills its copies in place.
+        flat = {k: torch.empty_like(v)
+                for k, v in self._tensorwise_payload(0).items()}
+        dcp.load(flat, checkpoint_id=path, no_dist=True)
+
+        def build(t, prefix):
+            if isinstance(t, dict):
+                return {k: build(v, f"{prefix}/{k}") for k, v in t.items()}
+            if isinstance(t, torch.Tensor):
+                return flat[prefix].to(self.device)
+            return int(flat[prefix])
+
+        self.state = build(self.state, "state")
+        self.cur_nimg = int(flat["counters/cur_nimg"])
+        self.batch_idx = int(flat["counters/batch_idx"])
+        self.cur_tick = int(flat["counters/cur_tick"])
+        self.device_rng.set_state(flat["rng/device"])
+        self.rng.bit_generator.state = streams["np_rng"]
+        self.stitch_rng.setstate(streams["stitch_rng"])
+        logger.info("Resumed training state (tensor-wise) at %d kimg",
+                    self.cur_nimg // 1000)
+        return True
 
     def _write_train_state(self, path: Optional[str], cur_tick: int) -> str:
         path = path or os.path.join(self.run_dir, "train_state.pkl")
@@ -251,11 +380,13 @@ class TrainingLoop:
 
     def load_train_state(self, path: Optional[str] = None,
                          backend: str = "pickle") -> bool:
-        """Restore what :meth:`save_train_state` wrote; False if there is no
-        file."""
-        if backend != "pickle":
-            raise NotImplementedError(
-                f"the {backend!r} train-state backend is not ported yet")
+        """Restore what :meth:`save_train_state` wrote (every rank reads
+        it); False if there is none."""
+        if backend not in ("pickle", "orbax"):
+            raise ValueError(f"unknown train-state backend {backend!r}")
+        if backend == "orbax":
+            return self._load_tensorwise(
+                path or os.path.join(self.run_dir, "train_state_orbax"))
         path = path or os.path.join(self.run_dir, "train_state.pkl")
         if not os.path.isfile(path):
             return False
@@ -304,9 +435,14 @@ class TrainingLoop:
         return torch.as_tensor(np.asarray(x), device=self.device)
 
     def _host_normal(self, n: int, dim: int):
-        """``[n, dim]`` normal draw from the host stream, on the device."""
-        return self._data(
-            np.asarray(self.rng.standard_normal((n, dim)), np.float32))
+        """``[n, dim]`` normal draw from the host stream, on the device:
+        under a group every rank draws the same global array and keeps its
+        rows, as the JAX loop does."""
+        x = np.asarray(self.rng.standard_normal((n, dim)), np.float32)
+        if self.num_ranks > 1:
+            local = n // self.num_ranks
+            x = x[self.rank * local:(self.rank + 1) * local]
+        return self._data(x)
 
     def _ema_beta(self) -> float:
         ema_nimg = self.cfg.ema_kimg * 1000.0
@@ -385,7 +521,7 @@ class TrainingLoop:
         ``profile_batches[0]`` on; stop it and write the trace at the first
         dispatch boundary from ``profile_batches[1]`` on, or when the run
         ends."""
-        if self.profile_dir is None or self._profiled:
+        if self.profile_dir is None or self._profiled or self.rank != 0:
             return
         start, stop = self.profile_batches
         if self._profiler is not None:
@@ -445,73 +581,76 @@ class TrainingLoop:
             ema_beta = self._ema_beta()
             bs, zd = cfg.batch_size, cfg.gen_cfg.z_dim
 
-            if self.fused_step is None:
-                style, tri_full, crop1, geom_input, geom_truth = \
-                    self._fetch_batch()
-                feats = train_steps.encode_geometry(
-                    cfg, self.enc_params, self.enc_state,
-                    self._data(geom_input))
-                geom_truth_t = self._data(geom_truth)
-                phase_t0[0] = time.time()
-            if self.fused_step is not None:
-                self.state, s = self._fused_call(warm, ema_beta)
-                note(s, "fused")
-            elif warm:
-                z = self._host_normal(bs, zd)
-                self.state, s = self.warm_step(
-                    self.state, feats, geom_truth_t, z, rng, ema_beta,
-                    g_orig_params=self.g_orig_params, draws=loss_draws)
-                note(s, "Ggeom-warm")
-            else:
-                style_t = self._data(style)
-                z = self._host_normal(bs, zd)
-                self.state, s = train_steps.d_main_step(
-                    cfg, self.state, style_t, feats, z, rng)
-                note(s, "Dmain")
-                if cfg.d_reg_interval > 0 and \
-                        self.batch_idx % cfg.d_reg_interval == 0:
-                    self.state, s = train_steps.d_reg_step(
-                        cfg, self.state, style_t, rng)
-                    note(s, "Dreg")
-                z = self._host_normal(bs, zd)
-                self.state, s = train_steps.g_main_step(
-                    cfg, self.state, feats, geom_truth_t, z, rng, ema_beta,
-                    draws=None if train_steps._num_rounds(cfg, bs) > 1
-                    else loss_draws)
-                note(s, "Gmain")
-                if cfg.g_reg_interval > 0 and \
-                        self.batch_idx % cfg.g_reg_interval == 0:
+            # Every phase of the batch runs over the group's ranks (the
+            # fused step enters the same context itself).
+            with rank_context(self._ranks):
+                if self.fused_step is None:
+                    style, tri_full, crop1, geom_input, geom_truth = \
+                        self._fetch_batch()
+                    feats = train_steps.encode_geometry(
+                        cfg, self.enc_params, self.enc_state,
+                        self._data(geom_input))
+                    geom_truth_t = self._data(geom_truth)
+                    phase_t0[0] = time.time()
+                if self.fused_step is not None:
+                    self.state, s = self._fused_call(warm, ema_beta)
+                    note(s, "fused")
+                elif warm:
                     z = self._host_normal(bs, zd)
-                    self.state, s = train_steps.g_reg_step(
-                        cfg, self.state, feats, z, rng, ema_beta)
-                    note(s, "Greg")
-                if self.stitch_on and \
-                        self.batch_idx % cfg.stitch_interval == 0:
-                    crop2 = self.stitcher.gen_overlapping_square_crop(
-                        tri_full.shape[1], crop1, self.stitch_rng)
-                    g2 = tri_full[:, crop2[0]:crop2[0] + crop2[2],
-                                  crop2[1]:crop2[1] + crop2[3], 1:2]
-                    feats2 = train_steps.encode_geometry(
-                        cfg, self.enc_params, self.enc_state, self._data(g2))
-                    z = self._host_normal(bs, zd)
-                    self.state, s = train_steps.g_stitch_step(
-                        cfg, self.state, feats, feats2, z, crop1, crop2, rng,
-                        ema_beta, stitcher=self.stitcher)
-                    note(s, "Gstitch")
-                if self.geom_step is not None and \
-                        self.batch_idx % cfg.geom_interval == 0:
-                    z = self._host_normal(bs, zd)
-                    self.state, s = self.geom_step(
+                    self.state, s = self.warm_step(
                         self.state, feats, geom_truth_t, z, rng, ema_beta,
                         g_orig_params=self.g_orig_params, draws=loss_draws)
-                    note(s, "Ggeom")
-                if cfg.augment is not None and \
-                        self.batch_idx % cfg.ada_interval == 0 and \
-                        self.batch_idx > 0:
-                    self.state = train_steps.ada_update(
-                        cfg, self.state,
-                        float(cfg.batch_size * cfg.ada_interval))
-                    note({}, "ada")
+                    note(s, "Ggeom-warm")
+                else:
+                    style_t = self._data(style)
+                    z = self._host_normal(bs, zd)
+                    self.state, s = train_steps.d_main_step(
+                        cfg, self.state, style_t, feats, z, rng)
+                    note(s, "Dmain")
+                    if cfg.d_reg_interval > 0 and \
+                            self.batch_idx % cfg.d_reg_interval == 0:
+                        self.state, s = train_steps.d_reg_step(
+                            cfg, self.state, style_t, rng)
+                        note(s, "Dreg")
+                    z = self._host_normal(bs, zd)
+                    self.state, s = train_steps.g_main_step(
+                        cfg, self.state, feats, geom_truth_t, z, rng, ema_beta,
+                        draws=None if train_steps._num_rounds(cfg, bs) > 1
+                        else loss_draws)
+                    note(s, "Gmain")
+                    if cfg.g_reg_interval > 0 and \
+                            self.batch_idx % cfg.g_reg_interval == 0:
+                        z = self._host_normal(bs, zd)
+                        self.state, s = train_steps.g_reg_step(
+                            cfg, self.state, feats, z, rng, ema_beta)
+                        note(s, "Greg")
+                    if self.stitch_on and \
+                            self.batch_idx % cfg.stitch_interval == 0:
+                        crop2 = self.stitcher.gen_overlapping_square_crop(
+                            tri_full.shape[1], crop1, self.stitch_rng)
+                        g2 = tri_full[:, crop2[0]:crop2[0] + crop2[2],
+                                      crop2[1]:crop2[1] + crop2[3], 1:2]
+                        feats2 = train_steps.encode_geometry(
+                            cfg, self.enc_params, self.enc_state, self._data(g2))
+                        z = self._host_normal(bs, zd)
+                        self.state, s = train_steps.g_stitch_step(
+                            cfg, self.state, feats, feats2, z, crop1, crop2, rng,
+                            ema_beta, stitcher=self.stitcher)
+                        note(s, "Gstitch")
+                    if self.geom_step is not None and \
+                            self.batch_idx % cfg.geom_interval == 0:
+                        z = self._host_normal(bs, zd)
+                        self.state, s = self.geom_step(
+                            self.state, feats, geom_truth_t, z, rng, ema_beta,
+                            g_orig_params=self.g_orig_params, draws=loss_draws)
+                        note(s, "Ggeom")
+                    if cfg.augment is not None and \
+                            self.batch_idx % cfg.ada_interval == 0 and \
+                            self.batch_idx > 0:
+                        self.state = train_steps.ada_update(
+                            cfg, self.state,
+                            float(cfg.batch_size * cfg.ada_interval))
+                        note({}, "ada")
 
             self.cur_nimg += cfg.batch_size * self.steps_per_dispatch
             self.batch_idx += self.steps_per_dispatch
@@ -529,6 +668,9 @@ class TrainingLoop:
             # One readback per tick: each key keeps its most recent finite
             # value (the fused step reports NaN for the phases it skipped,
             # and a chunk's stats are [K]).
+            if self.fused_step is None:
+                with rank_context(self._ranks):
+                    stats = mean_stats(stats)
             stats = _fetch_stats(stats)
             stats["Progress/tick"] = self.cur_tick
             stats["Progress/kimg"] = self.cur_nimg / 1e3
@@ -543,8 +685,9 @@ class TrainingLoop:
                 self._last_snapshot_sec = None
             for name, cnt in self.hook_failure_counts.items():
                 stats[f"Eval/{name}_failures"] = cnt
-            with open(self.stats_path, "a") as f:
-                f.write(json.dumps(stats) + "\n")
+            if self.rank == 0:
+                with open(self.stats_path, "a") as f:
+                    f.write(json.dumps(stats) + "\n")
             if self.tb_writer is not None:
                 for k, v in stats.items():
                     self.tb_writer.add_scalar(k, v, self.cur_nimg)
@@ -552,7 +695,7 @@ class TrainingLoop:
             logger.info("tick %d kimg %.1f %s", self.cur_tick,
                         self.cur_nimg / 1e3,
                         {k: round(v, 4) for k, v in list(stats.items())[:6]})
-            if self.hooks.on_tick is not None:
+            if self.hooks.on_tick is not None and self.rank == 0:
                 self.hooks.on_tick(self, stats)
             if progress_fn is not None:
                 progress_fn(self.cur_nimg, total_kimg * 1000)
@@ -560,15 +703,19 @@ class TrainingLoop:
                 logger.info("Aborting at user request (abort_fn)")
                 done = True
 
+            # Rank 0 persists (the state is replicated); the others wait
+            # for the files.
             if done or self.cur_tick % self.snapshot_ticks == 0:
-                t_snap = time.time()
-                snap_path = self.save_snapshot()
-                # A resumed run starts at the next tick, so that it does not
-                # repeat this tick's number.
-                self._write_train_state(None, self.cur_tick + 1)
-                self._last_snapshot_sec = time.time() - t_snap
-                if self.hooks.on_snapshot is not None:
-                    self.hooks.on_snapshot(self, snap_path)
+                if self.rank == 0:
+                    t_snap = time.time()
+                    snap_path = self.save_snapshot()
+                    # A resumed run starts at the next tick, so that it does
+                    # not repeat this tick's number.
+                    self._write_train_state(None, self.cur_tick + 1)
+                    self._last_snapshot_sec = time.time() - t_snap
+                    if self.hooks.on_snapshot is not None:
+                        self.hooks.on_snapshot(self, snap_path)
+                self._barrier()
 
             self.cur_tick += 1
             tick_start_nimg = self.cur_nimg

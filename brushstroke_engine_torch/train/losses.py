@@ -33,6 +33,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from brushstroke_engine_torch.parallel.distributed import (
+    all_reduce_sum, batch_mean,
+)
+
 _FUNCTION_PATTERN = re.compile(r"(\w*)\((\w*)(,[a-zA-Z0-9_,=\.]*)?\)")
 VALID_COMPONENTS = {"canvas", "uvs", "u", "alpha", "fake_img", "color_0",
                     "color_1", "color_2", "fake_orig", "fake_composite",
@@ -54,7 +58,12 @@ def triband_mask(truth):
 
 
 def masked_mean(value, mask):
-    return (value * mask).sum() / torch.clamp_min(mask.sum(), 1e-8)
+    """A ratio of batch sums: under a data-parallel group both sums are the
+    global batch's (``all_reduce_sum``: the value is the global one on every
+    rank, and the backward sums the ranks' cotangents, so the mean of the
+    ranks' gradients is the single process's)."""
+    return all_reduce_sum((value * mask).sum()) / torch.clamp_min(
+        all_reduce_sum(mask.sum()), 1e-8)
 
 
 def get_foreground(debug_data, component):
@@ -178,7 +187,8 @@ def _rgb_loss(item, dd, geom_truth, rng):
     inpt = inpt * 0.5 + 0.5
     target = torch.tensor([r, g, b], dtype=torch.float32, device=inpt.device)
     if mean_rgb:
-        inpt = inpt.mean(dim=tuple(range(inpt.ndim - 1)))
+        # A mean over every row: the global batch's under a group.
+        inpt = batch_mean(inpt, dim=tuple(range(inpt.ndim - 1)))
     return loss(inpt, target.expand(inpt.shape))
 
 

@@ -23,6 +23,14 @@ hand both packages the same numbers):
 
 With gradient accumulation (``cfg.batch_gpu``) ``draws`` is a list, one dict
 per round.  Stats are 0-d tensors on the device; nothing is read back.
+
+Under a data-parallel group (``parallel.distributed.rank_context``, entered
+by the mesh's steps) each phase sees this rank's rows of the global batch:
+the gradients are averaged over the ranks in one flattened all-reduce before
+the scrub, as the JAX package's global gradient is scrubbed; the ADA sign
+counts are the global batch's; Gpl runs on the global first ``B //
+pl_batch_shrink`` rows, each rank its even share of them, with the global
+``pl_lengths`` mean; the draws are made at the global shape and sliced.
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ from brushstroke_engine_torch.models.generator import (
 from brushstroke_engine_torch.models.geo_encoder import geo_encoder_encode
 from brushstroke_engine_torch.models.mapping import mapping_apply, \
     update_w_avg
+from brushstroke_engine_torch.parallel.distributed import (
+    all_gather_rows, all_reduce_sum, batch_mean, draw_rows,
+    mean_over_ranks_, num_ranks, rows_of,
+)
 from brushstroke_engine_torch.train.augment import augment_pipe, draw_augment
 from brushstroke_engine_torch.train.state import TrainConfig, make_optimizers
 from brushstroke_engine_torch.utils.util import (
@@ -93,7 +105,9 @@ def _grads(loss, params):
 def _apply_updates(opt, params, grads, opt_state, mask=None):
     """One Adam step on scrubbed gradients.  ``mask`` (a tree of bools)
     zeroes the gradients and the updates of frozen tensors, so their values
-    stay exactly as they were."""
+    stay exactly as they were.  Under a group the gradients are first
+    averaged over the ranks (one flattened bucket)."""
+    grads = tree_unflatten(grads, mean_over_ranks_(tree_leaves(grads)))
     grads = tree_map(lambda g: torch.nan_to_num(g, nan=0.0, posinf=1e5,
                                                 neginf=-1e5), grads)
     if mask is not None:
@@ -147,6 +161,10 @@ def _accum_grads(loss_fn, params, batch_tree, draws, rounds: int):
     of per-round aux, mean grads).
     """
     params = _trainable(params)
+    if rounds > 1 and num_ranks() > 1:
+        raise ValueError("gradient accumulation (batch_gpu) is not combined "
+                         "with a data-parallel group: each rank's rows are "
+                         "one round")
     if rounds == 1:
         loss, aux = loss_fn(params, batch_tree, draws or {})
         return loss.detach(), [aux], _grads(loss, params)
@@ -206,8 +224,9 @@ def d_main_step(cfg: TrainConfig, state, real_img, geom_feats, z, rng=None,
                                     state["d_opt"])
     signs = torch.sign(real_logits)
     state = dict(state, d_params=new_d, d_opt=new_opt,
-                 ada_signs=state["ada_signs"] + signs.sum(),
-                 ada_count=state["ada_count"] + real_logits.shape[0])
+                 ada_signs=state["ada_signs"] + all_reduce_sum(signs.sum()),
+                 ada_count=state["ada_count"]
+                 + real_logits.shape[0] * num_ranks())
     stats = {"Loss/D/loss": loss,
              "Loss/scores/fake": gen_logits.mean(),
              "Loss/scores/real": real_logits.mean(),
@@ -294,9 +313,19 @@ def g_reg_step(cfg: TrainConfig, state, geom_feats, z, rng=None,
     through the generator."""
     g_opt, _, _ = make_optimizers(cfg)
     gain = float(cfg.g_reg_interval)
-    bs = z.shape[0] // cfg.pl_batch_shrink
-    z = z[:bs]
-    geom_feats = [f[:bs] for f in geom_feats]
+    world = num_ranks()
+    bs = z.shape[0] * world // cfg.pl_batch_shrink
+    if world == 1:
+        z = z[:bs]
+        geom_feats = [f[:bs] for f in geom_feats]
+    else:
+        # The global first bs rows, each rank its even share of them.
+        if bs % world:
+            raise ValueError(f"{bs} path-length rows do not split over "
+                             f"{world} ranks")
+        mine = rows_of(bs // world)
+        z = all_gather_rows(z)[:bs][mine]
+        geom_feats = [all_gather_rows(f)[:bs][mine] for f in geom_feats]
     draws = draws or {}
     g_draws = draws.get("g") or {}
     g_state = {"w_avg": state["w_avg"], "noise": state["noise"]}
@@ -320,8 +349,8 @@ def g_reg_step(cfg: TrainConfig, state, geom_feats, z, rng=None,
         random_noise=g_draws.get("noise"))
     pl_noise = draws.get("pl_noise")
     if pl_noise is None:
-        pl_noise = torch.randn(
-            img.shape, generator=rng,
+        pl_noise = draw_rows(
+            torch.randn, img.shape, generator=rng,
             device=img.device if rng is None else rng.device).to(img.device)
     pl_noise = pl_noise / float(img.shape[1] * img.shape[2]) ** 0.5
 
@@ -331,7 +360,7 @@ def g_reg_step(cfg: TrainConfig, state, geom_feats, z, rng=None,
                                       create_graph=True)
     pl_lengths = torch.sqrt(pl_grads.square().sum(dim=2).mean(dim=1))
     pl_mean = state["pl_mean"] + cfg.pl_decay * \
-        (pl_lengths.mean() - state["pl_mean"])
+        (batch_mean(pl_lengths) - state["pl_mean"])
     pl_penalty = (pl_lengths - pl_mean).square()
     loss = pl_penalty.mean() * cfg.pl_weight * gain
 

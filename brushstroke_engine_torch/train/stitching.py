@@ -25,6 +25,7 @@ import torch
 
 from brushstroke_engine_torch.engine.areas import gen_overlapping_square_crop
 from brushstroke_engine_torch.models.generator import generator_apply
+from brushstroke_engine_torch.parallel.distributed import draw_rows
 
 
 def translate_image(img, dy: int, dx: int):
@@ -63,8 +64,9 @@ def draw_positions(rng: Optional[torch.Generator], batch: int,
     """The first crop's canvas positions, ``[batch, 2]`` ints in
     ``[0, img_resolution - 1)`` as the JAX stitcher draws them."""
     gen_dev = device if rng is None else rng.device
-    return torch.randint(0, img_resolution - 1, (batch, 2), generator=rng,
-                         device=gen_dev).to(device)
+    return draw_rows(
+        lambda s, **kw: torch.randint(0, img_resolution - 1, s, **kw),
+        (batch, 2), generator=rng, device=gen_dev).to(device)
 
 
 @dataclass

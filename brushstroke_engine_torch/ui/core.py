@@ -846,15 +846,27 @@ class ServingCore:
 def create_core(encoder_checkpoint=None, gan_checkpoint=None, debug_dir=None,
                 style_seed=None, enable_z_saving=False, library_specs=None,
                 use_device_canvas=False, batch_window_ms: float = 0.0,
-                paint_engine=None, device="cuda") -> ServingCore:
+                paint_engine=None, device="cuda",
+                serve_devices: int = 0) -> ServingCore:
     """The engine and library set-up of the JAX ``create_server``, without
     the web application.  Runs on ``device``: raises without CUDA unless
-    ``device="cpu"``."""
+    ``device="cpu"``.  ``serve_devices`` N > 0 splits the batched renders
+    over the first N cards (a local mesh, ``parallel/mesh.py``; N entries
+    of the CPU with ``device="cpu"``); it raises when fewer exist."""
     resolve_device(device)
     engine = paint_engine if paint_engine is not None else \
         PaintEngineFactory.create(gan_checkpoint,
                                   encoder_checkpoint=encoder_checkpoint,
                                   device=device)
+    if serve_devices > 0:
+        from brushstroke_engine_torch.parallel.mesh import make_mesh
+        if not hasattr(engine, "set_serving_mesh"):
+            raise ValueError(f"{type(engine).__name__} renders on one "
+                             f"device; --serve_devices needs a GAN engine")
+        engine.set_serving_mesh(make_mesh(serve_devices, device=device,
+                                          local=True))
+        logger.info("Splitting batched renders over %d devices",
+                    serve_devices)
     z_file = generate_z_file(gan_checkpoint)
     library_specs = library_specs or []
     libraries = {}

@@ -112,7 +112,7 @@ def create_server(encoder_checkpoint, gan_checkpoint, debug_dir=None,
                   style_seed=None, enable_z_saving=False,
                   library_specs=None, use_device_canvas=False,
                   batch_window_ms: float = 0.0, paint_engine=None,
-                  device="cuda"):
+                  device="cuda", serve_devices: int = 0):
     """The tornado application around :func:`ui.core.create_core` (same
     arguments); ``app.core`` is the core, ``app.paint_engine`` its engine
     and ``app.dev_batcher`` its pooled batcher or None."""
@@ -121,7 +121,8 @@ def create_server(encoder_checkpoint, gan_checkpoint, debug_dir=None,
         debug_dir=debug_dir, style_seed=style_seed,
         enable_z_saving=enable_z_saving, library_specs=library_specs,
         use_device_canvas=use_device_canvas, batch_window_ms=batch_window_ms,
-        paint_engine=paint_engine, device=device)
+        paint_engine=paint_engine, device=device,
+        serve_devices=serve_devices)
     app = tornado.web.Application([
         (r"/websocket/", DrawingWebSocketHandler, dict(core=core)),
         (r"/brush/([^/]+)/([^/]+)\.jpg", BrushIconHandler, dict(core=core)),
@@ -135,7 +136,7 @@ def create_server(encoder_checkpoint, gan_checkpoint, debug_dir=None,
     return app
 
 
-def run_main(argv=None):
+def build_parser():
     ap = argparse.ArgumentParser(description="Brushstroke engine UI server.")
     ap.add_argument("--gan_checkpoint", type=str, default=None)
     ap.add_argument("--encoder_checkpoint", type=str, default=None)
@@ -152,6 +153,12 @@ def run_main(argv=None):
                     help="Cross-session micro-batching: coalesce render "
                          "requests from all sessions for this many ms and "
                          "render them in one generator pass (0 = off).")
+    ap.add_argument("--serve_devices", type=int, default=0,
+                    help="Split cross-session batched renders over this "
+                         "many cards of this host (multi-card serving; 0 = "
+                         "the engine's device only). Use with "
+                         "--batch_window_ms; raises when fewer cards "
+                         "exist.")
     ap.add_argument("--no_warmup", action="store_true",
                     help="Skip running the render paths once at startup "
                          "(the first stroke then pays the kernel build).")
@@ -164,7 +171,11 @@ def run_main(argv=None):
                     help="Where the engine runs ('cpu' to run without a "
                          "GPU).")
     ap.add_argument("--log_level", type=int, default=logging.INFO)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def run_main(argv=None):
+    args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level)
     app = create_server(
         encoder_checkpoint=args.encoder_checkpoint,
@@ -175,7 +186,7 @@ def run_main(argv=None):
         library_specs=parse_libraries(args.libraries),
         use_device_canvas=args.device_canvas,
         batch_window_ms=args.batch_window_ms,
-        device=args.device)
+        device=args.device, serve_devices=args.serve_devices)
     from brushstroke_engine_torch.ops.precision import set_precision_mode
     set_precision_mode(args.precision)
     if not args.no_warmup:

@@ -31,8 +31,9 @@ Phases, in order; any failure exits non-zero:
    bf16 at the 64- and 128-px training shapes (B = 64, C = 128).
 5. The ADA two-pass warp kernels W and W^T against their plain versions:
    the five transform classes and 64 matrices of the ADA pipe at p = 1, at
-   [64,128,128,3], [8,64,64,3] and the batches phase 12's Gstitch launches
-   them at ([128,128,128,3], [16,128,128,3]), antialias on and off, values,
+   [64,128,128,3], [32,128,128,3] (a rank's of phase 16's two), [8,64,64,3]
+   and the batches phase 12's Gstitch launches them at ([128,128,128,3],
+   [16,128,128,3]), antialias on and off, values,
    two calls
    bit-equal, the second-order (R1) pattern and the adjoint identity, with
    times.  Then both under stress: pass slopes of 0 and near 0, a quarter
@@ -195,7 +196,21 @@ Phases, in order; any failure exits non-zero:
     ``tools/diagnose_color_control.py`` on the finetuned snapshot;
     ``tools/fetch_and_verify_weights.py`` on seeded files of every family.
     Every K1, W and W^T shape it launched was held in phases 3 and 5.
-16. Prints the kernel table as JSON, then the final JSON line.
+16. The mesh (``[mesh]`` lines; see MESH_* below): ``tools/train.py --dp 1
+    --fused --device_dataset`` on phase 14's zips (a world of one over
+    NCCL, in its own process); in process, ``TrainingLoop(mesh=
+    make_mesh())`` over an NCCL world of one against the loop without a
+    mesh (bit-equal) and its tensor-wise ("orbax") state round trip; two
+    ranks on the one card over gloo with CUDA tensors against one process
+    on the same global schedule (the JAX multi-host test's tolerances;
+    both s/batch, no speed figure; K1 / W / W^T launches per rank) and
+    their saved state resumed in one process; NCCL across cards where the
+    machine has two (else a line saying it was not run); the serving mesh
+    on the 256-px flagship bundle (``set_serving_mesh``, ``--serve_devices``
+    1 serving and one past the cards raising) and the stylize mesh, each
+    against the call without a mesh.  Every K1, W and W^T shape it
+    launched, the ranks' included, was held in phases 3 and 5.
+17. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
@@ -438,6 +453,41 @@ FUSED_CLI_CUTS = ["--kimg", "2", "--geom_warmstart_kimg", "0",
                   "--geom_interval", "8", "--snap", "1", "--image_snap", "1",
                   "--metrics", ""]
 FUSED_RESUME_K, FUSED_FT_KIMG, FUSED_VIZ_LIBRARY = 2, 2, "rand8"
+# Phase 16, the mesh (``parallel/``), phase 7's configuration (128 px,
+# global batch 64, canonical widths) with Dr1, Gpl and Ggeom every
+# MESH_INTERVAL batches (MESH_BATCHES is odd, so that the last batch, the
+# tick the comparisons read, runs them) and the ADA update every batch, the
+# fused step on
+# device banks of MESH_BANK images (strict f32, TF32 off).  (a)
+# tools/train.py --dp 1 (a world of one over NCCL, in a process of its own)
+# on phase 14's zips, MESH_CLI_CUTS: one dispatch of MESH_CLI_K batches.
+# (b) in process, a world of one over NCCL: TrainingLoop(mesh=make_mesh())
+# against the same loop without a mesh, MESH_BATCHES batches, every state
+# leaf bit-equal (cudnn.deterministic); its state through the tensor-wise
+# ("orbax") backend and back, bit-equal.  (c) two ranks on the one card over
+# gloo with CUDA tensors (NCCL refuses two ranks on one GPU), MESH_BATCHES
+# batches at 32 rows per rank, against one process on the same global
+# schedule: the trees' digests (sums of |x|) within MESH_DIGEST_RTOL, the
+# tick's stats within MESH_STAT_RTOL / MESH_STAT_ATOL (tests/
+# test_multihost.py's tolerances), both ranks' digests equal; the state the
+# two ranks saved resumes in one process and takes MESH_MORE batches as the
+# uninterrupted process does (the digest tolerance).  (d) with two cards or
+# more, the same at --dp 2 over NCCL, one rank per card.  (e) the serving
+# mesh on the 256-px flagship bundle: render_batch at MESH_SERVE_ROWS rows
+# with a mesh of every card against no mesh (one card: bit-equal; more:
+# 2e-5, tests/test_parallel.py), the core with --serve_devices 1 serving a
+# batch, --serve_devices past the machine's cards raising.  (f)
+# stylize_image_ondevice with the mesh against without, on a CMP_DRAWING-px
+# drawing at MESH_STYLIZE_BATCH: one card byte-equal; more, the median
+# byte difference <= 1 and 99 % within 2.  Workers that hang past
+# MESH_TIMEOUT are killed and fail the phase.
+MESH_BATCHES, MESH_MORE, MESH_INTERVAL, MESH_BANK = 5, 2, 2, 128
+MESH_CLI_K = 4
+MESH_CLI_CUTS = ["--kimg", "0", "--geom_warmstart_kimg", "0", "--snap", "1",
+                 "--image_snap", "1", "--metrics", "",
+                 "--steps_per_dispatch", str(MESH_CLI_K)]
+MESH_DIGEST_RTOL, MESH_STAT_RTOL, MESH_STAT_ATOL = 1e-4, 5e-3, 1e-4
+MESH_SERVE_ROWS, MESH_STYLIZE_BATCH, MESH_TIMEOUT = (3, 8), 16, 300
 
 
 def fail(msg):
@@ -691,10 +741,12 @@ def phase_kernel_vs_plain():
         train_rows.append(row)
         print("[fir4-train] " + json.dumps(row), flush=True)
 
-    # The other f32 batches of the trainer's layers: Gpl's half batch and
+    # The other f32 batches of the trainer's layers: Gpl's half batch (and
+    # a rank's of phase 16's two ranks, whose Gpl share is a quarter) and
     # phase 15's card-vs-CPU fused step (B = FUSED_CHECK_BATCH and its Gpl
     # half), checked.
-    for b in (TRAIN_BATCH // 2, FUSED_CHECK_BATCH, FUSED_CHECK_BATCH // 2):
+    for b in (TRAIN_BATCH // 2, TRAIN_BATCH // 4, FUSED_CHECK_BATCH,
+              FUSED_CHECK_BATCH // 2):
         for res in flagship_generator_config(TRAIN_RES).synthesis \
                 .block_resolutions[1:]:
             c = flagship_generator_config(TRAIN_RES).synthesis.channels(res)
@@ -973,9 +1025,10 @@ WARP_STRESS_SHAPES = ((67, 5), (128, 3), (33, 11))
 # W and W^T against the plain version at the trainer's batch, a small one,
 # and the batches phase 12's Gstitch launches them at: its discriminator
 # sees both crops, 2 x 64 in the timed loop and the CLI, 2 x
-# STITCH_CHECK_BATCH in the card-vs-CPU step; and phase 15's card-vs-CPU
-# fused step at FUSED_CHECK_BATCH.
-WARP_BATCHES = ((TRAIN_BATCH, TRAIN_RES), (8, 64),
+# STITCH_CHECK_BATCH in the card-vs-CPU step; phase 15's card-vs-CPU
+# fused step at FUSED_CHECK_BATCH; and a rank's half of phase 16's two.
+WARP_BATCHES = ((TRAIN_BATCH, TRAIN_RES), (TRAIN_BATCH // 2, TRAIN_RES),
+                (8, 64),
                 (2 * TRAIN_BATCH, TRAIN_RES), (2 * STITCH_CHECK_BATCH,
                                                TRAIN_RES),
                 (FUSED_CHECK_BATCH, TRAIN_RES))
@@ -4774,6 +4827,471 @@ def phase_fused(style_iter, geom_iter, card, held, warp_held, data_dir):
     return out
 
 
+class _ArrayDS:
+    def __init__(self, a):
+        self.a = a
+
+    def __len__(self):
+        return len(self.a)
+
+    def __getitem__(self, i):
+        return self.a[i]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_cfg():
+    """Phase 7's configuration with every phase on a short schedule."""
+    from brushstroke_engine_torch.flagship import flagship_train_config
+    return flagship_train_config(
+        TRAIN_RES, TRAIN_BATCH, geom_warmstart_kimg=0,
+        d_reg_interval=MESH_INTERVAL, g_reg_interval=MESH_INTERVAL,
+        geom_interval=MESH_INTERVAL, ada_interval=1,
+        kimg_per_tick=TRAIN_BATCH / 1000.0)
+
+
+def _mesh_loop(run_dir, npz, device, mesh=None):
+    """The fused loop of phase 16 on device banks of the images in
+    ``npz``, phase 7's seeded weights, ADA p 0.5."""
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.flagship import flagship_train_setup
+    from brushstroke_engine_torch.train.device_dataset import \
+        build_device_banks
+    from brushstroke_engine_torch.train.loop import TrainingLoop
+    cfg = _mesh_cfg()
+    data = np.load(npz)
+    dev = mesh.devices[0] if mesh is not None else device
+    banks = build_device_banks(_ArrayDS(data["style"]),
+                               _ArrayDS(data["tri"]), mesh=mesh, device=dev)
+    state, enc_p, enc_s = flagship_train_setup(cfg, SEED, NOISE_STRENGTH,
+                                               dev)
+    state["ada_p"] = torch.full((), 0.5, device=dev)
+    return TrainingLoop(cfg, enc_p, enc_s, None, None, run_dir, seed=SEED,
+                        resume_state=state, use_fused=True,
+                        device_banks=banks, mesh=mesh,
+                        snapshot_ticks=10 ** 9, device=dev)
+
+
+def _digest(loop):
+    """Sums of |x| over the trained trees, float64."""
+    from brushstroke_engine_torch.utils.util import tree_leaves
+    return {name: float(sum(t.detach().double().abs().sum().item()
+                            for t in tree_leaves(loop.state[name])))
+            for name in ("g_params", "d_params", "g_ema")}
+
+
+def _last_stats(loop):
+    with open(loop.stats_path) as f:
+        return json.loads(f.readlines()[-1])
+
+
+def _timed_run(loop, batches):
+    """Run to ``batches`` batches: the first untimed (kernel loads, cuDNN's
+    choices), the rest timed; returns seconds per timed batch."""
+    import torch
+    per = TRAIN_BATCH / 1000.0
+    loop.run(total_kimg=per)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.run(total_kimg=batches * per)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / max(batches - 1, 1)
+
+
+def _mesh_rank(rank, world, port, npz, out_dir, backend, device):
+    """One rank of phase 16 (c) / (d), in a process of its own: the mesh
+    loop for MESH_BATCHES batches, its tensor-wise state saved, and a JSON
+    of its digest, stats, launches, shapes and s/batch."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+    from brushstroke_engine_torch.ops import warp as tw
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+    from brushstroke_engine_torch.parallel.distributed import \
+        maybe_initialize_distributed
+    from brushstroke_engine_torch.parallel.mesh import make_mesh
+    set_precision_mode("strict")
+    maybe_initialize_distributed(f"localhost:{port}", world, rank,
+                                 device=device, backend=backend,
+                                 timeout_s=MESH_TIMEOUT)
+    try:
+        mesh = make_mesh(device=device)
+        loop = _mesh_loop(os.path.join(out_dir, f"{backend}_run"), npz,
+                          device, mesh)
+        for fn in (fir4_epilogue, tw.warp_twopass, tw.warp_twopass_t):
+            fn.launches = 0           # this rank's mesh path starts here
+            fn.shapes.clear()
+        spb = _timed_run(loop, MESH_BATCHES)
+        launches = _launch_counts()   # this rank's mesh path ends here
+        loop.save_train_state(os.path.join(out_dir, f"{backend}_state"),
+                              backend="orbax")
+        out = {"rank": loop.rank, "world": loop.num_ranks,
+               "backend": dist.get_backend(), "device": str(loop.device),
+               "nimg": loop.cur_nimg, "digest": _digest(loop),
+               "stats": _last_stats(loop) if loop.rank == 0 else {},
+               "s_per_batch": spb, "launches": launches,
+               "k1_shapes": sorted(fir4_epilogue.shapes),
+               "w_shapes": {n: sorted(f.shapes) for n, f in (
+                   ("warp_twopass", tw.warp_twopass),
+                   ("warp_twopass_t", tw.warp_twopass_t))}}
+        with open(os.path.join(out_dir, f"{backend}_rank{rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(world, npz, out_dir, backend, device_of):
+    """Start ``world`` ranks of :func:`_mesh_rank` (the spawn start
+    method), wait for them within MESH_TIMEOUT (killed past it) and return
+    their JSONs; a rank's failure fails the phase."""
+    import torch.multiprocessing as mp
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        procs.append(mp.get_context("spawn").Process(
+            target=_mesh_rank, args=(r, world, port, npz, out_dir, backend,
+                                     device_of(r))))
+        procs[-1].start()
+    deadline = time.time() + MESH_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+        hung = [p.pid for p in procs if p.is_alive()]
+        check(not hung, f"ranks {hung} hung past {MESH_TIMEOUT} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"{backend} ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{backend}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _hold_dp(tag, ranks, want, spb_one):
+    """The ranks against the one-process run ``want`` (its digest and
+    stats): the JAX multi-host test's tolerances."""
+    import numpy as np
+    check([r["world"] for r in ranks] == [len(ranks)] * len(ranks),
+          f"{tag}: worlds {[r['world'] for r in ranks]}")
+    check(all(r["digest"] == ranks[0]["digest"] for r in ranks),
+          f"{tag}: the ranks' states differ: {[r['digest'] for r in ranks]}")
+    got = ranks[0]
+    dig = {k: abs(got["digest"][k] - v) / abs(v)
+           for k, v in want["digest"].items()}
+    check(max(dig.values()) <= MESH_DIGEST_RTOL,
+          f"{tag}: digests {got['digest']} vs one process "
+          f"{want['digest']}")
+    worst, n = 0.0, 0
+    for k, v in want["stats"].items():
+        if not np.isfinite(v) or k.startswith(("Timing/", "Progress/")):
+            continue
+        g = got["stats"][k]
+        check(abs(g - v) <= MESH_STAT_ATOL + MESH_STAT_RTOL * abs(v),
+              f"{tag}: stat {k} {g} vs one process {v}")
+        worst = max(worst, abs(g - v) / max(abs(v), 1e-12))
+        n += 1
+    for k in ("Loss/r1_penalty", "Loss/pl_penalty",
+              "Loss/forger/Ggeom/total", "Loss/G/loss"):
+        check(k in got["stats"], f"{tag}: no {k} in the tick's stats")
+    row = {"world": len(ranks), "backend": got["backend"],
+           "devices": [r["device"] for r in ranks],
+           "digest_rel_err": dig, "stats_checked": n,
+           "stats_worst_rel_err": worst,
+           "s_per_batch_ranks": [r["s_per_batch"] for r in ranks],
+           "s_per_batch_one_process": spb_one,
+           "launches_per_rank": [r["launches"] for r in ranks]}
+    return row
+
+
+def phase_mesh(card, held, warp_held, data_dir, style_iter, geom_iter):
+    """The mesh (see the module doc, phase 16 and MESH_*)."""
+    import shutil
+    import subprocess as sp
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from brushstroke_engine_torch.data.curves import random_spline_stroke
+    from brushstroke_engine_torch.engine.brush import GanBrushOptions
+    from brushstroke_engine_torch.engine.stylize import \
+        stylize_image_ondevice
+    from brushstroke_engine_torch.ops import warp as tw
+    from brushstroke_engine_torch.ops.cuda_build import BUILD_DIR
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.precision import set_precision_mode
+    from brushstroke_engine_torch.parallel.distributed import \
+        maybe_initialize_distributed
+    from brushstroke_engine_torch.parallel.mesh import make_mesh
+    from brushstroke_engine_torch.ui.core import create_core
+    from brushstroke_engine_torch.utils.util import tree_leaves
+
+    set_precision_mode("strict")
+    t_phase = time.time()
+    cards = torch.cuda.device_count()
+    out = {"card": card, "cards": cards}
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    total = {k: 0 for k in _launch_counts()}
+    worker_shapes = set()
+    worker_w = {"warp_twopass": set(), "warp_twopass_t": set()}
+    for fn in (fir4_epilogue, tw.warp_twopass, tw.warp_twopass_t):
+        fn.shapes.clear()
+    # The banks' images: one host batch of each kind, twice.
+    style = np.concatenate([next(style_iter) for _ in range(
+        MESH_BANK // TRAIN_BATCH)])
+    tri = np.concatenate([next(geom_iter) for _ in range(
+        MESH_BANK // TRAIN_BATCH)])
+    npz = os.path.join(root, "banks.npz")
+    np.savez(npz, style=style, tri=tri)
+    det = torch.backends.cudnn.deterministic
+    try:
+        # ---- (a) tools/train.py --dp 1: a world of one over NCCL --------
+        data = ["--data", os.path.join(data_dir, "style.zip"),
+                "--geom_data", os.path.join(data_dir, "geom.zip"),
+                "--encoder_checkpt", os.path.join(data_dir, "ae",
+                                                  "ae_latest.pkl")]
+        t0 = time.perf_counter()
+        res = sp.run([sys.executable, "-m",
+                      "brushstroke_engine_torch.tools.train", "--outdir",
+                      os.path.join(root, "cli"), "--device", "cuda", "--dp",
+                      "1", "--fused", "--device_dataset"] + data
+                     + _flag_lines("train_flags.txt") + MESH_CLI_CUTS,
+                     cwd=REPO, capture_output=True, text=True,
+                     timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        log = res.stdout + res.stderr
+        check(res.returncode == 0, f"(a) tools/train.py --dp 1 exited "
+              f"{res.returncode}: {log[-3000:]}")
+        check("rank 0 / 1, nccl" in log, f"(a) no NCCL group of one in the "
+              f"log: {log[-2000:]}")
+        run_dir = os.path.join(root, "cli", os.listdir(
+            os.path.join(root, "cli"))[0])
+        rows = _finite_stats(os.path.join(run_dir, "stats.jsonl"))
+        check(rows[-1]["Progress/kimg"] * 1000 == MESH_CLI_K * TRAIN_BATCH
+              and any(f.startswith("network-snapshot")
+                      for f in os.listdir(run_dir)),
+              f"(a) the run left {os.listdir(run_dir)}, kimg "
+              f"{rows[-1]['Progress/kimg']}")
+        out["cli"] = {"wall_s": wall, "batches": MESH_CLI_K,
+                      "files": sorted(os.listdir(run_dir))}
+        print("[mesh] (a) tools/train.py --dp 1 --fused --device_dataset "
+              "on phase 14's zips, a world of one over NCCL: "
+              + json.dumps(out["cli"]), flush=True)
+
+        # ---- (b) in process: a world of one over NCCL -------------------
+        torch.backends.cudnn.deterministic = True
+        maybe_initialize_distributed(f"localhost:{_free_port()}", 1, 0,
+                                     device="cuda")
+        try:
+            check(dist.get_backend() == "nccl",
+                  f"(b) backend {dist.get_backend()}")
+            mesh = make_mesh()
+            check(mesh.size == 1 and mesh.group is not None,
+                  f"(b) the mesh {mesh}")
+            before = _launch_counts()
+            meshed = _mesh_loop(os.path.join(root, "b_mesh"), npz, "cuda",
+                                mesh)
+            meshed.run(total_kimg=MESH_BATCHES * TRAIN_BATCH / 1000.0)
+            torch.cuda.synchronize()
+            for k, v in _launch_counts().items():
+                total[k] += v - before[k]
+            plain = _mesh_loop(os.path.join(root, "b_plain"), npz, "cuda")
+            plain.run(total_kimg=MESH_BATCHES * TRAIN_BATCH / 1000.0)
+            la, lb = tree_leaves(meshed.state), tree_leaves(plain.state)
+            same = len(la) == len(lb) and all(
+                torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                for a, b in zip(la, lb))
+            check(same, "(b) the loop over a world of one differs from "
+                  "the loop without a mesh")
+            # The tensor-wise backend on the card, and back, bit-equal.
+            path = meshed.save_train_state(os.path.join(root, "b_state"),
+                                           backend="orbax")
+        finally:
+            dist.destroy_process_group()
+        back = _mesh_loop(os.path.join(root, "b_back"), npz, "cuda")
+        check(back.load_train_state(path, backend="orbax"),
+              "(b) no tensor-wise state")
+        lc = tree_leaves(back.state)
+        check(all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                  else a == b for a, b in zip(lc, tree_leaves(meshed.state)))
+              and (back.cur_nimg, back.batch_idx) ==
+              (meshed.cur_nimg, meshed.batch_idx)
+              and back.rng.bit_generator.state ==
+              meshed.rng.bit_generator.state
+              and torch.equal(back.device_rng.get_state(),
+                              meshed.device_rng.get_state()),
+              "(b) the tensor-wise state does not round-trip bitwise")
+        out["world_one"] = {"batches": MESH_BATCHES, "leaves": len(la),
+                            "bit_equal": True, "orbax_round_trip": True}
+        print("[mesh] (b) TrainingLoop(mesh=make_mesh()) over a world of "
+              f"one (NCCL) against no mesh: {len(la)} leaves bit-equal "
+              f"after {MESH_BATCHES} batches; the tensor-wise state "
+              f"round-trips bitwise", flush=True)
+        del meshed, plain, back
+        torch.backends.cudnn.deterministic = det
+
+        # ---- (c) two ranks on the one card over gloo --------------------
+        ranks = _spawn_ranks(2, npz, root, "gloo", lambda r: "cuda:0")
+        one = _mesh_loop(os.path.join(root, "c_one"), npz, "cuda")
+        spb_one = _timed_run(one, MESH_BATCHES)
+        want = {"digest": _digest(one), "stats": _last_stats(one)}
+        out["gloo"] = _hold_dp("(c) 2 ranks, gloo, one card", ranks, want,
+                               spb_one)
+        for r in ranks:
+            for k in total:
+                total[k] += r["launches"][k]
+            worker_shapes |= {tuple(s) for s in r["k1_shapes"]}
+            for n in worker_w:
+                worker_w[n] |= {tuple(s) for s in r["w_shapes"][n]}
+        print("[mesh] (c) two ranks on one card over gloo with CUDA "
+              "tensors vs one process, the same global schedule: "
+              + json.dumps(out["gloo"]) + f" ({card}; two ranks sharing "
+              f"one card is no speed figure)", flush=True)
+        # The state the two ranks saved resumes in one process.
+        total_kimg = (MESH_BATCHES + MESH_MORE) * TRAIN_BATCH / 1000.0
+        one.run(total_kimg=total_kimg)
+        resumed = _mesh_loop(os.path.join(root, "c_resumed"), npz, "cuda")
+        check(resumed.load_train_state(os.path.join(root, "gloo_state"),
+                                       backend="orbax")
+              and resumed.cur_nimg == MESH_BATCHES * TRAIN_BATCH,
+              "(c) the 2-rank state did not load in one process")
+        resumed.run(total_kimg=total_kimg)
+        d1, d2 = _digest(one), _digest(resumed)
+        rel = {k: abs(d2[k] - v) / abs(v) for k, v in d1.items()}
+        check(max(rel.values()) <= MESH_DIGEST_RTOL,
+              f"(c) resumed from the 2-rank state: {d2} vs {d1}")
+        out["cross_world_resume"] = {"batches": MESH_MORE,
+                                     "digest_rel_err": rel}
+        print(f"[mesh] (c) the state saved by two ranks resumes in one "
+              f"process: {MESH_MORE} batches, digests vs the "
+              f"uninterrupted run {json.dumps(rel)}", flush=True)
+        del one, resumed
+
+        # ---- (d) NCCL across cards ---------------------------------------
+        if cards >= 2:
+            ranks = _spawn_ranks(2, npz, root, "nccl", lambda r: f"cuda:{r}")
+            out["nccl"] = _hold_dp("(d) 2 ranks, NCCL, two cards", ranks,
+                                   want, spb_one)
+            for r in ranks:
+                for k in total:
+                    total[k] += r["launches"][k]
+                worker_shapes |= {tuple(s) for s in r["k1_shapes"]}
+                for n in worker_w:
+                    worker_w[n] |= {tuple(s) for s in r["w_shapes"][n]}
+            print("[mesh] (d) --dp 2 over NCCL, one rank per card: "
+                  + json.dumps(out["nccl"]) + f" ({card})", flush=True)
+        else:
+            out["nccl"] = None
+            print(f"[mesh] (d) NCCL across cards not run: this machine has "
+                  f"{cards} card", flush=True)
+
+        # ---- (e) the serving mesh ---------------------------------------
+        # Only the calls with a mesh count as the mesh path's launches.
+        def on_mesh(fn):
+            before = _launch_counts()
+            got = fn()
+            for k, v in _launch_counts().items():
+                total[k] += v - before[k]
+            return got
+
+        torch.backends.cudnn.deterministic = True
+        bundle = os.path.join(BUILD_DIR, "serve_flagship.pkl")
+        core = create_core(gan_checkpoint=bundle, device="cuda",
+                           serve_devices=1)
+        engine = core.engine
+        check(engine.serving_mesh is not None
+              and engine.serving_mesh.size == 1,
+              "(e) --serve_devices 1 set no mesh of one card")
+        serve = {}
+        for n in MESH_SERVE_ROWS:
+            geoms = np.stack([
+                engine.prepare_geom_input(_stroke_patch(RES))[0]] * n)
+            opts = _batch_opts(engine, n)
+            with_mesh = on_mesh(
+                lambda: engine.render_batch(geoms, opts)["rgba"])
+            engine.set_serving_mesh(None)
+            alone = engine.render_batch(geoms, opts)["rgba"]
+            engine.set_serving_mesh(make_mesh(local=True))
+            over_all = on_mesh(
+                lambda: engine.render_batch(geoms, opts)["rgba"])
+            err = (over_all - alone).abs().max().item()
+            check(torch.equal(with_mesh, alone) and (
+                torch.equal(over_all, alone) if cards == 1 else err <= 2e-5),
+                f"(e) render_batch at {n} rows with the mesh differs: "
+                f"{(with_mesh - alone).abs().max().item()}, over "
+                f"{cards} cards {err}")
+            serve[n] = {"bit_equal_one_card": True,
+                        "max_abs_err_all_cards": err}
+            engine.set_serving_mesh(make_mesh(1, local=True))
+        raised = None
+        try:
+            create_core(gan_checkpoint=bundle, device="cuda",
+                        serve_devices=cards + 1)
+        except RuntimeError as e:
+            raised = str(e)
+        check(raised is not None and "needs" in raised,
+              f"(e) --serve_devices {cards + 1} on {cards} card(s): "
+              f"raised {raised}")
+        out["serve"] = serve
+        print(f"[mesh] (e) the serving mesh on the 256-px flagship bundle: "
+              f"{json.dumps(serve)}; --serve_devices 1 serves, "
+              f"--serve_devices {cards + 1} raises", flush=True)
+
+        # ---- (f) the stylize mesh ---------------------------------------
+        geom = random_spline_stroke(np.random.default_rng(SEED),
+                                    CMP_DRAWING, radius=6.0)
+        outs = []
+        for mesh in (None, make_mesh(local=True)):
+            opts = GanBrushOptions()
+            opts.set_style(engine.random_style(5), 5)
+            run = lambda: stylize_image_ondevice(  # noqa: E731
+                engine, geom, opts, batch_size=MESH_STYLIZE_BATCH,
+                mesh=mesh)
+            outs.append(run() if mesh is None else on_mesh(run))
+        diff = np.abs(outs[0].astype(int) - outs[1].astype(int))
+        check(outs[0].shape == outs[1].shape and (
+            not diff.any() if cards == 1 else
+            np.median(diff) <= 1 and (diff <= 2).mean() > 0.99),
+            f"(f) stylize with the mesh differs: max {diff.max()}")
+        out["stylize"] = {"shape": list(outs[0].shape),
+                          "max_byte_diff": int(diff.max())}
+        print("[mesh] (f) stylize_image_ondevice over the mesh: "
+              + json.dumps(out["stylize"]), flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+    launched = set(fir4_epilogue.shapes) | worker_shapes
+    check(launched <= held, f"K1 launched at shapes phase 3 did not hold: "
+          f"{sorted(launched - held)}")
+    for name, fn in (("warp_twopass", tw.warp_twopass),
+                     ("warp_twopass_t", tw.warp_twopass_t)):
+        got = fn.shapes | worker_w[name]
+        check(got <= warp_held[name], f"{name} launched at shapes phase 5 "
+              f"did not hold: {sorted(got - warp_held[name])}")
+    for k, v in total.items():
+        check(v > 0, f"{k} was not launched on the mesh path")
+    out["launches"] = total
+    out["seconds"] = time.time() - t_phase
+    print(f"[mesh] launches {json.dumps(total)}, every shape held in "
+          f"phases 3 and 5; phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     card = phase_card()
@@ -4808,6 +5326,7 @@ def main():
     data = phase_data_chain(card, held, warp_held, keep=data_dir)
     fused = phase_fused(style_iter, geom_iter, card, held, warp_held,
                         data_dir)
+    mesh = phase_mesh(card, held, warp_held, data_dir, style_iter, geom_iter)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -4823,7 +5342,8 @@ def main():
         + ckpt["launches"]["fir4_epilogue"]
         + stitch["launches"]["fir4_epilogue"] + brush["launches"]
         + data["launches"]["fir4_epilogue"]
-        + fused["launches"]["fir4_epilogue"],
+        + fused["launches"]["fir4_epilogue"]
+        + mesh["launches"]["fir4_epilogue"],
         "launches_render_path": main_stats["launches"],
         "launches_training_path": train["launches"]["fir4_epilogue"],
         "launches_paint_path": paint["launches"],
@@ -4834,6 +5354,7 @@ def main():
         "launches_brush_workflow_path": brush["launches"],
         "launches_data_chain_path": data["launches"]["fir4_epilogue"],
         "launches_fused_path": fused["launches"]["fir4_epilogue"],
+        "launches_mesh_path": mesh["launches"]["fir4_epilogue"],
         "max_abs_err": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "backward_max_rel_err": fir_bwd["worst_rel_err"],
@@ -4858,13 +5379,14 @@ def main():
             "launches": train["launches"][name]
             + train_cli["launches"][name] + ckpt["launches"][name]
             + stitch["launches"][name] + data["launches"][name]
-            + fused["launches"][name],
+            + fused["launches"][name] + mesh["launches"][name],
             "launches_training_path": train["launches"][name],
             "launches_train_run": train_cli["launches"][name],
             "launches_checkpoint_path": ckpt["launches"][name],
             "launches_stitch_path": stitch["launches"][name],
             "launches_data_chain_path": data["launches"][name],
             "launches_fused_path": fused["launches"][name],
+            "launches_mesh_path": mesh["launches"][name],
             "max_abs_err": warp_err[key],
             "ms": warp[f"{key}_ms"],
             "plain_ms": warp[f"{key}_plain_ms"],
@@ -4881,6 +5403,7 @@ def main():
                       "train_run": train_cli, "checkpoint_path": ckpt,
                       "stitch_path": stitch, "brush_workflow": brush,
                       "data_chain": data, "fused_trainer": fused,
+                      "mesh": mesh,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1010,3 +1010,122 @@ def test_fused_chunk_on_the_card_equals_the_cpu():
     assert all(v.shape == (2,) for v in st_gpu.values())
     _stat_close(st_gpu, st_cpu)
     assert abs(float(s_gpu["ada_p"]) - float(s_cpu["ada_p"])) <= 1e-6
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_gloo_all_reduce_and_gather_of_cuda_tensors():
+    """A gloo group of one takes CUDA tensors: the gradient mean, the
+    broadcast and the differentiable sum (and its backward) run and change
+    no bit."""
+    import torch.distributed as dist
+    from brushstroke_engine_torch.parallel import distributed as pdist
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        ranks = pdist.RankGroup(dist.group.WORLD, 0, 1)
+        g = [torch.randn(7, device="cuda"), torch.randn(3, 2, device="cuda")]
+        with pdist.rank_context(ranks):
+            out = pdist.mean_over_ranks_(g)
+        assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(out, g))
+        b = [t.clone() for t in g]
+        pdist.broadcast_(b)
+        assert all(torch.equal(a, c) for a, c in zip(b, g))
+        x = torch.randn(4, device="cuda", requires_grad=True)
+        y = pdist._AllReduceSum.apply(x, dist.group.WORLD)
+        (gx,) = torch.autograd.grad((y * 3).sum(), x)
+        assert torch.equal(y, x) and torch.equal(gx, torch.full_like(x, 3))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_ranks_over_gloo_on_the_card_match_one_process(tmp_path):
+    """tests/torch_multirank_worker.py on the card: two ranks on cuda:0
+    over gloo with CUDA tensors against one process on the same global
+    schedule, at the JAX multi-host test's tolerances (digest 1e-4, stats
+    5e-3 / 1e-4); the 2-rank state resumes in one process."""
+    import json
+    import os
+    import subprocess
+    import sys
+    worker = os.path.join(os.path.dirname(__file__),
+                          "torch_multirank_worker.py")
+    multi, one = str(tmp_path / "multi.json"), str(tmp_path / "one.json")
+    state = str(tmp_path / "state2")
+    port = str(_free_port())
+    dev = ["--device", "cuda:0", "--backend", "gloo"]
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "--world", "2", "--rank", str(r), "--port",
+         port, "--out", multi, "--save", state] + dev,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    procs.append(subprocess.Popen(
+        [sys.executable, worker, "--world", "1", "--out", one, "--resume",
+         state] + dev, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    try:
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), \
+        "\n".join(o[-2000:] for o in outs)
+    ranks = [json.load(open(f"{multi}.rank{r}")) for r in range(2)]
+    want = json.load(open(f"{one}.rank0"))
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    for k, v in want["digest"].items():
+        np.testing.assert_allclose(ranks[0]["digest"][k], v, rtol=1e-4)
+        np.testing.assert_allclose(want["resumed_digest"][k],
+                                   want["digest_more"][k], rtol=1e-4)
+    for k, v in want["stats"].items():
+        if np.isfinite(v) and not k.startswith(("Timing/", "Progress/")):
+            np.testing.assert_allclose(ranks[0]["stats"][k], v, rtol=5e-3,
+                                       atol=1e-4, err_msg=k)
+
+
+def test_meshes_of_one_card_equal_no_mesh():
+    """render_batch with a serving mesh of one card, and the on-device
+    stylizer over it, make the calls without a mesh: bit-equal (cuDNN
+    deterministic)."""
+    from brushstroke_engine_torch.data.curves import random_spline_stroke
+    from brushstroke_engine_torch.engine.brush import GanBrushOptions
+    from brushstroke_engine_torch.engine.stylize import \
+        stylize_image_ondevice
+    from brushstroke_engine_torch.parallel.mesh import make_mesh
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eng = _small_engine("cuda")
+        mesh = make_mesh(1)
+        rng = np.random.RandomState(0)
+        for n in (3, 8):
+            geoms = (rng.rand(n, 32, 32, 1) > 0.5).astype(np.float32)
+            opts = []
+            for i in range(n):
+                o = GanBrushOptions()
+                o.set_style(eng.random_style(i), i)
+                o.set_position(8 * i, 4 * i)
+                opts.append(o)
+            want = eng.render_batch(geoms, opts)["rgba"]
+            eng.set_serving_mesh(mesh)
+            before = fe.fir4_epilogue.launches
+            got = eng.render_batch(geoms, opts)["rgba"]
+            assert fe.fir4_epilogue.launches > before
+            eng.set_serving_mesh(None)
+            assert torch.equal(got, want)
+        geom = random_spline_stroke(np.random.default_rng(11), 96,
+                                    radius=4.0)
+        outs = []
+        for m in (None, mesh):
+            o = GanBrushOptions()
+            o.set_style(eng.random_style(5), 5)
+            outs.append(stylize_image_ondevice(
+                eng, geom, o, overlap_margin=4, crop_margin=4,
+                feature_blending_level=1, batch_size=8, mesh=m))
+        assert np.array_equal(outs[0], outs[1])
+    finally:
+        torch.backends.cudnn.deterministic = det

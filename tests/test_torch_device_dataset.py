@@ -15,6 +15,10 @@ import jax.numpy as jnp
 
 from brushstroke_engine_tpu.engine import areas as jareas
 from brushstroke_engine_tpu.train import device_dataset as jdd
+from brushstroke_engine_torch.parallel.distributed import (
+    RankGroup, rank_context,
+)
+from brushstroke_engine_torch.parallel.mesh import make_mesh
 from brushstroke_engine_torch.train import device_dataset as tdd
 from tests.torch_helpers import one_torch_thread  # noqa: F401
 
@@ -152,9 +156,18 @@ def test_build_banks_guard_and_errors_as_jax():
         tdd.build_device_banks(_ArrayDS(f32), _ArrayDS(tri), device="cpu")
     with pytest.raises(ValueError, match="uint8"):
         jdd.build_device_banks(_ArrayDS(f32), _ArrayDS(tri))
-    for call in (lambda: tdd.build_device_banks(style, tri, mesh=object(),
-                                                device="cpu"),
-                 lambda: tdd.sample_banks(banks.style, banks.tri, 2,
-                                          mesh=object())):
-        with pytest.raises(NotImplementedError, match="2.9"):
-            call()
+    # A mesh: the banks whole on its device; under a group of two ranks each
+    # rank draws the global batch's indices and keeps its half.
+    on_mesh = tdd.build_device_banks(_ArrayDS(style), _ArrayDS(tri),
+                                     mesh=make_mesh(device="cpu"))
+    assert torch.equal(on_mesh.style, banks.style)
+    assert torch.equal(on_mesh.tri, banks.tri)
+    full = tdd.sample_banks(banks.style, banks.tri, 4,
+                            torch.Generator().manual_seed(7))
+    halves = []
+    for rank in range(2):
+        with rank_context(RankGroup(None, rank, 2)):
+            halves.append(tdd.sample_banks(
+                banks.style, banks.tri, 2, torch.Generator().manual_seed(7)))
+    for i in range(2):
+        assert torch.equal(torch.cat([h[i] for h in halves]), full[i])

@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 
 from brushstroke_engine_tpu.train import fused as jfused
+from brushstroke_engine_torch.parallel.mesh import make_mesh
 from brushstroke_engine_torch.train import fused as tfused
 from brushstroke_engine_torch.train import state as tstate
 from brushstroke_engine_torch.train.loop import _fetch_stats
@@ -239,8 +240,9 @@ def test_chunk_of_two_equals_two_single_steps():
               draws=draws[:1])
     with pytest.raises(ValueError, match="device_data"):
         tfused.make_fused_train_step(tcfg, chunk=2)
-    with pytest.raises(NotImplementedError, match="2.9"):
-        tfused.make_fused_train_step(tcfg, mesh=object())
+    # A mesh is one card per rank (tests/test_torch_multirank.py).
+    with pytest.raises(ValueError, match="one card per process"):
+        tfused.make_fused_train_step(tcfg, mesh=make_mesh(2, device="cpu"))
 
 
 def test_fetch_stats_keeps_the_last_finite_value():

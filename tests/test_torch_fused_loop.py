@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from brushstroke_engine_torch.parallel.mesh import make_mesh
 from brushstroke_engine_torch.train.device_dataset import build_device_banks
 from brushstroke_engine_torch.train.loop import TrainingLoop
 from brushstroke_engine_torch.utils.util import tree_leaves
@@ -137,7 +138,7 @@ def test_fused_loop_modes_run_every_phase(tmp_path, mode):
     # The loop's guards, as the JAX loop's.
     for kw, err in ((dict(device_banks=object()), ValueError),
                     (dict(steps_per_dispatch=2), ValueError),
-                    (dict(mesh=object()), NotImplementedError)):
+                    (dict(mesh=make_mesh(2, device="cpu")), ValueError)):
         with pytest.raises(err):
             TrainingLoop(cfg, {}, {}, None, None,
                          run_dir=str(tmp_path / "g"), device="cpu", **kw)

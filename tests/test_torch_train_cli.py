@@ -136,19 +136,17 @@ def test_setup_config_equals_jax(files, d_arch):
     "--profile_dir=x", "--coordinator_address=h:1", "--num_processes=2",
     "--process_id=0"])
 def test_unported_flags_raise(flag, tmp_path):
-    """Only the mesh's flags are unported (ROADMAP.md item 2.9); the
-    production path's flags pass the dry run, as in the JAX CLI."""
+    """Every flag is ported now, the mesh's too (ROADMAP.md item 2.9;
+    their group setup: tests/test_torch_serving_mesh.py): each passes the
+    dry run, forming no group, with the JAX CLI's value."""
+    import torch.distributed as dist
     argv = ["--outdir", str(tmp_path), "--device", "cpu", "--dry-run", flag]
-    if flag.split("=")[0] in ("--fused", "--device_dataset",
-                              "--steps_per_dispatch", "--profile_dir"):
-        assert ttrain.main(argv) is None
-        jargs = _jax_cli().build_parser().parse_args(argv[:2] + [flag])
-        targs = ttrain.build_parser().parse_args(argv)
-        dest = flag.split("=")[0][2:]
-        assert getattr(targs, dest) == getattr(jargs, dest)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 2.9"):
-        ttrain.main(argv)
+    assert ttrain.main(argv) is None
+    assert not dist.is_initialized()
+    jargs = _jax_cli().build_parser().parse_args(argv[:2] + [flag])
+    targs = ttrain.build_parser().parse_args(argv)
+    dest = flag.split("=")[0][2:]
+    assert getattr(targs, dest) == getattr(jargs, dest)
 
 
 def test_production_flags_error_paths_as_the_jax_cli(tmp_path, monkeypatch):

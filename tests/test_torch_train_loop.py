@@ -25,6 +25,7 @@ from brushstroke_engine_tpu.train import stitching as jstitching
 from brushstroke_engine_torch.models import discriminator as tdisc
 from brushstroke_engine_torch.ops import fir_epilogue as fe
 from brushstroke_engine_torch.ops.filters import setup_filter
+from brushstroke_engine_torch.parallel.mesh import make_mesh
 from brushstroke_engine_torch.train.loop import TrainingLoop
 from brushstroke_engine_torch.utils.checkpoint import (
     params_from_jax, train_state_from_jax,
@@ -166,21 +167,26 @@ def test_training_loop_warm_start_and_unported_options(tmp_path):
     for a, b in zip(d0, tree_leaves(loop.state["d_params"])):
         assert torch.equal(a, b)
     assert loop.state["geom_opt"]["count"] == 2
-    # Persistence is ported (every tick here); the Orbax backend is not.
+    # Persistence is ported (every tick here), and the tensor-wise "orbax"
+    # backend (tests/test_torch_train_state.py); another name raises.
     assert {"network-snapshot-000000.pkl", "train_state.pkl"} <= \
         set(os.listdir(loop.run_dir))
     for method in (loop.save_train_state, loop.load_train_state):
-        with pytest.raises(NotImplementedError, match="orbax"):
-            method(backend="orbax")
+        with pytest.raises(ValueError, match="backend"):
+            method(backend="zarr")
+    assert loop.load_train_state(backend="orbax") is False
+    loop.save_train_state(backend="orbax")
+    assert loop.load_train_state(backend="orbax")
     # No ramp-up in this configuration: beta follows the half-life.
     assert loop._ema_beta() == pytest.approx(
         0.5 ** (B / (cfg.ema_kimg * 1000.0)), rel=1e-6)
 
     # The production path is ported (tests/test_torch_fused.py); its
-    # guards are the JAX loop's, and only the mesh raises.
+    # guards are the JAX loop's, and a mesh is one card per rank (a local
+    # mesh of two devices raises; tests/test_torch_multirank.py).
     for kw, err in ((dict(device_banks=object()), ValueError),
                     (dict(steps_per_dispatch=4), ValueError),
-                    (dict(mesh=object()), NotImplementedError)):
+                    (dict(mesh=make_mesh(2, device="cpu")), ValueError)):
         with pytest.raises(err):
             TrainingLoop(cfg, {}, {}, None, None, run_dir=str(tmp_path / "n"),
                          device="cpu", **kw)
