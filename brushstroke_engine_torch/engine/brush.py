@@ -6,7 +6,8 @@ its triad and canvas forms, ``MockPaintEngine`` and ``PaintEngineFactory``.
 The numeric path is :func:`render.render_core`; these classes handle uint8
 <-> device conversion and brush state.  ``set_serving_mesh`` splits a
 batched render's rows over the cards of a local mesh
-(``parallel/mesh.py``).  The int8 path is not ported.
+(``parallel/mesh.py``).  ``enable_int8_serving`` turns on static int8
+inference (``ops/quant.py``) for every later render of the engine.
 """
 
 from __future__ import annotations
@@ -176,6 +177,9 @@ class GanPaintEngine(PaintEngine):
         self.serving_mesh = None
         # The weights on each other mesh device, copied there once.
         self._device_params = {}
+        # Static int8 serving (enable_int8_serving): one activation scale
+        # per quantized conv site, handed to every render.
+        self._int8_scales = None
 
         # Imported here to avoid a cycle (the mapper renders via this engine).
         from brushstroke_engine_torch.engine.mapper import StyleUVSMapper
@@ -186,6 +190,52 @@ class GanPaintEngine(PaintEngine):
             raise RuntimeError(f"Render mode should be one of "
                                f"{self.render_modes}")
         self.render_mode = mode
+
+    def enable_int8_serving(self, calib_batch: int = 4, seed: int = 0):
+        """Static-calibration int8 inference for every later render (opt-in).
+
+        Renders ``calib_batch`` calibration strokes (a diagonal stroke, a
+        fat blob, an empty patch, in turn, each with a random style from
+        ``numpy.RandomState(seed)``) under ``quant.calibration``, on the
+        engine's device in strict f32 (the precision mode is restored
+        after), takes each stride-1 conv site's largest activation amax
+        over the passes with 1.25x headroom (a static scale must cover
+        activations the calibration did not see), and keeps the scales,
+        which every later render consumes site by site.  Returns them.
+        Nothing of the engine is rebound: a render running meanwhile keeps
+        its own path.  Call before warmup."""
+        from brushstroke_engine_torch.ops import quant
+        from brushstroke_engine_torch.ops.precision import precision_mode
+        w = self.patch_width
+        rng = np.random.RandomState(seed)
+
+        def stroke_geom(kind):
+            patch = np.zeros((w, w, 4), np.uint8)
+            if kind == 0:        # diagonal stroke
+                for i in range(w):
+                    patch[max(0, i - 4):i + 4, i, 3] = 255
+            elif kind == 1:      # fat blob
+                patch[w // 4:-w // 4, w // 4:-w // 4, 3] = 255
+            return self.prepare_geom_input(patch)
+
+        per_pass = []
+        with precision_mode("strict"):
+            for k in range(max(calib_batch, 1)):
+                opts = GanBrushOptions()
+                opts.set_style(rng.randn(1, self.gen_cfg.z_dim))
+                per_pass.append(quant.eager_calibrate(
+                    self._run_core, stroke_geom(k % 3), opts))
+        headroom = 1.25
+        self._int8_scales = [headroom * max(s[i] for s in per_pass)
+                             for i in range(len(per_pass[0]))]
+        return self._int8_scales
+
+    def _quant_key(self):
+        """The static int8 scales every render runs under (a tuple), or None
+        for float renders."""
+        if not self._int8_scales:
+            return None
+        return tuple(self._int8_scales)
 
     def set_serving_mesh(self, mesh):
         """Split batched renders (``render_batch``, the batcher's flushes)
@@ -242,7 +292,7 @@ class GanPaintEngine(PaintEngine):
                 tuple(return_features), self.color_format,
                 *self._params_on(device), geom, z, ws, positions,
                 noise_buffers, override, mask, blended_features, sfactor,
-                device=device)
+                device=device, quant_scales=self._quant_key())
 
         if mesh is None:
             return one(geom, z, ws, positions, override, mask,

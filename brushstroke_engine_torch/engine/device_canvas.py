@@ -89,7 +89,7 @@ def render_stroke_step(gen_cfg, enc_cfg, enc_res, render_mode: str,
                        blend_res: int, blend_margin: int, crop_margin: int,
                        bundle_params, canvas: CanvasState,
                        geom_patch, position, z, ws,
-                       color_override, color_mask):
+                       color_override, color_mask, quant_scales=None):
     """One interactive stroke; ``canvas`` is updated in place.  Returns
     (rgba ``[1,W,W,4]`` on the canvas's device, ``canvas``).
 
@@ -101,6 +101,8 @@ def render_stroke_step(gen_cfg, enc_cfg, enc_res, render_mode: str,
       z / ws: style (exactly one not None).
       color_override / color_mask: optional user colors (``[1,3,3]`` /
         ``[1,1,3]``).
+      quant_scales: the engine's static int8 scales (``_quant_key``) or
+        None.
     """
     patch = geom_patch.shape[1]
     down = patch // blend_res
@@ -122,7 +124,7 @@ def render_stroke_step(gen_cfg, enc_cfg, enc_res, render_mode: str,
         *bundle_params, geom_patch, z, ws, np.asarray([[y, x]], np.int64),
         None, color_override, color_mask,
         {blend_res: (feats_win, alpha[None])}, None,
-        device=canvas.features.device)
+        device=canvas.features.device, quant_scales=quant_scales)
 
     # Write back features where update is set.
     new_feats = out[f"features{blend_res}"].to(canvas.features.dtype)
@@ -145,7 +147,8 @@ class PoolState(NamedTuple):
 def render_strokes_pool(gen_cfg, enc_cfg, enc_res, render_mode: str,
                         blend_res: int, blend_margin: int, crop_margin: int,
                         bundle_params, pool: PoolState, slots: List[int],
-                        alpha_u8, pos, z, ws, color_override, color_mask):
+                        alpha_u8, pos, z, ws, color_override, color_mask,
+                        quant_scales=None):
     """N sessions' strokes in one generator pass; ``pool`` is updated in
     place.  Row i equals :func:`render_stroke_step` of that stroke on slot
     ``slots[i]``'s canvas.
@@ -160,6 +163,8 @@ def render_strokes_pool(gen_cfg, enc_cfg, enc_res, render_mode: str,
       z / ws: ``[N, z_dim]`` or ``[N, num_ws, w_dim]`` tensors; one is None.
       color_override / color_mask: ``[N, 3, 3]`` / ``[N, 1, 3]`` (a zero
         mask row leaves that row's colors as they are).
+      quant_scales: the engine's static int8 scales (``_quant_key``) or
+        None.
 
     Returns uint8 RGBA ``[N, pw, pw, 4]`` on the pool's device.
     """
@@ -186,7 +191,7 @@ def render_strokes_pool(gen_cfg, enc_cfg, enc_res, render_mode: str,
         "clear" if render_mode == "clear" else "full", (blend_res,), "triad",
         *bundle_params, geom, z, ws, np.asarray(pos, np.int64), None,
         color_override, color_mask, {blend_res: (feats_win, alpha)}, None,
-        device=dev)
+        device=dev, quant_scales=quant_scales)
     new_feats = out[f"features{blend_res}"].to(pool.features.dtype)
     upd = update[..., None]
     # One scatter for all rows.  Real rows hold distinct slots, so no two
@@ -304,7 +309,7 @@ class DeviceCanvasPool:
             self._params, self.state, [int(r["slot"]) for r in requests],
             alpha, pos, None if use_ws else style, style if use_ws else None,
             torch.from_numpy(override).to(dev),
-            torch.from_numpy(cmask).to(dev))
+            torch.from_numpy(cmask).to(dev), quant_scales=eng._quant_key())
         return rgba, metas
 
 
@@ -363,7 +368,7 @@ class DevicePaintSession:
             eng.gen_cfg, eng.enc_cfg, tuple(eng.enc_res),
             eng.render_mode, self.blend_res, self.blend_margin,
             self.crop_margin, self._params, self.canvas, geom, (y, x), z, ws,
-            override, cmask)
+            override, cmask, quant_scales=eng._quant_key())
         rgba_u8 = torch.clamp(rgba[0] * 255.0, 0, 255).to(torch.uint8)
         return rgba_u8, {"x": x + self.crop_margin,
                          "y": y + self.crop_margin}

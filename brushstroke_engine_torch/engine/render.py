@@ -19,6 +19,7 @@ from brushstroke_engine_torch.models.generator import (
 from brushstroke_engine_torch.models.geo_encoder import (
     GeoEncoderConfig, geo_encoder_encode,
 )
+from brushstroke_engine_torch.ops import quant
 from brushstroke_engine_torch.utils.util import resolve_device
 
 
@@ -54,7 +55,7 @@ def render_core(gen_cfg: GeneratorConfig, enc_cfg: GeoEncoderConfig,
                 gen_params, gen_state, enc_params, enc_state,
                 geom, z, ws, positions, noise_buffers,
                 color_override, color_mask, blended_features, sfactor,
-                device="cuda"):
+                device="cuda", quant_scales=None):
     """Render a batch of stroke patches on ``device``.
 
     Args:
@@ -69,12 +70,29 @@ def render_core(gen_cfg: GeneratorConfig, enc_cfg: GeoEncoderConfig,
       sfactor: scalar clarity factor or None (disables UVS mapping).
       device: where to render; the parameter trees must already be there.
         Array inputs (numpy or tensors) are moved there.
+      quant_scales: static int8 activation scales, one per quantized conv
+        site (``engine.enable_int8_serving``), or None for float convs; the
+        body runs under ``quant.static_ctx(quant_scales)``, so each render
+        consumes them from site 0.
 
     Returns:
       dict with 'rgba' ``[B, W, W, 4]`` in [0,1], 'uvs', 'colors',
       'raw_img', 'alpha_fg' and 'canvas' (canvas format), and any
       'features{res}' requested.
     """
+    with quant.static_ctx(quant_scales):
+        return _render_core_impl(
+            gen_cfg, enc_cfg, enc_res, render_mode, return_features,
+            color_format, gen_params, gen_state, enc_params, enc_state, geom,
+            z, ws, positions, noise_buffers, color_override, color_mask,
+            blended_features, sfactor, device)
+
+
+def _render_core_impl(gen_cfg, enc_cfg, enc_res, render_mode,
+                      return_features, color_format, gen_params, gen_state,
+                      enc_params, enc_state, geom, z, ws, positions,
+                      noise_buffers, color_override, color_mask,
+                      blended_features, sfactor, device):
     dev = resolve_device(device)
     f32 = torch.float32
     geom = _as_tensor(geom, dev, f32)
@@ -156,7 +174,9 @@ def sfactor_core(gen_cfg: GeneratorConfig, enc_cfg: GeoEncoderConfig,
 
     Renders the medium curated geometry, takes per patch the k-th largest S
     over known-background pixels (thick-geometry mask), then
-    sfactor = 1 / min over patches.  All tensors on one device.
+    sfactor = 1 / min over patches.  All tensors on one device.  Always in
+    float (``quant.suspended``), as the JAX package computes it outside
+    the int8 context.
     """
     feats = geo_encoder_encode(enc_cfg, enc_params, enc_state, geom_med,
                                res=list(enc_res))
@@ -165,9 +185,10 @@ def sfactor_core(gen_cfg: GeneratorConfig, enc_cfg: GeoEncoderConfig,
         ws, z = ws.expand(n, *ws.shape[1:]), None
     else:
         z = z.expand(n, z.shape[-1])
-    _, debug = generator_apply(
-        gen_cfg, gen_params, gen_state, z=z, ws=ws, geom_features=feats,
-        noise_mode="const", return_debug_data=True)
+    with quant.suspended():
+        _, debug = generator_apply(
+            gen_cfg, gen_params, gen_state, z=z, ws=ws, geom_features=feats,
+            noise_mode="const", return_debug_data=True)
     s = debug["uvs"][..., 2]                       # [N, W, W]
     s_masked = torch.where(bmask, s, torch.full_like(s, -float("inf")))
     topk = torch.topk(s_masked.reshape(n, -1), k, dim=1).values  # [N, k]

@@ -242,7 +242,9 @@ def _stylize_waves(engine, geom, brush_options, overlap_margin,
     ``on_device`` the geometry and the RGBA canvas live on the engine's
     device too; otherwise the canvas is assembled on the host from each
     chunk's uint8 copy.  A chunk's padding repeats its last tile, whose
-    second write stores what the first did."""
+    second write stores what the first did.  Each chunk's ``_run_core``
+    runs under the engine's static int8 scales (``_quant_key``) when
+    ``enable_int8_serving`` set them, from site 0 per chunk."""
     patch_width = engine.patch_width
     stride = patch_width - 2 * overlap_margin
     if stride * 2 < patch_width:

@@ -21,7 +21,7 @@ from brushstroke_engine_torch.models.layers import conv_layer_apply, fc_apply
 from brushstroke_engine_torch.models.mapping import MappingConfig, \
     mapping_apply
 from brushstroke_engine_torch.parallel.distributed import (
-    all_gather_rows, rows_of,
+    all_gather_rows, local_rows,
 )
 
 
@@ -77,9 +77,10 @@ def _minibatch_stddev(x, group_size: int, num_channels: int):
     Row i is grouped with rows i + n/g, i + 2n/g, ... of the *global* batch.
     Under a data-parallel group (``parallel.distributed.rank_context``) the
     4x4 features of every rank are all-gathered (at most B x 4 x 4 x 512
-    floats), the statistic is computed on the global batch as one process
-    computes it, and each rank keeps its rows; the gather's backward sums
-    the ranks' cotangents, so the gradients are the single process's."""
+    floats) in the global row order (``row_parts``: Gstitch's two parts),
+    the statistic is computed on the global batch as one process computes
+    it, and each rank keeps its rows; the gather's backward sums the ranks'
+    cotangents, so the gradients are the single process's."""
     local = x.shape[0]
     x_all = all_gather_rows(x)
     n, h, w, c = x_all.shape
@@ -92,7 +93,8 @@ def _minibatch_stddev(x, group_size: int, num_channels: int):
     y = torch.sqrt(y + 1e-8)
     y = y.mean(dim=(1, 2, 4))                            # [n//g, F]
     y = y[:, None, None, :].repeat(g, h, w, 1).reshape(n, h, w, f)
-    return torch.cat([x, y[rows_of(local)].to(x.dtype)], dim=-1)
+    return torch.cat([x, y[local_rows(local, y.device)].to(x.dtype)],
+                     dim=-1)
 
 
 def discriminator_apply(cfg: DiscriminatorConfig, params, img, c=None,

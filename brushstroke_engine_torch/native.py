@@ -4,8 +4,11 @@ The port's counterpart of ``brushstroke_engine_tpu/native.py``: the same
 three entry points over the port's own copy of the C++ source
 (``csrc/stroke_raster.cpp``), compiled by ``g++`` with the JAX build's flags
 (no fast-math, no ``-march``), so both packages draw bit-identical strokes.
-The library goes to ``build/libbse_stroke_raster.so`` at the root of the
-checkout, is built on first use and rebuilt when the source is newer.
+The library goes to the kernel cache (``utils/compile_cache.py:build_dir``:
+``build/<host fingerprint>/libbse_stroke_raster.so`` at the root of the
+checkout unless ``BSE_XLA_CACHE_DIR`` says otherwise; ``SO_PATH``, when set,
+names the file instead), is built on first use and rebuilt when the source
+is newer.
 
 This is host code: it feeds the card, it does not run on it.  Where the
 library cannot be built or loaded (no ``g++``), every entry point returns
@@ -28,8 +31,7 @@ logger = logging.getLogger(__name__)
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_PATH = os.path.join(_PKG_DIR, "csrc", "stroke_raster.cpp")
-SO_PATH = os.path.join(os.path.dirname(_PKG_DIR), "build",
-                       "libbse_stroke_raster.so")
+SO_PATH: Optional[str] = None
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
@@ -39,22 +41,32 @@ _load_error: Optional[str] = None
 _F32P = ctypes.POINTER(ctypes.c_float)
 
 
+def so_path() -> str:
+    """Where the library is built and loaded from."""
+    if SO_PATH is not None:
+        return SO_PATH
+    from brushstroke_engine_torch.utils.compile_cache import build_dir
+    return os.path.join(build_dir(), "libbse_stroke_raster.so")
+
+
 def _stale() -> bool:
-    return not os.path.isfile(SO_PATH) or \
-        os.path.getmtime(SRC_PATH) > os.path.getmtime(SO_PATH)
+    so = so_path()
+    return not os.path.isfile(so) or \
+        os.path.getmtime(SRC_PATH) > os.path.getmtime(so)
 
 
 def build() -> None:
     """Compile the library.  Each process writes its own temporary file and
     moves it into place with ``os.replace``, so processes that build at the
     same moment leave one whole library.  Raises on failure."""
-    os.makedirs(os.path.dirname(SO_PATH), exist_ok=True)
-    tmp = f"{SO_PATH}.{os.getpid()}.{threading.get_ident()}.tmp"
+    so = so_path()
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
         subprocess.run(["g++", *GXX_FLAGS, SRC_PATH, "-o", tmp],
                        check=True, capture_output=True, text=True,
                        timeout=120)
-        os.replace(tmp, SO_PATH)
+        os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -69,7 +81,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
             try:
                 if _stale():
                     build()
-                lib = ctypes.CDLL(SO_PATH)
+                lib = ctypes.CDLL(so_path())
             except subprocess.CalledProcessError as e:
                 _load_error = f"g++ failed: {e.stderr.strip()}"
             except (OSError, subprocess.SubprocessError) as e:

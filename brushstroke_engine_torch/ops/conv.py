@@ -2,7 +2,9 @@
 
 Counterpart of ``brushstroke_engine_tpu/ops/conv.py``.  Activations are NHWC
 at the public functions; weights are torch's OIHW.  The convs themselves are
-cuDNN (``F.conv2d`` / ``F.conv_transpose2d``) on ``channels_last`` views.
+cuDNN (``F.conv2d`` / ``F.conv_transpose2d``) on ``channels_last`` views,
+except where int8 inference is on (``ops/quant.py``): then the stride-1
+dense convs of :func:`conv2d_resample` are int8 convs.
 
 ``modulated_conv2d`` uses the activation-scaling form of the JAX package:
 scale input channels by the style, run one shared conv, scale output channels
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from brushstroke_engine_torch.ops import quant
 from brushstroke_engine_torch.ops.biasact import bias_act
 from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
 from brushstroke_engine_torch.ops.upfirdn import (
@@ -104,6 +107,9 @@ def conv2d_resample(x, w, f=None, up: int = 1, down: int = 1, padding=0,
         x = upfirdn2d(x, f, padding=[px0, px1, py0, py1],
                       flip_filter=flip_filter)
         return _dense_conv(x, w, stride=down)
+    if quant.quantizable(x, (1, 1), (1, 1), 1):
+        return quant.quantized_conv(x, w.to(x.dtype),
+                                    ((py0, py1), (px0, px1)))
     x = nhwc(F.pad(nchw(x), [px0, px1, py0, py1]))
     return _dense_conv(x, w)
 

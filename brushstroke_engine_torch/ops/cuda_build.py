@@ -2,9 +2,12 @@
 
 Each source under ``brushstroke_engine_torch/csrc/`` is compiled by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, which the
-kernel's wrapper loads with ``ctypes``.  Libraries go to ``build/`` at the
-root of the checkout and are rebuilt when their source is newer.  Nothing is
-built at import: the first launch (or :func:`build_all`) builds.
+kernel's wrapper loads with ``ctypes``.  Libraries go to the kernel cache
+(``utils/compile_cache.py:build_dir``: ``build/<host fingerprint>/`` at the
+root of the checkout unless ``BSE_XLA_CACHE_DIR`` says otherwise) and are
+rebuilt when their source is newer.  Nothing is built at import: the first
+launch (or :func:`build_all`) builds.  ``BUILD_DIR`` (``build/``) is where
+tools keep other generated files.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Dict, List
 
 import torch
 
+from brushstroke_engine_torch.utils import compile_cache
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
@@ -27,6 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 SOURCES = {
     "fir4_epilogue": "fir4_epilogue.cu",
     "warp_twopass": "warp_twopass.cu",
+    "int8_conv": "int8_conv.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,7 +54,7 @@ def _nvcc() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC_DIR, SOURCES[name])
-    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    so = os.path.join(compile_cache.build_dir(), f"lib{name}.so")
     return src, so
 
 
@@ -68,7 +74,7 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
     started together.  Returns {name: ptxas report}; raises on a failed
     build with the compiler's output."""
     names = list(SOURCES) if names is None else names
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(compile_cache.build_dir(), exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in names:

@@ -15,6 +15,10 @@ at the same global batch computes, up to reduction order.  While a
 * every per-sample random draw is made at the global row count from the
   same seeded generator on every rank and sliced to the rank's rows
   (:func:`draw_rows`);
+* a batch made of ``k`` equal parts, each the rank's rows of a global part
+  (Gstitch's discriminator sees ``concat(fake1, fake2)``), is laid out
+  part by part in the global batch under :func:`row_parts`, so that a draw
+  or a gather sees the rows in the order one process sees them;
 * reductions that pool over the batch see the global batch:
   :func:`all_reduce_sum` and :func:`all_gather_rows` are differentiable, so
   a rank's gradient is its share of the global one -- every rank's loss
@@ -146,6 +150,7 @@ class RankGroup:
 
 
 _ACTIVE: Optional[RankGroup] = None
+_PARTS = 1
 
 
 @contextlib.contextmanager
@@ -178,17 +183,46 @@ def rows_of(n: int) -> slice:
     return slice(None) if r is None else slice(r.rank * n, (r.rank + 1) * n)
 
 
+@contextlib.contextmanager
+def row_parts(k: int):
+    """Within the context a local batch of ``k * p`` rows is ``k`` parts of
+    ``p`` rows, part ``i`` this rank's rows of global part ``i``; the global
+    batch is the ``k`` global parts one after the other, as one process
+    concatenates them.  :func:`draw_rows`, :func:`all_gather_rows` and
+    :func:`local_rows` follow that layout."""
+    global _PARTS
+    prev, _PARTS = _PARTS, int(k)
+    try:
+        yield
+    finally:
+        _PARTS = prev
+
+
+def local_rows(n: int, device=None):
+    """This rank's rows (a slice, or an index tensor on ``device``) of the
+    global batch of a local batch of ``n`` rows, in the layout of
+    :func:`row_parts`."""
+    r = _multi()
+    if r is None or _PARTS == 1:
+        return rows_of(n)
+    p = n // _PARTS
+    return torch.cat([torch.arange(i * p * r.world + r.rank * p,
+                                   i * p * r.world + (r.rank + 1) * p,
+                                   device=device)
+                      for i in range(_PARTS)])
+
+
 def draw_rows(fn, shape, **kwargs):
     """A per-sample draw ``fn(shape, **kwargs)`` (``torch.randn``,
     ``torch.rand``, ``torch.randint``'s size) made at the global row count
-    ``shape[0] * world`` and sliced to this rank's rows, so that every rank
-    consumes the generator as a 1-rank run does."""
+    ``shape[0] * world`` and sliced to this rank's rows (:func:`local_rows`),
+    so that every rank consumes the generator as a 1-rank run does."""
     r = _multi()
     if r is None:
         return fn(tuple(shape), **kwargs)
     n = shape[0]
     full = fn((n * r.world,) + tuple(shape[1:]), **kwargs)
-    return full[rows_of(n)]
+    return full[local_rows(n, full.device)]
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -216,13 +250,20 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Differentiable concatenation of every rank's rows of ``x`` in rank
-    order (``x`` itself with one rank).  A sum of zero-padded copies: the
-    copy is exact, its backward is each rank's slice of the summed
-    cotangents, and it needs only all-reduce, which every backend runs on
-    every device type."""
+    order (``x`` itself with one rank); under :func:`row_parts` part by
+    part.  A sum of zero-padded copies: the copy is exact, its backward is
+    each rank's slice of the summed cotangents, and it needs only
+    all-reduce, which every backend runs on every device type."""
     r = _multi()
     if r is None:
         return x
+    if _PARTS > 1:
+        return torch.cat([_gather_part(p, r)
+                          for p in x.chunk(_PARTS, dim=0)])
+    return _gather_part(x, r)
+
+
+def _gather_part(x: torch.Tensor, r: RankGroup) -> torch.Tensor:
     n = x.shape[0]
     full = x.new_zeros((n * r.world,) + tuple(x.shape[1:]))
     full = full.index_copy(0, torch.arange(r.rank * n, (r.rank + 1) * n,

@@ -358,6 +358,9 @@ def main(argv=None):
                     help="Also write the results as JSON lines there.")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    from brushstroke_engine_torch.utils.compile_cache import \
+        enable_persistent_cache
+    enable_persistent_cache()
     from brushstroke_engine_torch.ops.precision import set_precision_mode
     set_precision_mode(args.precision)
     engine = bench_engine(args.gan_checkpoint, dev, args.seed)

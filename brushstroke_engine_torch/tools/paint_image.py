@@ -1,11 +1,13 @@
 """Stylize a line drawing with a brush style (batch painting CLI).
 
-The port's counterpart of ``scripts/paint_image_main.py``, with its flags
-(minus the int8 path): reads a geometry image (``.npy`` directly, PNG or
-JPEG through ``utils.img_proc.read_image``; a PNG needs no Pillow), tiles it into overlapping patches, renders them through
-the paint engine with feature blending across seams, and writes the RGBA
-canvas (optionally composited on white) as a PNG.  Style interpolation
-(``--style_id2``/``--style_blend_alpha``) and color presets as there.
+The port's counterpart of ``scripts/paint_image_main.py``, with its flags:
+reads a geometry image (``.npy`` directly, PNG or JPEG through
+``utils.img_proc.read_image``; a PNG needs no Pillow), tiles it into
+overlapping patches, renders them through the paint engine with feature
+blending across seams, and writes the RGBA canvas (optionally composited
+on white) as a PNG.  Style interpolation (``--style_id2`` /
+``--style_blend_alpha``), color presets and ``--int8 static`` (static int8
+inference, calibrated once before the render) as there.
 
     python3 -m brushstroke_engine_torch.tools.paint_image \\
         --gan_checkpoint bundle.pkl --geo_image drawing.png --output_dir out
@@ -81,6 +83,9 @@ def main(argv=None):
                     default="fast",
                     help="'fast' = TF32 and the geometry encoder in bf16; "
                          "'strict' = full f32 for parity debugging.")
+    ap.add_argument("--int8", choices=["off", "static"], default="off",
+                    help="'static' = static-calibration int8 inference for "
+                         "the render stack (PSNR > 25 dB against float).")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log_level", type=int, default=logging.INFO)
     args = ap.parse_args(argv)
@@ -102,6 +107,8 @@ def main(argv=None):
         device=args.device)
     set_precision_mode(args.precision)
     engine.set_render_mode(args.render_mode)
+    if args.int8 == "static" and hasattr(engine, "enable_int8_serving"):
+        engine.enable_int8_serving()
     helper = PaintingHelper(engine, style_seed=args.style_seed)
 
     opts = GanBrushOptions()

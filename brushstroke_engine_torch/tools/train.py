@@ -459,6 +459,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.dry_run:
         return build(argv)
+    from brushstroke_engine_torch.utils.compile_cache import \
+        enable_persistent_cache
+    enable_persistent_cache()
     plan = group_plan(args)
     if plan is not None and plan[3] > 1:
         # This host's ranks, one process each; spawn, never fork after CUDA

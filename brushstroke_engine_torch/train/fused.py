@@ -169,7 +169,7 @@ def make_fused_train_step(cfg: TrainConfig, device_data: bool = False,
         cfg.losses("warmstart").require_original_fake_image()
     needs_orig_geom = geom_step is not None and \
         cfg.losses("geom").require_original_fake_image()
-    rounds = ts._num_rounds(cfg, local_batch)
+    rounds = ts._num_rounds(cfg, cfg.batch_size)
     res = cfg.gen_cfg.img_resolution
 
     def core(state, enc_params, enc_state, real_img, geom_input, geom_truth,

@@ -615,7 +615,8 @@ class TrainingLoop:
                     z = self._host_normal(bs, zd)
                     self.state, s = train_steps.g_main_step(
                         cfg, self.state, feats, geom_truth_t, z, rng, ema_beta,
-                        draws=None if train_steps._num_rounds(cfg, bs) > 1
+                        draws=None
+                        if train_steps._num_rounds(cfg, z.shape[0]) > 1
                         else loss_draws)
                     note(s, "Gmain")
                     if cfg.g_reg_interval > 0 and \

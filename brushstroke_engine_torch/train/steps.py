@@ -31,6 +31,10 @@ the scrub, as the JAX package's global gradient is scrubbed; the ADA sign
 counts are the global batch's; Gpl runs on the global first ``B //
 pl_batch_shrink`` rows, each rank its even share of them, with the global
 ``pl_lengths`` mean; the draws are made at the global shape and sliced.
+``batch_gpu`` rounds are the global batch's: round ``i`` is the global rows
+``[i * batch_gpu, (i + 1) * batch_gpu)``, each rank its even share of them.
+Gstitch's discriminator passes see all of ``fake1`` and then all of
+``fake2`` (``row_parts``), as one process does.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from brushstroke_engine_torch.models.mapping import mapping_apply, \
     update_w_avg
 from brushstroke_engine_torch.parallel.distributed import (
     all_gather_rows, all_reduce_sum, batch_mean, draw_rows,
-    mean_over_ranks_, num_ranks, rows_of,
+    mean_over_ranks_, num_ranks, row_parts, rows_of,
 )
 from brushstroke_engine_torch.train.augment import augment_pipe, draw_augment
 from brushstroke_engine_torch.train.state import TrainConfig, make_optimizers
@@ -132,47 +136,66 @@ def ema_update(g_ema, g_params, beta):
 
 def _num_rounds(cfg: TrainConfig, batch: int) -> int:
     """Gradient-accumulation round count from cfg.batch_gpu (reference
-    --batch-gpu microbatching)."""
+    --batch-gpu microbatching) for this rank's ``batch`` rows: the rounds
+    of the global batch (``batch * world`` rows)."""
+    world = num_ranks()
+    batch = batch * world
     if not cfg.batch_gpu or cfg.batch_gpu >= batch:
         return 1
     if batch % cfg.batch_gpu != 0:
         raise ValueError(
             f"batch {batch} not divisible by batch_gpu {cfg.batch_gpu}")
+    if cfg.batch_gpu % world:
+        raise ValueError(f"a round of batch_gpu {cfg.batch_gpu} rows does "
+                         f"not split over {world} ranks")
     return batch // cfg.batch_gpu
 
 
-def _round_slice(tree, i: int, rounds: int):
-    """Microbatch ``i`` of ``rounds`` from a tree (dict / list) of batched
+def _map_rows(fn, tree):
+    """``fn`` applied to every tensor of a tree (dict / list) of batched
     tensors."""
     if isinstance(tree, dict):
-        return {k: _round_slice(v, i, rounds) for k, v in tree.items()}
+        return {k: _map_rows(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_round_slice(v, i, rounds) for v in tree]
-    n = tree.shape[0] // rounds
-    return tree[i * n:(i + 1) * n]
+        return [_map_rows(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _num_rows(tree) -> int:
+    """Row count of the first tensor of a tree (dict / list)."""
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree.shape[0]
 
 
 def _accum_grads(loss_fn, params, batch_tree, draws, rounds: int):
     """Accumulate grads over ``rounds`` microbatches, one after the other
     (bounds peak memory like the reference's batch_gpu rounds; each round
-    has its own draws).
+    has its own draws).  Under a group a round is the global round's rows
+    of this rank: the batch tree is gathered once and each round takes its
+    share.
 
     ``loss_fn(params, mb, draws) -> (loss, aux)``.  Returns (mean loss, list
     of per-round aux, mean grads).
     """
     params = _trainable(params)
-    if rounds > 1 and num_ranks() > 1:
-        raise ValueError("gradient accumulation (batch_gpu) is not combined "
-                         "with a data-parallel group: each rank's rows are "
-                         "one round")
     if rounds == 1:
         loss, aux = loss_fn(params, batch_tree, draws or {})
         return loss.detach(), [aux], _grads(loss, params)
     if draws is not None and len(draws) != rounds:
         raise ValueError(f"{rounds} rounds need a list of {rounds} draws")
+    world = num_ranks()
+    if world > 1:
+        with torch.no_grad():
+            batch_tree = _map_rows(all_gather_rows, batch_tree)
+    n = _num_rows(batch_tree) // rounds
+    mine = rows_of(n // world)
     gsum, lsum, auxs = None, 0.0, []
     for i in range(rounds):
-        loss, aux = loss_fn(params, _round_slice(batch_tree, i, rounds),
+        rows = slice(i * n, (i + 1) * n) if world == 1 else \
+            slice(i * n + mine.start, i * n + mine.stop)
+        loss, aux = loss_fn(params, _map_rows(lambda t: t[rows], batch_tree),
                             draws[i] if draws is not None else {})
         g = tree_leaves(_grads(loss, params))
         gsum = g if gsum is None else torch._foreach_add(gsum, g)
@@ -450,13 +473,17 @@ def g_stitch_step(cfg: TrainConfig, state, geom_feats1, geom_feats2, z,
         fake = torch.cat([res["fake1"], res["fake2"]])
         composite = torch.cat([res["fake1_composite"],
                                res["fake2_composite"]])
-        debug = {"fake": fake,
-                 "fake_logits": _run_d(cfg, state["d_params"], fake, rng,
-                                       state["ada_p"], dr.get("aug_fake")),
+        # Under a group each D pass sees the global fake1 rows, then the
+        # global fake2 rows, as one process does.
+        with row_parts(2):
+            fake_logits = _run_d(cfg, state["d_params"], fake, rng,
+                                 state["ada_p"], dr.get("aug_fake"))
+            composite_logits = _run_d(cfg, state["d_params"], composite,
+                                      rng, state["ada_p"],
+                                      dr.get("aug_composite"))
+        debug = {"fake": fake, "fake_logits": fake_logits,
                  "fake_composite": composite,
-                 "fake_composite_logits": _run_d(
-                     cfg, state["d_params"], composite, rng, state["ada_p"],
-                     dr.get("aug_composite")),
+                 "fake_composite_logits": composite_logits,
                  "patch1": res["patch1"], "patch2": res["patch2"]}
         loss, items = losses.compute(debug, None, rng=dr.get("loss_rng"))
         return loss, _detach(items)

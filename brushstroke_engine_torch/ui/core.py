@@ -847,12 +847,17 @@ def create_core(encoder_checkpoint=None, gan_checkpoint=None, debug_dir=None,
                 style_seed=None, enable_z_saving=False, library_specs=None,
                 use_device_canvas=False, batch_window_ms: float = 0.0,
                 paint_engine=None, device="cuda",
-                serve_devices: int = 0) -> ServingCore:
+                serve_devices: int = 0, int8: str = "off") -> ServingCore:
     """The engine and library set-up of the JAX ``create_server``, without
     the web application.  Runs on ``device``: raises without CUDA unless
     ``device="cpu"``.  ``serve_devices`` N > 0 splits the batched renders
     over the first N cards (a local mesh, ``parallel/mesh.py``; N entries
-    of the CPU with ``device="cpu"``); it raises when fewer exist."""
+    of the CPU with ``device="cpu"``); it raises when fewer exist.
+    ``int8="static"`` calibrates the engine's static int8 serving
+    (``enable_int8_serving``, where the engine has it) before anything
+    renders."""
+    if int8 not in ("off", "static"):
+        raise ValueError(f"int8 must be 'off' or 'static', got {int8!r}")
     resolve_device(device)
     engine = paint_engine if paint_engine is not None else \
         PaintEngineFactory.create(gan_checkpoint,
@@ -867,6 +872,9 @@ def create_core(encoder_checkpoint=None, gan_checkpoint=None, debug_dir=None,
                                           local=True))
         logger.info("Splitting batched renders over %d devices",
                     serve_devices)
+    if int8 == "static" and hasattr(engine, "enable_int8_serving"):
+        n = len(engine.enable_int8_serving())
+        logger.info("Static-int8 serving: calibrated %d conv sites", n)
     z_file = generate_z_file(gan_checkpoint)
     library_specs = library_specs or []
     libraries = {}

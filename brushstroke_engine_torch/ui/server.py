@@ -112,7 +112,7 @@ def create_server(encoder_checkpoint, gan_checkpoint, debug_dir=None,
                   style_seed=None, enable_z_saving=False,
                   library_specs=None, use_device_canvas=False,
                   batch_window_ms: float = 0.0, paint_engine=None,
-                  device="cuda", serve_devices: int = 0):
+                  device="cuda", serve_devices: int = 0, int8: str = "off"):
     """The tornado application around :func:`ui.core.create_core` (same
     arguments); ``app.core`` is the core, ``app.paint_engine`` its engine
     and ``app.dev_batcher`` its pooled batcher or None."""
@@ -122,7 +122,7 @@ def create_server(encoder_checkpoint, gan_checkpoint, debug_dir=None,
         enable_z_saving=enable_z_saving, library_specs=library_specs,
         use_device_canvas=use_device_canvas, batch_window_ms=batch_window_ms,
         paint_engine=paint_engine, device=device,
-        serve_devices=serve_devices)
+        serve_devices=serve_devices, int8=int8)
     app = tornado.web.Application([
         (r"/websocket/", DrawingWebSocketHandler, dict(core=core)),
         (r"/brush/([^/]+)/([^/]+)\.jpg", BrushIconHandler, dict(core=core)),
@@ -167,6 +167,13 @@ def build_parser():
                     help="Serving conv/matmul precision: 'fast' (default) "
                          "allows TF32 and runs the frozen encoder in bf16; "
                          "'strict' is true f32 for parity debugging.")
+    ap.add_argument("--int8", choices=["off", "static"], default="off",
+                    help="'static' enables static-calibration int8 "
+                         "inference for the render stack: one calibration "
+                         "pass at startup, then every stride-1 conv of a "
+                         "render runs as an int8 conv with the calibrated "
+                         "scales (quality gate PSNR > 25 dB against float, "
+                         "tests/test_torch_quant.py).")
     ap.add_argument("--device", type=str, default="cuda",
                     help="Where the engine runs ('cpu' to run without a "
                          "GPU).")
@@ -177,6 +184,11 @@ def build_parser():
 def run_main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level)
+    from brushstroke_engine_torch.utils.compile_cache import \
+        enable_persistent_cache
+    cache_dir = enable_persistent_cache()
+    logger.info("Kernel build cache at %s",
+                cache_dir or "a temporary directory (persistence off)")
     app = create_server(
         encoder_checkpoint=args.encoder_checkpoint,
         gan_checkpoint=args.gan_checkpoint,
@@ -186,7 +198,8 @@ def run_main(argv=None):
         library_specs=parse_libraries(args.libraries),
         use_device_canvas=args.device_canvas,
         batch_window_ms=args.batch_window_ms,
-        device=args.device, serve_devices=args.serve_devices)
+        device=args.device, serve_devices=args.serve_devices,
+        int8=args.int8)
     from brushstroke_engine_torch.ops.precision import set_precision_mode
     set_precision_mode(args.precision)
     if not args.no_warmup:

@@ -204,13 +204,45 @@ Phases, in order; any failure exits non-zero:
     ranks on the one card over gloo with CUDA tensors against one process
     on the same global schedule (the JAX multi-host test's tolerances;
     both s/batch, no speed figure; K1 / W / W^T launches per rank) and
-    their saved state resumed in one process; NCCL across cards where the
-    machine has two (else a line saying it was not run); the serving mesh
+    their saved state resumed in one process; from the trained state, on
+    fixed global inputs, one Gstitch (its discriminator passes see all of
+    ``fake1``, then all of ``fake2``, as one process does) and one Dmain in
+    two ``batch_gpu`` rounds (each round the global rows one process takes,
+    half per rank), the ranks against one process at the same
+    tolerances; NCCL across cards where the machine has two (else a line
+    saying it was not run); the serving mesh
     on the 256-px flagship bundle (``set_serving_mesh``, ``--serve_devices``
     1 serving and one past the cards raising) and the stylize mesh, each
     against the call without a mesh.  Every K1, W and W^T shape it
     launched, the ranks' included, was held in phases 3 and 5.
-17. Prints the kernel table as JSON, then the final JSON line.
+17. Int8 serving and the kernel cache (``[int8]`` lines; see INT8_*
+    below), on phase 9's 256-px flagship bundle: (c) ``enable_int8_serving``
+    on the card (site count, seconds) and on the CPU (scales within
+    INT8_SCALE_RTOL); (d) ``render_stroke`` (UVS mapping on: exactly the
+    calibrated sites consumed, one int8 launch per site) and
+    ``render_batch`` at B = 16, int8 beside float in strict and fast mode
+    (p50 ms, patches/s), PSNR int8 vs float above INT8_PSNR_DB, the int8
+    render on the card against the CPU's at the CPU test's PSNR
+    (INT8_PARITY_DB, and 10 dB above the int8-vs-float PSNR); (a) the int8
+    kernel bit-equal to its plain version (int32 and the f32 / bf16
+    epilogue, per-sample and static scale) at every site geometry the
+    render reached
+    at each batch of INT8_BATCHES and at INT8_STRESS (I = 1, 2, 3; O = 3;
+    4x4 at B = 1), the held shapes printed; (b) its ms at the largest site
+    shape beside the bound, the plain version, the library route (the int8
+    window copy and ``torch._int_mm``) and cuDNN's f32 conv; (e) the
+    serving core in int8 on the four image paths at 1 and 8 sessions with
+    cuDNN's deterministic algorithms (each served image of the serial paths
+    within 1 LSB of its replay, of the batched and pooled paths 10 dB above
+    the int8-vs-float PSNR; one int8 launch per site and pass), the
+    device-canvas pool and both stylize waves in int8 (PSNR against
+    float); (f) ``tools/paint_image.py --int8 static``; every int8 shape
+    launched held in (a); (g) two fresh processes with
+    ``BSE_XLA_CACHE_DIR=<dir>``: the first runs nvcc, the second none and
+    launches K1, W, W^T and the int8 kernel, each printing its time to the
+    first render; then one with ``BSE_XLA_CACHE_DIR=""``, whose temporary
+    build directory is gone after it exits.
+18. Prints the kernel table as JSON, then the final JSON line.
 
 It imports nothing of JAX and nothing of ``brushstroke_engine_tpu``.
 """
@@ -488,6 +520,40 @@ MESH_CLI_CUTS = ["--kimg", "0", "--geom_warmstart_kimg", "0", "--snap", "1",
                  "--steps_per_dispatch", str(MESH_CLI_K)]
 MESH_DIGEST_RTOL, MESH_STAT_RTOL, MESH_STAT_ATOL = 1e-4, 5e-3, 1e-4
 MESH_SERVE_ROWS, MESH_STYLIZE_BATCH, MESH_TIMEOUT = (3, 8), 16, 300
+# Phase 16's Gstitch and batch_gpu checks: phase 12's crops, and rounds of
+# half the global batch (one process: K1 at B = 32, W at 32 rows; a rank of
+# two: 16 and 16; Gstitch 64 / 32 rows per G pass, 128 / 64 per D pass:
+# every shape one that phases 3 and 5 held).
+MESH_STITCH_CROPS = ((20, 30, TRAIN_RES, TRAIN_RES),
+                     (49, 53, TRAIN_RES, TRAIN_RES))
+MESH_ROUND = TRAIN_BATCH // 2
+
+# Phase 17, int8 serving.  The flagship's stride-1 dense convs: conv1 of
+# each of its 7 blocks and torgb.  The kernel is held at every site
+# geometry the renders reach, at every batch a path sends (a render or a
+# session stroke 1, a cross-session flush 2-8, the batched stylizer and
+# render_batch 16, the on-device stylizer 32), and at stress shapes: I = 1,
+# 2, 3 (padded to 4 with zeros), O = 3 (a 1x1 like torgb), 4x4 outputs at
+# B = 1.  Bit-equal: the int32 accumulator is exact in both, the epilogue
+# the same f32 products.  The int8 render against float: PSNR above the JAX
+# package's gate (tests/test_quant.py); card against CPU: scales within
+# 1e-5 relative and the render at PSNR >= INT8_PARITY_DB and 10 dB above
+# the int8-vs-float PSNR (the CPU test's, tests/test_torch_quant.py).  Not
+# within 1 LSB: the card's f32 activations differ from the CPU's by ~1e-6,
+# enough to move a value that lies on a rounding boundary of its int8 grid
+# by one step, whose change the later layers carry (8 LSB at single values
+# of the 256-px flagship on an H100).  The int8 operation rate of the
+# bound: the H100 SXM's dense int8 tensor-core peak.
+INT8_SITES = 8
+INT8_BATCHES = (*range(1, 9), 16, 32)
+INT8_STRESS = ((1, 6, 6, 1, 32, 3, 3), (1, 34, 34, 2, 16, 3, 3),
+               (2, 9, 7, 3, 5, 3, 3), (1, 64, 64, 64, 3, 1, 1),
+               (1, 4, 4, 128, 128, 1, 1), (1, 6, 6, 128, 3, 3, 3))
+INT8_PSNR_DB, INT8_PARITY_DB, INT8_SCALE_RTOL = 25.0, 55.0, 1e-5
+INT8_TIMED, INT8_BATCH_TIMED = 30, 8
+INT8_SERVE_RUNS = ((1, 8, 2), (8, 4, 1))
+INT8_OPS_PER_S = 1979e12
+INT8_CHILD_TIMEOUT = 300
 
 
 def fail(msg):
@@ -4904,6 +4970,73 @@ def _timed_run(loop, batches):
     return (time.perf_counter() - t0) / max(batches - 1, 1)
 
 
+def _mesh_extra(loop, ranks):
+    """{name: {"stats", "digest"}} of one Gstitch and one Dmain in two
+    ``batch_gpu`` rounds from ``loop``'s state, on fixed global inputs made
+    from SEED (each rank its rows; ``ranks`` the group, None alone)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.parallel.distributed import rank_context
+    from brushstroke_engine_torch.parallel.mesh import mean_stats
+    from brushstroke_engine_torch.train import steps as ts
+    from brushstroke_engine_torch.utils.util import tree_leaves
+    world, rank = (ranks.world, ranks.rank) if ranks else (1, 0)
+    cfg = dataclasses.replace(loop.cfg, stitch_interval=STITCH_INTERVAL,
+                              stitch_phase_losses=STITCH_LOSSES)
+    rng = np.random.RandomState(SEED + 16)
+    n, dev = TRAIN_BATCH, loop.device
+    geom = (rng.rand(n, TRAIN_RES, TRAIN_RES, 1) > 0.5).astype(np.float32)
+    z = rng.randn(n, cfg.gen_cfg.z_dim).astype(np.float32)
+    real = rng.uniform(-1, 1, (n, TRAIN_RES, TRAIN_RES, 3)).astype(
+        np.float32)
+    mine = slice(rank * n // world, (rank + 1) * n // world)
+    geom, z, real = (torch.from_numpy(a[mine]).to(dev)
+                     for a in (geom, z, real))
+    feats1 = ts.encode_geometry(cfg, loop.enc_params, loop.enc_state, geom)
+    feats2 = [torch.flip(f, dims=(2,)) for f in feats1]
+    out = {}
+    for name in ("stitch", "dmain_rounds"):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+        with rank_context(ranks):
+            if name == "stitch":
+                state, stats = ts.g_stitch_step(
+                    cfg, loop.state, feats1, feats2, z,
+                    *MESH_STITCH_CROPS, gen, 0.5)
+                tree = state["g_params"]
+            else:
+                state, stats = ts.d_main_step(
+                    dataclasses.replace(cfg, batch_gpu=MESH_ROUND),
+                    loop.state, real, feats1, z, gen)
+                tree = state["d_params"]
+            stats = mean_stats(stats)
+        out[name] = {"stats": {k: float(v) for k, v in stats.items()},
+                     "digest": float(sum(t.detach().double().abs().sum()
+                                         .item() for t in tree_leaves(tree)))}
+    return out
+
+
+def _hold_extra(tag, ranks, want):
+    """The ranks' Gstitch and batch_gpu round against one process's."""
+    worst = {}
+    for name, one in want.items():
+        got = [r["extra"][name] for r in ranks]
+        check(all(g["digest"] == got[0]["digest"] for g in got),
+              f"{tag} {name}: the ranks' trees differ")
+        dig = abs(got[0]["digest"] - one["digest"]) / abs(one["digest"])
+        check(dig <= MESH_DIGEST_RTOL, f"{tag} {name}: digest "
+              f"{got[0]['digest']} vs one process {one['digest']}")
+        stat = 0.0
+        for k, v in one["stats"].items():
+            g = got[0]["stats"][k]
+            check(abs(g - v) <= MESH_STAT_ATOL + MESH_STAT_RTOL * abs(v),
+                  f"{tag} {name}: stat {k} {g} vs one process {v}")
+            stat = max(stat, abs(g - v) / max(abs(v), 1e-12))
+        worst[name] = {"digest_rel_err": dig, "stats": len(one["stats"]),
+                       "stats_worst_rel_err": stat}
+    return worst
+
+
 def _mesh_rank(rank, world, port, npz, out_dir, backend, device):
     """One rank of phase 16 (c) / (d), in a process of its own: the mesh
     loop for MESH_BATCHES batches, its tensor-wise state saved, and a JSON
@@ -4929,6 +5062,8 @@ def _mesh_rank(rank, world, port, npz, out_dir, backend, device):
             fn.launches = 0           # this rank's mesh path starts here
             fn.shapes.clear()
         spb = _timed_run(loop, MESH_BATCHES)
+        extra = _mesh_extra(loop, mesh.ranks())
+        torch.cuda.synchronize()
         launches = _launch_counts()   # this rank's mesh path ends here
         loop.save_train_state(os.path.join(out_dir, f"{backend}_state"),
                               backend="orbax")
@@ -4936,7 +5071,7 @@ def _mesh_rank(rank, world, port, npz, out_dir, backend, device):
                "backend": dist.get_backend(), "device": str(loop.device),
                "nimg": loop.cur_nimg, "digest": _digest(loop),
                "stats": _last_stats(loop) if loop.rank == 0 else {},
-               "s_per_batch": spb, "launches": launches,
+               "s_per_batch": spb, "launches": launches, "extra": extra,
                "k1_shapes": sorted(fir4_epilogue.shapes),
                "w_shapes": {n: sorted(f.shapes) for n, f in (
                    ("warp_twopass", tw.warp_twopass),
@@ -5149,6 +5284,9 @@ def phase_mesh(card, held, warp_held, data_dir, style_iter, geom_iter):
         want = {"digest": _digest(one), "stats": _last_stats(one)}
         out["gloo"] = _hold_dp("(c) 2 ranks, gloo, one card", ranks, want,
                                spb_one)
+        extra_one = _mesh_extra(one, None)
+        out["gloo"]["gstitch_and_rounds"] = _hold_extra(
+            "(c) 2 ranks, gloo, one card", ranks, extra_one)
         for r in ranks:
             for k in total:
                 total[k] += r["launches"][k]
@@ -5159,6 +5297,10 @@ def phase_mesh(card, held, warp_held, data_dir, style_iter, geom_iter):
               "tensors vs one process, the same global schedule: "
               + json.dumps(out["gloo"]) + f" ({card}; two ranks sharing "
               f"one card is no speed figure)", flush=True)
+        print("[mesh] (c) from that state, one Gstitch (D over all fake1 "
+              "rows, then all fake2 rows) and one Dmain in two batch_gpu "
+              f"rounds of {MESH_ROUND}, two ranks vs one process: "
+              + json.dumps(out["gloo"]["gstitch_and_rounds"]), flush=True)
         # The state the two ranks saved resumes in one process.
         total_kimg = (MESH_BATCHES + MESH_MORE) * TRAIN_BATCH / 1000.0
         one.run(total_kimg=total_kimg)
@@ -5184,6 +5326,8 @@ def phase_mesh(card, held, warp_held, data_dir, style_iter, geom_iter):
             ranks = _spawn_ranks(2, npz, root, "nccl", lambda r: f"cuda:{r}")
             out["nccl"] = _hold_dp("(d) 2 ranks, NCCL, two cards", ranks,
                                    want, spb_one)
+            out["nccl"]["gstitch_and_rounds"] = _hold_extra(
+                "(d) 2 ranks, NCCL, two cards", ranks, extra_one)
             for r in ranks:
                 for k in total:
                     total[k] += r["launches"][k]
@@ -5292,6 +5436,498 @@ def phase_mesh(card, held, warp_held, data_dir, style_iter, geom_iter):
     return out
 
 
+def _psnr_u8(a, b):
+    """PSNR in dB of two uint8 images on a peak of 1."""
+    import numpy as np
+    mse = np.mean((a.astype(np.float32) / 255.0
+                   - b.astype(np.float32) / 255.0) ** 2)
+    return float(10 * np.log10(1.0 / max(mse, 1e-12)))
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: int8 serving and the kernel cache
+# ---------------------------------------------------------------------------
+
+def _int8_site_inputs(shape, gen):
+    """Seeded int8 operands and scales of one (B, Hp, Wp, I, O, kh, kw)."""
+    import torch
+    b, hp, wp, i, o, kh, kw = shape
+    xq = torch.randint(-127, 128, (b, hp, wp, i), device="cuda",
+                       generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (o, i, kh, kw), device="cuda",
+                       generator=gen, dtype=torch.int8)
+    s_x = torch.rand(b, device="cuda", generator=gen) * 1e-2 + 1e-5
+    s_w = torch.rand(o, device="cuda", generator=gen) * 1e-2 + 1e-5
+    return xq, wq, s_x, s_w
+
+
+def _int8_hold(shape, gen):
+    """The kernel against its plain version at ``shape``: the int32
+    accumulator, then the epilogue in f32 and bf16 with per-sample and with
+    one static scale; every output bit-equal.  Returns the held keys."""
+    import torch
+    from brushstroke_engine_torch.ops.int8_conv import (
+        int8_conv, int8_conv_plain, int8_epilogue_plain,
+    )
+    xq, wq, s_x, s_w = _int8_site_inputs(shape, gen)
+    want = int8_conv_plain(xq, wq)
+    got = int8_conv(xq, wq)
+    err = (got - want).abs().max().item()
+    check(torch.equal(got, want), f"int8_conv {shape}: the int32 "
+          f"accumulator differs from the plain version by {err}")
+    for sx in (s_x, s_x[:1]):
+        for dt in (torch.float32, torch.bfloat16):
+            got = int8_conv(xq, wq, sx, s_w, dt)
+            plain = int8_epilogue_plain(want, sx, s_w, dt)
+            err = max(err, (got.float() - plain.float()).abs().max().item())
+            check(torch.equal(got, plain), f"int8_conv {shape} {dt}: the "
+                  f"epilogue differs from the plain version")
+    return err, {(*shape, out) for out in ("int32", "torch.float32",
+                                           "torch.bfloat16")}
+
+
+def _int8_library(xq, wq, s_x, s_w):
+    """The stock route: the int8 window copy (9x the activations for a
+    3x3), ``torch._int_mm`` and the scale product."""
+    import torch
+    b, hp, wp, i = xq.shape
+    o, _, kh, kw = wq.shape
+    ho, wo = hp - kh + 1, wp - kw + 1
+    k = kh * kw * i
+    wm = wq.permute(0, 2, 3, 1).reshape(o, k).t().contiguous()
+
+    def run():
+        a = xq.unfold(1, kh, 1).unfold(2, kw, 1).permute(
+            0, 1, 2, 4, 5, 3).reshape(b * ho * wo, k)
+        acc = torch._int_mm(a, wm).reshape(b, ho, wo, o)
+        return acc.float() * (s_x[:, None, None, None] * s_w)
+    return run
+
+
+def _int8_timing(shape, card):
+    """ms per call of the kernel at ``shape`` (f32 epilogue), its bound,
+    the plain version, the library route and cuDNN's f32 conv."""
+    import torch
+    import torch.nn.functional as F
+    from brushstroke_engine_torch.ops.int8_conv import (
+        int8_conv, int8_conv_plain, int8_epilogue_plain,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+    xq, wq, s_x, s_w = _int8_site_inputs(shape, gen)
+    b, hp, wp, i, o, kh, kw = shape
+    ho, wo = hp - kh + 1, wp - kw + 1
+    y = int8_conv(xq, wq, s_x, s_w, torch.float32)
+    lib = _int8_library(xq, wq, s_x, s_w)
+    check(torch.equal(lib(), y), f"int8 library route at {shape} differs")
+    ms = cuda_ms(lambda: int8_conv(xq, wq, s_x, s_w, torch.float32), 20)
+    plain_ms = cuda_ms(lambda: int8_epilogue_plain(
+        int8_conv_plain(xq, wq), s_x, s_w, torch.float32), 3, warmup=1)
+    lib_ms = cuda_ms(lib, 20)
+    xf = xq.float().permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    wf = wq.float().contiguous(memory_format=torch.channels_last)
+    cudnn_ms = cuda_ms(lambda: F.conv2d(xf, wf), 20)
+    nbytes = xq.numel() + wq.numel() + 4 * (b + o) + 4 * y.numel()
+    ops = 2 * b * ho * wo * o * kh * kw * i
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / INT8_OPS_PER_S * 1e3}
+    by = max(bound, key=bound.get)
+    row = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "cudnn_f32_ms": cudnn_ms,
+           "tf32": torch.backends.cudnn.allow_tf32,
+           "bound_ms": bound[by], "bound_by": by, "bytes": nbytes,
+           "ops": ops, "card": card}
+    print(f"[int8] (b) kernel at {list(shape)}: {ms:.4f} ms, bound "
+          f"{bound[by]:.4f} ms ({by}; {nbytes} B, {ops} int8 ops), plain "
+          f"{plain_ms:.3f}, library (window copy + _int_mm) {lib_ms:.4f}, "
+          f"cuDNN f32 conv {cudnn_ms:.4f} (TF32 "
+          f"{torch.backends.cudnn.allow_tf32}) ({card})", flush=True)
+    return row
+
+
+def _cache_child(tmp, bundle, env_value):
+    """A fresh process with BSE_XLA_CACHE_DIR=``env_value``: builds (or
+    not), renders the bundle's first stroke, then launches K1 (the render),
+    W, W^T and the int8 kernel; returns its JSON."""
+    import subprocess as sp
+    code = f"""
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {REPO!r})
+import numpy as np, torch
+from brushstroke_engine_torch.ops import cuda_build
+from brushstroke_engine_torch.utils import compile_cache
+nvcc = []
+real = cuda_build._nvcc
+def counted():
+    nvcc.append(1)
+    return real()
+cuda_build._nvcc = counted
+from brushstroke_engine_torch.engine.brush import (GanBrushOptions,
+    PaintEngineFactory)
+from brushstroke_engine_torch.ops import warp as tw
+from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+from brushstroke_engine_torch.ops.int8_conv import int8_conv
+from brushstroke_engine_torch.train import augment as taug
+t = torch.tensor([[0.9, -0.2, 1.5], [0.2, 0.9, -0.5], [0.0, 0.0, 1.0]])
+eng = PaintEngineFactory.create({bundle!r}, device="cuda")
+patch = np.zeros((eng.patch_width,) * 2 + (4,), np.uint8)
+patch[64:192, 64:192, 3] = 255
+opts = GanBrushOptions()
+opts.set_style(eng.random_style(3), 3)
+eng.render_stroke(patch, None, opts)
+first_render_s = time.perf_counter() - t0
+eng.enable_int8_serving()
+eng.render_stroke(patch, None, opts)
+x = torch.rand((8, 64, 64, 3), device="cuda")
+imgs, sc = taug._twopass_prep(x, t.repeat(8, 1, 1).cuda(), True)
+sc = sc.contiguous()
+tw.warp_twopass_t(tw.warp_twopass(imgs.contiguous(), sc), sc)
+torch.cuda.synchronize()
+print(json.dumps({{"nvcc_runs": len(nvcc), "build_dir":
+    compile_cache.build_dir(), "libs": sorted(
+    f for f in __import__("os").listdir(compile_cache.build_dir())
+    if f.endswith(".so")), "first_render_s": first_render_s,
+    "launches": {{"fir4_epilogue": fir4_epilogue.launches,
+    "warp_twopass": tw.warp_twopass.launches,
+    "warp_twopass_t": tw.warp_twopass_t.launches,
+    "int8_conv": int8_conv.launches}},
+    "seconds": time.perf_counter() - t0}}))
+"""
+    env = dict(os.environ, BSE_XLA_CACHE_DIR=env_value, TMPDIR=tmp)
+    res = sp.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                 capture_output=True, text=True, timeout=INT8_CHILD_TIMEOUT)
+    check(res.returncode == 0, f"(g) the cache process "
+          f"(BSE_XLA_CACHE_DIR={env_value!r}) exited {res.returncode}: "
+          f"{(res.stdout + res.stderr)[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def phase_int8(card):
+    """Int8 serving and the kernel cache (see the module doc, phase 17, and
+    INT8_*)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.data.curves import random_spline_stroke
+    from brushstroke_engine_torch.engine.brush import (
+        GanBrushOptions, PaintEngineFactory,
+    )
+    from brushstroke_engine_torch.engine.stylize import (
+        stylize_image_batched, stylize_image_ondevice,
+    )
+    from brushstroke_engine_torch.ops import quant
+    from brushstroke_engine_torch.ops.cuda_build import BUILD_DIR
+    from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+    from brushstroke_engine_torch.ops.int8_conv import int8_conv
+    from brushstroke_engine_torch.ops.precision import (
+        precision_mode, set_precision_mode,
+    )
+    from brushstroke_engine_torch.tools import bench_serve as bs
+    from brushstroke_engine_torch.tools import paint_image
+    from brushstroke_engine_torch.ui.core import create_core
+
+    set_precision_mode("strict")
+    t_phase = time.time()
+    out = {"card": card}
+    bundle = os.path.join(BUILD_DIR, "serve_flagship.pkl")
+    root = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    launched = set()
+
+    out["launches"] = out["k1_launches"] = 0
+
+    def path_run(fn):
+        """Run part of the int8 path; its kernel launches count."""
+        before = int8_conv.launches, fir4_epilogue.launches
+        got = fn()
+        torch.cuda.synchronize()
+        out["launches"] += int8_conv.launches - before[0]
+        out["k1_launches"] += fir4_epilogue.launches - before[1]
+        return got
+
+    try:
+        # ---- (c) calibration on the card and on the CPU ------------------
+        core = create_core(gan_checkpoint=bundle, device="cuda")
+        engine = core.engine
+        t0 = time.perf_counter()
+        scales = path_run(engine.enable_int8_serving)
+        calib_s = time.perf_counter() - t0
+        sites = len(scales)
+        check(sites == INT8_SITES, f"(c) {sites} calibrated sites, the "
+              f"flagship has {INT8_SITES} stride-1 dense convs")
+        cpu_engine = PaintEngineFactory.create(bundle, device="cpu")
+        t0 = time.perf_counter()
+        cpu_scales = cpu_engine.enable_int8_serving()
+        cpu_calib_s = time.perf_counter() - t0
+        rel = max(abs(a - b) / abs(b) for a, b in zip(scales, cpu_scales))
+        check(len(cpu_scales) == sites and rel <= INT8_SCALE_RTOL,
+              f"(c) scales on the card vs the CPU: {rel} relative")
+        out["calibration"] = {"sites": sites, "seconds": calib_s,
+                              "cpu_seconds": cpu_calib_s,
+                              "scales_card_vs_cpu_rel": rel,
+                              "scales": scales}
+        print(f"[int8] (c) calibration: {sites} sites in {calib_s:.2f} s "
+              f"on the card ({cpu_calib_s:.2f} s on the CPU), scales card "
+              f"vs CPU {rel:.3e} relative", flush=True)
+
+        # ---- (d) renders: int8 beside float, the card against the CPU -----
+        patch = _stroke_patch(RES)
+        geoms = np.stack([engine.prepare_geom_input(np.roll(patch, 8 * i,
+                                                            1))[0]
+                          for i in range(BATCH)])
+
+        def stroke(eng):
+            return eng.render_stroke(patch, None, _stroke_opts(eng))[0]
+
+        q = path_run(lambda: stroke(engine))
+        check(quant.sites_consumed() == sites,
+              f"(d) a render consumed {quant.sites_consumed()} of {sites} "
+              f"sites")
+        before = int8_conv.launches
+        path_run(lambda: stroke(engine))
+        check(int8_conv.launches - before == sites,
+              f"(d) one render_stroke launched the int8 kernel "
+              f"{int8_conv.launches - before} times for {sites} sites")
+        scales_kept, engine._int8_scales = engine._int8_scales, None
+        f = stroke(engine)
+        engine._int8_scales = scales_kept
+        psnr = _psnr_u8(q, f)
+        check(psnr > INT8_PSNR_DB, f"(d) int8 vs float PSNR {psnr:.2f} dB")
+        cpu_q = stroke(cpu_engine)
+        cpu_err = _u8_err(q, cpu_q)
+        cpu_psnr = _psnr_u8(q, cpu_q)
+        cpu_share = float((np.abs(q.astype(int) - cpu_q.astype(int)) <= 1)
+                          .mean())
+        check(cpu_psnr >= INT8_PARITY_DB and cpu_psnr >= psnr + 10.0,
+              f"(d) int8 render card vs CPU: PSNR {cpu_psnr:.2f} dB (max "
+              f"{cpu_err} LSB), int8 vs float {psnr:.2f} dB")
+        timing = {}
+        for mode in ("strict", "fast"):
+            with precision_mode(mode):
+                for name in ("float", "int8"):
+                    engine._int8_scales = scales_kept if name == "int8" \
+                        else None
+                    run = path_run if name == "int8" else (lambda g: g())
+                    ts = []
+                    for _ in range(3 + INT8_TIMED):
+                        t0 = time.perf_counter()
+                        run(lambda: stroke(engine))
+                        ts.append((time.perf_counter() - t0) * 1e3)
+                    bt = []
+                    for _ in range(2 + INT8_BATCH_TIMED):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        rb = run(lambda: engine.render_batch(
+                            geoms, _batch_opts(engine, BATCH))["rgba"])
+                        torch.cuda.synchronize()
+                        bt.append(time.perf_counter() - t0)
+                    check(bool(torch.isfinite(rb).all()),
+                          f"(d) {name} {mode} render_batch non-finite")
+                    timing[f"{mode}_{name}"] = {
+                        "render_stroke_ms": _quantiles(ts[3:]),
+                        "render_batch_patches_per_s":
+                        BATCH / statistics.median(bt[2:]),
+                        "rgba": rb.float()}
+        engine._int8_scales = scales_kept
+        for mode in ("strict", "fast"):
+            a, b = (timing[f"{mode}_{n}"].pop("rgba") for n in ("int8",
+                                                                 "float"))
+            mse = float(((a - b) ** 2).mean())
+            timing[f"{mode}_batch_psnr_db"] = 10 * np.log10(
+                1.0 / max(mse, 1e-12))
+            check(timing[f"{mode}_batch_psnr_db"] > INT8_PSNR_DB,
+                  f"(d) {mode} render_batch int8 vs float PSNR "
+                  f"{timing[f'{mode}_batch_psnr_db']:.2f} dB")
+        out["render"] = {"psnr_db": psnr, "card_vs_cpu_u8": cpu_err,
+                         "card_vs_cpu_psnr_db": cpu_psnr,
+                         "card_vs_cpu_within_1_lsb": cpu_share,
+                         "timing": timing}
+        for mode in ("strict", "fast"):
+            fl, i8 = timing[f"{mode}_float"], timing[f"{mode}_int8"]
+            print(f"[int8] (d) {mode}: render_stroke p50 float "
+                  f"{fl['render_stroke_ms']['p50']:.2f} ms, int8 "
+                  f"{i8['render_stroke_ms']['p50']:.2f} ms; render_batch "
+                  f"B={BATCH} float "
+                  f"{fl['render_batch_patches_per_s']:.1f}, int8 "
+                  f"{i8['render_batch_patches_per_s']:.1f} patches/s; "
+                  f"batch PSNR int8 vs float "
+                  f"{timing[f'{mode}_batch_psnr_db']:.2f} dB ({card})",
+                  flush=True)
+        print(f"[int8] (d) render_stroke int8 vs float PSNR {psnr:.2f} dB "
+              f"(gate > {INT8_PSNR_DB}); int8 card vs CPU PSNR "
+              f"{cpu_psnr:.2f} dB (>= {INT8_PARITY_DB} and 10 dB above the "
+              f"int8 gap), max {cpu_err} LSB, {cpu_share:.5f} of the values "
+              f"within 1 LSB; {sites} sites consumed per render", flush=True)
+        launched |= set(int8_conv.shapes)
+
+        # ---- (a) the kernel against its plain version --------------------
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+        geometry = sorted({s[1:7] for s in int8_conv.shapes})
+        held, err = set(), 0.0
+        for shape in [(b, *g) for g in geometry for b in INT8_BATCHES] \
+                + list(INT8_STRESS):
+            e, keys = _int8_hold(shape, gen)
+            held |= keys
+            err = max(err, e)
+        out["max_abs_err"] = err
+        out["held"] = {"site_geometries": [list(g) for g in geometry],
+                       "batches": list(INT8_BATCHES),
+                       "stress": [list(s) for s in INT8_STRESS],
+                       "cases": len(held)}
+        print(f"[int8] (a) the kernel bit-equal to its plain version (int32 "
+              f"and the f32 / bf16 epilogue, per-sample and static scale) "
+              f"at the {len(geometry)} site geometries (B, Hp, Wp, I, O, "
+              f"kh, kw with B in {list(INT8_BATCHES)}): "
+              f"{[list(g) for g in geometry]}; stress shapes "
+              f"{[list(s) for s in INT8_STRESS]}", flush=True)
+
+        # ---- (b) timing at the largest site shape ------------------------
+        big = max((s[:7] for s in launched if s[0] == BATCH),
+                  key=lambda s: s[1] * s[2] * s[3] * s[4] * s[5] * s[6])
+        out["timing"] = _int8_timing(big, card)
+
+        # ---- (e) the serving core in int8, the pool, the waves -----------
+        # With cuDNN's deterministic algorithms the serial paths compute
+        # what their replay computes (1 LSB).  The batched and pooled paths
+        # render a flush's rows as one batch, whose float convs and matmuls
+        # round otherwise than a single row's; the int8 grid turns those
+        # ~1e-6 differences into single-value steps (as between the card
+        # and the CPU), so each of their images is held 10 dB above the
+        # int8-vs-float PSNR, the rule of the CPU test's int8 tolerance
+        # (INT8_PARITY_DB is more than they give: one image of batched x8
+        # at 54.94 dB, max 9 LSB, on an H100).
+        serve = []
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        for path in bs.PATHS:
+            for sessions, strokes, warm in INT8_SERVE_RUNS:
+                tag = f"{path} x{sessions}"
+                serving = bs.make_core(engine, path, SERVE_WINDOW_MS,
+                                       SERVE_CANVAS, PAINT_LEVEL, PAINT_CROP)
+                before = int8_conv.launches
+                stats, painters = path_run(lambda: bs.serve(
+                    serving, path, sessions, strokes, warm,
+                    canvas=SERVE_CANVAS, level=PAINT_LEVEL, crop=PAINT_CROP,
+                    seed=SEED, trace_strokes=1, keep_images=True))
+                n = int8_conv.launches - before
+                serving.close()
+                check(stats["fallbacks"] == 0 and stats["errors"] == 0,
+                      f"(e) {tag}: {stats['fallbacks']} fallbacks, "
+                      f"{stats['errors']} errors")
+                check(n == sites * stats["generator_passes"],
+                      f"(e) {tag}: {n} int8 launches for "
+                      f"{stats['generator_passes']} passes")
+                worst, low = 0, float("inf")
+                for p in painters:
+                    replay = path_run(lambda: bs.serial_replay(
+                        engine, path, p, SERVE_CANVAS, PAINT_LEVEL,
+                        PAINT_CROP))
+                    for r, (img, meta) in zip(p.records, replay):
+                        worst = max(worst, _u8_err(r["image"], img))
+                        low = min(low, _psnr_u8(r["image"], img))
+                        check(r["meta"] == meta, f"(e) {tag}: meta")
+                if path in ("helper", "device_canvas"):
+                    check(worst <= 1, f"(e) {tag}: served vs replay "
+                          f"{worst} LSB")
+                else:
+                    check(low >= psnr + 10.0, f"(e) {tag}: served vs "
+                          f"replay PSNR {low:.2f} dB (max {worst} LSB), "
+                          f"int8 vs float {psnr:.2f} dB")
+                serve.append({"path": path, "sessions": sessions,
+                              "client_ms": stats["client_ms"],
+                              "strokes_per_s": stats["strokes_per_s"],
+                              "rows_per_pass": stats["rows_per_pass"],
+                              "passes": stats["generator_passes"],
+                              "int8_launches": n, "replay_max_lsb": worst,
+                              "replay_min_psnr_db": low})
+                print(f"[int8] (e) {tag} in int8: client ms p50/p99 "
+                      f"{stats['client_ms']['p50']:.2f} / "
+                      f"{stats['client_ms']['p99']:.2f}, "
+                      f"{stats['strokes_per_s']:.1f} strokes/s, {n} int8 "
+                      f"launches ({sites} per pass), served vs replay max "
+                      f"{worst} LSB, min PSNR {low:.2f} dB (cuDNN "
+                      f"deterministic; {card})", flush=True)
+        torch.backends.cudnn.deterministic = det
+        out["serve"] = serve
+        drawing = random_spline_stroke(np.random.default_rng(SEED),
+                                       CMP_DRAWING, radius=6.0)
+        waves = {}
+        for name, fn in (("ondevice", stylize_image_ondevice),
+                         ("batched", stylize_image_batched)):
+            opts = GanBrushOptions()
+            opts.set_style(engine.random_style(5), 5)
+            before = int8_conv.launches
+            img = path_run(lambda: fn(engine, drawing, opts))
+            n = int8_conv.launches - before
+            engine._int8_scales = None
+            ref = fn(engine, drawing, opts)
+            engine._int8_scales = scales_kept
+            ps = _psnr_u8(img, ref)
+            check(img.shape == ref.shape and n > 0 and n % sites == 0
+                  and ps > INT8_PSNR_DB,
+                  f"(e) stylize {name}: {n} int8 launches, PSNR {ps:.2f}")
+            waves[name] = {"int8_launches": n, "chunks": n // sites,
+                           "psnr_db": ps}
+        out["stylize"] = waves
+        print(f"[int8] (e) the stylize waves in int8 on a {CMP_DRAWING}-px "
+              f"drawing: {json.dumps(waves)}", flush=True)
+
+        # ---- (f) tools/paint_image.py --int8 static -----------------------
+        npy = os.path.join(root, "drawing.npy")
+        np.save(npy, (drawing * 255).astype(np.uint8))
+        t0 = time.perf_counter()
+        before = int8_conv.launches
+        written = path_run(lambda: paint_image.main([
+            "--gan_checkpoint", bundle, "--geo_image", npy, "--output_dir",
+            os.path.join(root, "stylized"), "--int8", "static",
+            "--precision", "strict"]))
+        n = int8_conv.launches - before
+        check(os.path.isfile(written) and n > sites,
+              f"(f) paint_image --int8 static: {n} int8 launches")
+        out["paint_image"] = {"seconds": time.perf_counter() - t0,
+                              "int8_launches": n}
+        print(f"[int8] (f) tools/paint_image.py --int8 static: "
+              f"{json.dumps(out['paint_image'])}", flush=True)
+        launched |= set(int8_conv.shapes)
+        check(launched <= held, f"the int8 kernel launched at shapes (a) "
+              f"did not hold: {sorted(launched - held)}")
+        core.close()
+
+        # ---- (g) the kernel cache across processes -----------------------
+        cache = os.path.join(root, "cache")
+        first = _cache_child(root, bundle, cache)
+        second = _cache_child(root, bundle, cache)
+        off = _cache_child(root, bundle, "")
+        for tag, r in (("first", first), ("second", second), ("off", off)):
+            check(all(v > 0 for v in r["launches"].values()),
+                  f"(g) {tag}: launches {r['launches']}")
+        check(first["nvcc_runs"] > 0 and second["nvcc_runs"] == 0
+              and first["build_dir"] == second["build_dir"]
+              and first["build_dir"].startswith(cache),
+              f"(g) the second process ran nvcc {second['nvcc_runs']} "
+              f"times; dirs {first['build_dir']} {second['build_dir']}")
+        check(off["nvcc_runs"] > 0 and not os.path.exists(off["build_dir"])
+              and not off["build_dir"].startswith(cache),
+              f"(g) BSE_XLA_CACHE_DIR='' left {off['build_dir']}")
+        out["cache"] = {"first": first, "second": second, "off": off}
+        print(f"[int8] (g) BSE_XLA_CACHE_DIR=<dir>: the first process ran "
+              f"nvcc {first['nvcc_runs']} time(s) and rendered first after "
+              f"{first['first_render_s']:.2f} s; the second ran none, "
+              f"first render after {second['first_render_s']:.2f} s, "
+              f"libraries {second['libs']}; BSE_XLA_CACHE_DIR='': built in "
+              f"a temporary directory, gone after exit (first render "
+              f"{off['first_render_s']:.2f} s)", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    print(f"[int8] launches on the int8 path: int8_conv {out['launches']}, "
+          f"K1 {out['k1_launches']}; every int8 shape held in (a), max abs "
+          f"err {out['max_abs_err']}; phase {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     card = phase_card()
@@ -5327,6 +5963,7 @@ def main():
     fused = phase_fused(style_iter, geom_iter, card, held, warp_held,
                         data_dir)
     mesh = phase_mesh(card, held, warp_held, data_dir, style_iter, geom_iter)
+    int8 = phase_int8(card)
 
     top = next(r for r in rows if r["res"] == RES and r["dtype"] == "float32")
     warp = next(r for r in warp_rows if r["mats"] == "ada_p1"
@@ -5396,6 +6033,26 @@ def main():
             "shape": f"{warp['shape']} float32, ADA 'bgc' matrices at p=1, "
                      f"antialias",
         })
+    kernels.append({
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "brushstroke_engine_torch/csrc/int8_conv.cu",
+        "replaces": "brushstroke_engine_tpu/ops/quant.py:170 (no Pallas "
+                    "counterpart: the JAX package's XLA int8 conv)",
+        "launches": int8["launches"],
+        "launches_int8_path": int8["launches"],
+        "max_abs_err": int8["max_abs_err"],
+        "ms": int8["timing"]["ms"],
+        "plain_ms": int8["timing"]["plain_ms"],
+        "bound_ms": int8["timing"]["bound_ms"],
+        "bound_by": int8["timing"]["bound_by"],
+        "library_ms": int8["timing"]["library_ms"],
+        "cudnn_f32_ms": int8["timing"]["cudnn_f32_ms"],
+        "shape": f"{int8['timing']['shape']} (B, Hp, Wp, I, O, kh, kw), "
+                 f"f32 epilogue with per-sample scales",
+    })
+    kernels[0]["launches"] += int8["k1_launches"]
+    kernels[0]["launches_int8_path"] = int8["k1_launches"]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched")
     print(json.dumps({"main_path": main_stats, "training_path": train,
@@ -5403,7 +6060,7 @@ def main():
                       "train_run": train_cli, "checkpoint_path": ckpt,
                       "stitch_path": stitch, "brush_workflow": brush,
                       "data_chain": data, "fused_trainer": fused,
-                      "mesh": mesh,
+                      "mesh": mesh, "int8": int8,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

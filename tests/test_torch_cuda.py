@@ -21,7 +21,9 @@ reference snapshot (bit-equal parameters, 1 LSB) and autoencoder steps
 W^T at Gstitch's batch of 128, and PPL's distances (1e-3 plus the f32 floor
 of LPIPS) and precision / recall (equal) against the CPU; a parallel
 projection step with per-row noise against the CPU (1e-4 relative plus
-Adam's lr bound).
+Adam's lr bound); the int8 conv against its plain version (bit-equal: the
+accumulator is exact) and the static int8 render against the CPU (scales
+1e-5 relative, 1 LSB).
 """
 
 import numpy as np
@@ -1129,3 +1131,67 @@ def test_meshes_of_one_card_equal_no_mesh():
         assert np.array_equal(outs[0], outs[1])
     finally:
         torch.backends.cudnn.deterministic = det
+
+
+# ---------------------------------------------------------------------------
+# The int8 conv of static int8 serving (csrc/int8_conv.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hp,wp,i,o,k", [
+    (1, 34, 34, 32, 32, 3),      # a 32-px conv1 of the small engine
+    (2, 6, 6, 32, 32, 3),        # b4.conv1 at B = 2
+    (1, 32, 32, 32, 3, 1),       # torgb: 1x1, few outputs
+    (1, 6, 6, 1, 16, 3),         # I = 1, 2, 3: padded to 4 with zeros
+    (3, 9, 7, 2, 5, 3),
+    (1, 4, 4, 3, 3, 1),          # a 4x4 map at B = 1
+    (2, 20, 37, 130, 17, 3),     # I and O off every tile
+])
+def test_int8_conv_kernel_matches_plain(b, hp, wp, i, o, k):
+    """The int32 accumulator and the epilogue (f32 and bf16, per-sample
+    and static scales) bit for bit against the plain version."""
+    from brushstroke_engine_torch.ops.int8_conv import (
+        int8_conv, int8_conv_plain, int8_epilogue_plain,
+    )
+    rng = np.random.RandomState(b * 1000 + hp + i + o)
+    xq = torch.from_numpy(rng.randint(-127, 128, (b, hp, wp, i)).astype(
+        np.int8))
+    wq = torch.from_numpy(rng.randint(-127, 128, (o, i, k, k)).astype(
+        np.int8))
+    want = int8_conv_plain(xq, wq)
+    got = int8_conv(xq.cuda(), wq.cuda())
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    s_w = torch.from_numpy((rng.rand(o) * 1e-2 + 1e-4).astype(np.float32))
+    for s_x in (torch.from_numpy((rng.rand(b) * 1e-2).astype(np.float32)),
+                torch.tensor([0.0173], dtype=torch.float32)):
+        for dt in (torch.float32, torch.bfloat16):
+            y = int8_conv(xq.cuda(), wq.cuda(), s_x.cuda(), s_w.cuda(), dt)
+            assert torch.equal(y.cpu(), int8_epilogue_plain(want, s_x, s_w,
+                                                            dt))
+
+
+def test_int8_render_on_the_card_equals_the_cpu():
+    """enable_int8_serving on the card and on the CPU: the same site count,
+    scales within 1e-5 relative; the int8 render within 1 LSB; every site
+    launched the kernel."""
+    from brushstroke_engine_torch.engine.brush import GanBrushOptions
+    from brushstroke_engine_torch.ops import quant
+    from brushstroke_engine_torch.ops.int8_conv import int8_conv
+    engs = {d: _small_engine(d) for d in ("cuda", "cpu")}
+    scales = {d: e.enable_int8_serving() for d, e in engs.items()}
+    assert len(scales["cuda"]) == len(scales["cpu"]) > 0
+    np.testing.assert_allclose(scales["cuda"], scales["cpu"], rtol=1e-5)
+    patch = np.zeros((32, 32, 4), np.uint8)
+    patch[8:24, 8:24, 3] = 255
+    out = {}
+    for d, e in engs.items():
+        opts = GanBrushOptions()
+        opts.set_style(e.random_style(7), 7)
+        opts.enable_uvs_mapping = True
+        before = int8_conv.launches
+        out[d] = e.render_stroke(patch, None, opts)[0]
+        assert quant.sites_consumed() == len(scales[d])
+        if d == "cuda":
+            assert int8_conv.launches - before == len(scales[d])
+    assert np.abs(out["cuda"].astype(int) - out["cpu"].astype(int)).max() \
+        <= 1

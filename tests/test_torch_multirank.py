@@ -13,7 +13,12 @@ trajectory up to cross-process reduction order -- the trees' digests to
 tolerances); both ranks hold the same state.  The 2-rank run saves its
 state through the tensor-wise ("orbax") backend, and one process resumes
 it and trains one batch more as the uninterrupted process does (the same
-tolerance).  Every worker has a 300-s timeout and is killed past it.
+tolerance).  From the trained state both runs then take one Gstitch (its
+discriminator passes see all of ``fake1`` and then all of ``fake2``, as one
+process does), one Gstitch and one Dmain in two ``batch_gpu`` rounds of 4
+(each round the global rows one process takes, 2 per rank): stats and
+the updated tree's digest at the same tolerances.  Every worker has a 300-s
+timeout and is killed past it.
 """
 
 import json
@@ -95,6 +100,18 @@ def test_two_ranks_match_one_process_and_resume_in_one(tmp_path):
         assert k in want["stats"] and k in got["stats"], k
     assert checked >= 15
     assert want["stats"]["Progress/ada_p"] == got["stats"]["Progress/ada_p"]
+
+    # Gstitch and the batch_gpu rounds under the group.
+    for name, one in want["extra"].items():
+        two = [g["extra"][name] for g in ranks]
+        assert two[0]["digest"] == two[1]["digest"], name
+        np.testing.assert_allclose(two[0]["digest"], one["digest"],
+                                   rtol=1e-4, err_msg=name)
+        assert len(one["stats"]) >= 2, name
+        for k, v in one["stats"].items():
+            np.testing.assert_allclose(two[0]["stats"][k], v, rtol=5e-3,
+                                       atol=1e-4, err_msg=f"{name} {k}")
+    assert set(want["extra"]) == {"stitch", "stitch_rounds", "dmain_rounds"}
 
     # The state saved by two ranks resumes in one process.
     assert want["resumed_nimg"] == 3 * 8

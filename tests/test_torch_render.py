@@ -387,7 +387,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "train.fused", "tools.visualize_main",
                 "tools.diagnose_color_control", "tools.drive_brush_server",
                 "tools.plot_colors", "tools.fetch_and_verify_weights",
-                "parallel.distributed", "parallel.mesh", "utils.stats"):
+                "parallel.distributed", "parallel.mesh", "utils.stats",
+                "ops.quant", "ops.int8_conv", "utils.compile_cache"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

@@ -11,7 +11,12 @@ losses, and the discriminator's minibatch-stddev with groups of 4 (the
 local batch is 4 at two ranks, so a group spans both ranks).
 
 Writes a JSON of the last tick's stats and digests of the trees (sums of
-absolute values) after ``--batches`` batches.  With ``--save`` the run
+absolute values) after ``--batches`` batches.  Then, from that state and on
+fixed global inputs (each rank its rows), one Gstitch (its discriminator
+passes over ``concat(fake1, fake2)`` and the composites, minibatch-stddev
+groups spanning both ranks), one Gstitch in two ``batch_gpu`` rounds of 4
+and one Dmain in two rounds of 4 (2 rows per rank per round): their stats
+and the digests of the updated tree.  With ``--save`` the run
 then writes its state through the tensor-wise ("orbax") backend; with
 ``--resume DIR`` (one process) a second loop resumes DIR once it is
 written and, like the
@@ -20,6 +25,7 @@ written.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -43,12 +49,17 @@ from brushstroke_engine_torch.ops.precision import \
     set_precision_mode  # noqa: E402
 from brushstroke_engine_torch.parallel.distributed import \
     maybe_initialize_distributed  # noqa: E402
-from brushstroke_engine_torch.parallel.mesh import make_mesh  # noqa: E402
+from brushstroke_engine_torch.parallel.distributed import \
+    rank_context  # noqa: E402
+from brushstroke_engine_torch.parallel.mesh import (  # noqa: E402
+    make_mesh, mean_stats,
+)
 from brushstroke_engine_torch.train.augment import \
     AugmentConfig  # noqa: E402
 from brushstroke_engine_torch.train.device_dataset import \
     build_device_banks  # noqa: E402
 from brushstroke_engine_torch.train.loop import TrainingLoop  # noqa: E402
+from brushstroke_engine_torch.train import steps as ts  # noqa: E402
 from brushstroke_engine_torch.train.state import TrainConfig  # noqa: E402
 from brushstroke_engine_torch.utils.checkpoint import (  # noqa: E402
     init_native_params, params_from_jax,
@@ -58,6 +69,8 @@ from brushstroke_engine_torch.utils.util import tree_leaves  # noqa: E402
 RES, BATCH = 32, 8
 MAIN_LOSSES = "0.1*iou_inv(uvs)+0.5*l1(uvs)+0.3*rgb(uvs,mean_rgb=1)"
 GEOM_LOSSES = "1.0*iou_inv(uvs)+0.5*bce(uvs)"
+STITCH_LOSSES = "1.0*gan(fake)+1.0*gan(fake_composite)+1.0*l1(patch)"
+ROUND = 4          # batch_gpu of the rounds: 2 rounds of the global 8
 
 
 class _DS:
@@ -123,6 +136,47 @@ def digest(loop):
             for name in ("g_params", "d_params", "g_ema")}
 
 
+def extra_steps(loop, mesh):
+    """{name: {"stats", "digest"}} of one Gstitch, one Gstitch in rounds and
+    one Dmain in rounds from ``loop``'s state on fixed global inputs."""
+    ranks = mesh.ranks() if mesh is not None else None
+    world, rank = (ranks.world, ranks.rank) if ranks else (1, 0)
+    cfg = dataclasses.replace(loop.cfg, stitch_interval=4,
+                              stitch_phase_losses=STITCH_LOSSES)
+    rng = np.random.RandomState(7)
+    dev = loop.device
+    geom = torch.from_numpy(
+        (rng.rand(BATCH, RES, RES, 1) > 0.5).astype(np.float32)).to(dev)
+    z = torch.from_numpy(rng.randn(BATCH, cfg.gen_cfg.z_dim).astype(
+        np.float32)).to(dev)
+    real = torch.from_numpy(rng.uniform(-1, 1, (BATCH, RES, RES, 3)).astype(
+        np.float32)).to(dev)
+    mine = slice(rank * BATCH // world, (rank + 1) * BATCH // world)
+    feats1 = ts.encode_geometry(cfg, loop.enc_params, loop.enc_state,
+                                geom[mine])
+    feats2 = [torch.flip(f, dims=(2,)) for f in feats1]
+    rounds = dataclasses.replace(cfg, batch_gpu=ROUND)
+    out = {}
+    for name, c, tree in (("stitch", cfg, "g_params"),
+                          ("stitch_rounds", rounds, "g_params"),
+                          ("dmain_rounds", rounds, "d_params")):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        with rank_context(ranks):
+            if tree == "g_params":
+                state, stats = ts.g_stitch_step(
+                    c, loop.state, feats1, feats2, z[mine],
+                    (0, 0, RES, RES), (5, 6, RES, RES), gen, 0.5)
+            else:
+                state, stats = ts.d_main_step(c, loop.state, real[mine],
+                                              feats1, z[mine], gen)
+            stats = mean_stats(stats)
+        out[name] = {
+            "stats": {k: float(v) for k, v in stats.items()},
+            "digest": float(sum(t.detach().double().abs().sum().item()
+                                for t in tree_leaves(state[tree])))}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--world", type=int, default=1)
@@ -155,7 +209,7 @@ def main():
             stats = json.loads(f.readlines()[-1])
     out = {"stats": stats, "digest": digest(loop),
            "nimg": loop.cur_nimg, "rank": loop.rank,
-           "world": loop.num_ranks}
+           "world": loop.num_ranks, "extra": extra_steps(loop, mesh)}
     if args.save:
         loop.save_train_state(args.save, backend="orbax")
     if args.resume:
