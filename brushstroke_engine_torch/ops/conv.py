@@ -81,7 +81,8 @@ def _prefir_up(x, w, f, up, padding, flip_weight):
 
 
 def conv2d_resample(x, w, f=None, up: int = 1, down: int = 1, padding=0,
-                    flip_weight: bool = True, flip_filter: bool = False):
+                    flip_weight: bool = True, flip_filter: bool = False,
+                    weight_source=None):
     """2D convolution with optional FIR-filtered up/downsampling.
 
     Padding is with respect to the (conceptually) upsampled image.
@@ -92,6 +93,9 @@ def conv2d_resample(x, w, f=None, up: int = 1, down: int = 1, padding=0,
       f: FIR filter from :func:`setup_filter` (used only when up>1 or down>1).
       flip_weight: True = correlation (torch conv2d convention), False = conv.
       flip_filter: False = convolution, True = correlation.
+      weight_source: a tuple, the parameter ``w`` was derived from and how
+        (hashable), under which an int8 site keeps its quantized weight
+        (``ops/quant.py:site_weight``); None quantizes ``w`` on every call.
     """
     if up > 1:
         x = _prefir_up(x, w, f, up, padding, flip_weight)
@@ -101,15 +105,18 @@ def conv2d_resample(x, w, f=None, up: int = 1, down: int = 1, padding=0,
         return x
 
     px0, px1, py0, py1 = _resample_pads(f, up, down, padding)
+    if down == 1 and quant.quantizable(x, (1, 1), (1, 1), 1):
+        return quant.quantized_conv(
+            x, lambda: (w if flip_weight else w.flip([2, 3])).to(x.dtype),
+            ((py0, py1), (px0, px1)),
+            source=None if weight_source is None
+            else (*weight_source, flip_weight))
     if not flip_weight:
         w = w.flip([2, 3])
     if down > 1:
         x = upfirdn2d(x, f, padding=[px0, px1, py0, py1],
                       flip_filter=flip_filter)
         return _dense_conv(x, w, stride=down)
-    if quant.quantizable(x, (1, 1), (1, 1), 1):
-        return quant.quantized_conv(x, w.to(x.dtype),
-                                    ((py0, py1), (px0, px1)))
     x = nhwc(F.pad(nchw(x), [px0, px1, py0, py1]))
     return _dense_conv(x, w)
 
@@ -151,7 +158,8 @@ def modulated_conv2d(
     s32 = styles.float()
 
     # Low-precision guard (reference networks.py:51-53), bf16/fp16 only.
-    if x.dtype in (torch.float16, torch.bfloat16) and demodulate:
+    guard = x.dtype in (torch.float16, torch.bfloat16) and demodulate
+    if guard:
         w_norm = w32.abs().amax(dim=(1, 2, 3), keepdim=True)     # [O,1,1,1]
         w32 = w32 / ((in_ch * kh * kw) ** 0.5 * w_norm)
         s32 = s32 / s32.abs().amax(dim=1, keepdim=True)
@@ -186,8 +194,11 @@ def modulated_conv2d(
             alpha=_FIR_ALPHA[activation], fir_gain=up ** 2,
             out_dtype=x.dtype)
 
+    # An int8 site keeps the weight it quantized from `weight` (the
+    # parameter; w32 is new every call) under the guard it was scaled by.
     x = conv2d_resample(x, w32, f=f, up=up, down=down, padding=padding,
-                        flip_weight=flip_weight)
+                        flip_weight=flip_weight,
+                        weight_source=(weight, guard))
     if dcoefs is not None:
         x = x * dcoefs[:, None, None, :].to(x.dtype)
     if noise is not None:

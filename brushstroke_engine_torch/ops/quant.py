@@ -24,9 +24,11 @@ The state (the flags, the recorded amax, the scales and the site index) is
 per thread: the server renders on worker threads, and a render in float on
 one thread must not consume or see another thread's scales.
 
-On a CUDA tensor the conv is the hand-written kernel
-(``ops/int8_conv.py`` -> ``csrc/int8_conv.cu``), always; on a CPU tensor
-its plain version.
+On a CUDA tensor a site is the hand-written kernel (``ops/int8_conv.py``
+-> ``csrc/int8_conv.cu``), always: it quantizes the activation on its way
+in.  On a CPU tensor it is the kernel's plain version.  A site's weight is
+quantized and packed once (:func:`site_weight`, keyed on the parameter it
+comes from) and served again until the parameter changes.
 """
 
 from __future__ import annotations
@@ -34,12 +36,14 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
-from typing import List, Optional
+import weakref
+from typing import Dict, List, Optional
 
 import torch
-import torch.nn.functional as F
 
-from brushstroke_engine_torch.ops.int8_conv import int8_conv
+from brushstroke_engine_torch.ops.int8_conv import (
+    PackedWeight, int8_conv_quantizing, quantize_weight,
+)
 
 
 class _State(threading.local):
@@ -160,22 +164,67 @@ def _scales_on(scales: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(scales, dtype=torch.float32, device=device)
 
 
-def quantized_conv(x, w, padding):
+# Each site's quantized, packed weight, made once: (id of the source
+# parameter, what else it was derived with, x's dtype, device) -> (a weak
+# reference to the parameter, its (_version, data_ptr) when quantized, the
+# PackedWeight).  An in-place change bumps _version, a new storage moves
+# data_ptr: either quantizes again.
+_WCACHE_MAX = 512
+_wcache: Dict[tuple, tuple] = {}
+_wlock = threading.Lock()
+
+
+def site_weight(w, dtype, source=None) -> PackedWeight:
+    """The quantized weight of a site whose conv weight is ``w`` (``[O, I,
+    kh, kw]`` in ``dtype``, or a zero-argument callable returning it).
+
+    ``source`` names what ``w`` is derived from: a tuple whose first entry
+    is the parameter tensor and whose other entries are hashable (how it
+    was derived: the low-precision guard, the flip).  With a source the
+    packed weight is kept and served again while the parameter is the same
+    object with the same ``_version`` and storage, for the same ``dtype``
+    and device; without one it is quantized on every call.  Safe across
+    threads: a CUDA weight is complete on its stream before another thread
+    can see it."""
+    if source is None:
+        return quantize_weight(w() if callable(w) else w)
+    param = source[0]
+    key = (id(param), tuple(source[1:]), dtype, param.device)
+    stamp = (param._version, param.data_ptr())
+    with _wlock:
+        hit = _wcache.get(key)
+        if hit is not None and hit[0]() is param and hit[1] == stamp:
+            return hit[2]
+        packed = quantize_weight(w() if callable(w) else w)
+        if packed.data.device.type == "cuda":
+            torch.cuda.current_stream(packed.data.device).synchronize()
+        if len(_wcache) >= _WCACHE_MAX:
+            for k in [k for k, v in _wcache.items() if v[0]() is None]:
+                del _wcache[k]
+            if len(_wcache) >= _WCACHE_MAX:
+                _wcache.clear()
+        _wcache[key] = (weakref.ref(param), stamp, packed)
+        return packed
+
+
+def quantized_conv(x, w, padding, source=None):
     """int8 x int8 -> int32 conv with symmetric scales.
 
     x: ``[B, H, W, I]`` f32 or bf16 (NHWC); w: ``[O, I, kh, kw]`` (OIHW),
-    already in x's dtype; padding: ``((py0, py1), (px0, px1))`` (negative
-    crops).  Returns ``[B, H', W', O]`` in x's dtype.  The activation scale
-    is amax / 127 over each sample, or this site's static scale under
+    already in x's dtype, or a zero-argument callable returning it (called
+    only when the site's weight is quantized); padding: ``((py0, py1),
+    (px0, px1))`` (negative crops); source: see :func:`site_weight`.
+    Returns ``[B, H', W', O]`` in x's dtype.  The activation scale is amax
+    / 127 over each sample, or this site's static scale under
     :func:`static_scales`; under :func:`calibration` the site first records
     its amax.  The weight scale is amax / 127 over (I, kh, kw) per output
     channel.  Both are quantized before padding, as the JAX function sees
-    its operands.
+    its operands.  On the card the quantization of x, the padding, the conv
+    and the epilogue are one kernel launch
+    (:func:`~brushstroke_engine_torch.ops.int8_conv.int8_conv_quantizing`).
     """
-    xf = x.float()
-    wf = w.float()
     if _st.calibrating:
-        _st.amax.append(float(xf.abs().max()))
+        _st.amax.append(float(x.abs().max()))
     if _st.static is not None and not _st.calibrating:
         i = _st.index
         if i >= len(_st.static):
@@ -185,10 +234,7 @@ def quantized_conv(x, w, padding):
         s_x = _scales_on(_st.static, x.device)[i:i + 1]          # [1]
         _st.index = i + 1
     else:
-        s_x = torch.clamp_min(xf.abs().amax(dim=(1, 2, 3)) / 127.0, 1e-12)
-    s_w = torch.clamp_min(wf.abs().amax(dim=(1, 2, 3)) / 127.0, 1e-12)
-    xq = torch.clamp(torch.round(xf / s_x[:, None, None, None]), -127, 127)
-    wq = torch.clamp(torch.round(wf / s_w[:, None, None, None]), -127, 127)
-    (py0, py1), (px0, px1) = padding
-    xq = F.pad(xq.to(torch.int8), [0, 0, px0, px1, py0, py1])
-    return int8_conv(xq.contiguous(), wq.to(torch.int8), s_x, s_w, x.dtype)
+        s_x = torch.clamp_min(x.abs().amax(dim=(1, 2, 3)).float() / 127.0,
+                              1e-12)
+    wp = site_weight(w, x.dtype, source)
+    return int8_conv_quantizing(x.contiguous(), s_x, wp, padding, x.dtype)

@@ -221,16 +221,27 @@ Phases, in order; any failure exits non-zero:
     INT8_SCALE_RTOL); (d) ``render_stroke`` (UVS mapping on: exactly the
     calibrated sites consumed, one int8 launch per site) and
     ``render_batch`` at B = 16, int8 beside float in strict and fast mode
-    (p50 ms, patches/s), PSNR int8 vs float above INT8_PSNR_DB, the int8
+    (p50 ms, patches/s), the device kernels one ``render_stroke`` launches
+    in each, PSNR int8 vs float above INT8_PSNR_DB, the int8
     render on the card against the CPU's at the CPU test's PSNR
-    (INT8_PARITY_DB, and 10 dB above the int8-vs-float PSNR); (a) the int8
-    kernel bit-equal to its plain version (int32 and the f32 / bf16
-    epilogue, per-sample and static scale) at every site geometry the
-    render reached
-    at each batch of INT8_BATCHES and at INT8_STRESS (I = 1, 2, 3; O = 3;
-    4x4 at B = 1), the held shapes printed; (b) its ms at the largest site
-    shape beside the bound, the plain version, the library route (the int8
-    window copy and ``torch._int_mm``) and cuDNN's f32 conv; (e) the
+    (INT8_PARITY_DB, and 10 dB above the int8-vs-float PSNR); (a) the
+    kernel's two entries bit-equal to their plain versions at every site
+    geometry the render reached, at each batch of INT8_BATCHES: the int8
+    entry (int32 and the f32 / bf16 epilogue, per-sample and static
+    scale) and the quantizing entry (f32 and bf16 activations with values
+    on (k + 0.5) * s_x and past +-127 * s_x, per-sample and static scale),
+    and both at INT8_STRESS (I = 1, 2, 3; O = 3, 5; odd H and W; 4x4 at
+    B = 1) and the quantizing one at INT8_NEG_PAD; the kernel's
+    quantization against an IEEE division over every finite float at
+    INT8_CHECK_SCALES and the calibrated scales (``quant_mismatches``); the
+    IGMMA / IMMA instructions ``cuobjdump -sass`` finds in the library;
+    (b) at B = 16 at every site geometry: ms per call and device µs per
+    launch of the int8 entry and of the quantizing entry on f32 and bf16,
+    each beside its bound, the library route (the int8 window copy and
+    ``torch._int_mm``), cuDNN's conv in f32 with TF32 off and on and in
+    bf16, and one static site's whole ``quant.quantized_conv`` call with
+    its device kernels (``tools/bench_int8.py:kernel_rows``); at the
+    largest site also the plain version's ms (the kernel table); (e) the
     serving core in int8 on the four image paths at 1 and 8 sessions with
     cuDNN's deterministic algorithms (each served image of the serial paths
     within 1 LSB of its replay, of the batched and pooled paths 10 dB above
@@ -548,7 +559,17 @@ INT8_SITES = 8
 INT8_BATCHES = (*range(1, 9), 16, 32)
 INT8_STRESS = ((1, 6, 6, 1, 32, 3, 3), (1, 34, 34, 2, 16, 3, 3),
                (2, 9, 7, 3, 5, 3, 3), (1, 64, 64, 64, 3, 1, 1),
-               (1, 4, 4, 128, 128, 1, 1), (1, 6, 6, 128, 3, 3, 3))
+               (1, 4, 4, 128, 128, 1, 1), (1, 6, 6, 128, 3, 3, 3),
+               (3, 21, 35, 48, 5, 3, 3), (2, 19, 17, 130, 24, 3, 3))
+# The quantizing entry at a crop and a pad at once: (B, H, W, I, O, kh, kw,
+# padding), the CPU test's ((-1, 2), (1, -1)).
+INT8_NEG_PAD = (2, 9, 7, 5, 6, 3, 3, ((-1, 2), (1, -1)))
+# Scales the kernel's quantization is held at over every finite float:
+# powers of two, the largest floats below them (all-ones significands),
+# the floor 1e-12 and a spread between.
+INT8_CHECK_SCALES = (1.0, 0.5, 2.0 ** -7, 0.99999994, 0.49999997, 1e-12,
+                     3.0e-8, 1.0 / 127, 0.0173, 0.021, 0.1234567, 0.7071068,
+                     2.5e-3, 4.4e-4, 0.33333334, 0.015625)
 INT8_PSNR_DB, INT8_PARITY_DB, INT8_SCALE_RTOL = 25.0, 55.0, 1e-5
 INT8_TIMED, INT8_BATCH_TIMED = 30, 8
 INT8_SERVE_RUNS = ((1, 8, 2), (8, 4, 1))
@@ -5486,6 +5507,67 @@ def _int8_hold(shape, gen):
                                            "torch.bfloat16")}
 
 
+def _int8_float_inputs(shape, dtype, per_sample, gen):
+    """Seeded float activation, scales and packed weight of one quantizing
+    site (B, H, W, I, O, kh, kw): power-of-two scales, half the values on
+    (k + 0.5) * s_x (k past +-127 for some), the rest Gaussian."""
+    import torch
+    from brushstroke_engine_torch.ops.int8_conv import quantize_weight
+    b, h, w, i, o, kh, kw = shape
+    e = torch.randint(4, 9, (b if per_sample else 1,), device="cuda",
+                      generator=gen)
+    s_x = torch.pow(2.0, -e.float())
+    s4 = s_x[:, None, None, None]
+    half = (torch.randint(-160, 160, (b, h, w, i), device="cuda",
+                          generator=gen).float() + 0.5) * s4
+    gauss = torch.randn(b, h, w, i, device="cuda", generator=gen) * 40 * s4
+    pick = torch.rand(b, h, w, i, device="cuda", generator=gen) < 0.5
+    x = torch.where(pick, half, gauss).to(dtype)
+    wt = torch.randn(o, i, kh, kw, device="cuda", generator=gen) * 0.1
+    return x, s_x, quantize_weight(wt.to(dtype))
+
+
+def _int8_hold_fused(shape, padding, gen):
+    """The quantizing entry against its plain version at ``shape`` (B, H,
+    W, I, O, kh, kw) and ``padding``: f32 and bf16 activations, per-sample
+    and one static scale, every output bit-equal.  Returns the held keys
+    (``int8_conv.quantizing_shapes``'s form)."""
+    import torch
+    from brushstroke_engine_torch.ops.int8_conv import (
+        int8_conv_quantizing, int8_conv_quantizing_plain,
+    )
+    b, h, w, i, o, kh, kw = shape
+    keys = set()
+    for dt in (torch.float32, torch.bfloat16):
+        for per_sample in (True, False):
+            x, s_x, wp = _int8_float_inputs(shape, dt, per_sample, gen)
+            got = int8_conv_quantizing(x, s_x, wp, padding)
+            want = int8_conv_quantizing_plain(x, s_x, wp, padding, dt)
+            check(torch.equal(got, want), f"int8_conv_quantizing {shape} "
+                  f"{padding} {dt} per-sample {per_sample}: differs from "
+                  f"the plain version by "
+                  f"{(got.float() - want.float()).abs().max().item()}")
+            keys.add((b, h, w, i, o, kh, kw, padding, str(dt),
+                      s_x.shape[0] != 1, str(dt)))
+    return keys
+
+
+def _int8_sass():
+    """IGMMA / IMMA instructions in the built int8 library (cuobjdump), or
+    None where the toolkit has no cuobjdump."""
+    import shutil as sh
+    import subprocess as sp
+    from brushstroke_engine_torch.ops import cuda_build
+    tool = sh.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    sass = sp.run([tool, "-sass", cuda_build._paths("int8_conv")[1]],
+                  capture_output=True, text=True, timeout=120).stdout
+    return {op: sum(1 for line in sass.splitlines()
+                    if f" {op}." in line or f" {op} " in line)
+            for op in ("IGMMA", "IMMA", "LDSM", "IDP")}
+
+
 def _int8_library(xq, wq, s_x, s_w):
     """The stock route: the int8 window copy (9x the activations for a
     3x3), ``torch._int_mm`` and the scale product."""
@@ -5624,6 +5706,7 @@ def phase_int8(card):
     from brushstroke_engine_torch.ops.precision import (
         precision_mode, set_precision_mode,
     )
+    from brushstroke_engine_torch.tools import bench_int8
     from brushstroke_engine_torch.tools import bench_serve as bs
     from brushstroke_engine_torch.tools import paint_image
     from brushstroke_engine_torch.ui.core import create_core
@@ -5633,7 +5716,7 @@ def phase_int8(card):
     out = {"card": card}
     bundle = os.path.join(BUILD_DIR, "serve_flagship.pkl")
     root = tempfile.mkdtemp(prefix="chip_smoke_int8_")
-    launched = set()
+    launched_q = set()
 
     out["launches"] = out["k1_launches"] = 0
 
@@ -5728,6 +5811,8 @@ def phase_int8(card):
                         "render_stroke_ms": _quantiles(ts[3:]),
                         "render_batch_patches_per_s":
                         BATCH / statistics.median(bt[2:]),
+                        "stroke_kernels": bench_int8.device_kernels(
+                            lambda: stroke(engine)),
                         "rgba": rb.float()}
         engine._int8_scales = scales_kept
         for mode in ("strict", "fast"):
@@ -5746,8 +5831,10 @@ def phase_int8(card):
         for mode in ("strict", "fast"):
             fl, i8 = timing[f"{mode}_float"], timing[f"{mode}_int8"]
             print(f"[int8] (d) {mode}: render_stroke p50 float "
-                  f"{fl['render_stroke_ms']['p50']:.2f} ms, int8 "
-                  f"{i8['render_stroke_ms']['p50']:.2f} ms; render_batch "
+                  f"{fl['render_stroke_ms']['p50']:.2f} ms "
+                  f"({fl['stroke_kernels']} device kernels), int8 "
+                  f"{i8['render_stroke_ms']['p50']:.2f} ms "
+                  f"({i8['stroke_kernels']}); render_batch "
                   f"B={BATCH} float "
                   f"{fl['render_batch_patches_per_s']:.1f}, int8 "
                   f"{i8['render_batch_patches_per_s']:.1f} patches/s; "
@@ -5759,33 +5846,92 @@ def phase_int8(card):
               f"{cpu_psnr:.2f} dB (>= {INT8_PARITY_DB} and 10 dB above the "
               f"int8 gap), max {cpu_err} LSB, {cpu_share:.5f} of the values "
               f"within 1 LSB; {sites} sites consumed per render", flush=True)
-        launched |= set(int8_conv.shapes)
+        launched_q |= set(int8_conv.quantizing_shapes)
 
-        # ---- (a) the kernel against its plain version --------------------
+        # ---- (a) both entries against their plain versions --------------
         gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
-        geometry = sorted({s[1:7] for s in int8_conv.shapes})
-        held, err = set(), 0.0
+        # (H, W, I, O, kh, kw, padding) of each quantizing launch.
+        fused = sorted({q[1:8] for q in launched_q})
+        geometry = sorted({(h + p[0][0] + p[0][1], w + p[1][0] + p[1][1], i,
+                            o, kh, kw) for h, w, i, o, kh, kw, p in fused})
+        check(len(geometry) == INT8_SITES, f"(a) the renders reached "
+              f"{len(geometry)} site geometries: {geometry}")
+        held, held_q, err = set(), set(), 0.0
         for shape in [(b, *g) for g in geometry for b in INT8_BATCHES] \
                 + list(INT8_STRESS):
             e, keys = _int8_hold(shape, gen)
             held |= keys
             err = max(err, e)
+        stress_q = [((b, hp - 2 * (kh // 2), wp - 2 * (kw // 2), i, o, kh, kw),
+                     ((kh // 2,) * 2, (kw // 2,) * 2))
+                    for b, hp, wp, i, o, kh, kw in INT8_STRESS]
+        for shape, pad in [((b, *g[:6]), g[6]) for g in fused
+                           for b in INT8_BATCHES] + stress_q \
+                + [(INT8_NEG_PAD[:7], INT8_NEG_PAD[7])]:
+            held_q |= _int8_hold_fused(shape, pad, gen)
+        from brushstroke_engine_torch.ops.int8_conv import quant_mismatches
+        qscales = torch.tensor(list(INT8_CHECK_SCALES) + list(scales),
+                               dtype=torch.float32, device="cuda")
+        t0 = time.perf_counter()
+        bad = quant_mismatches(qscales).tolist()
+        qcheck_s = time.perf_counter() - t0
+        check(not any(bad), f"(a) the kernel quantizes otherwise than an "
+              f"IEEE division: {dict(zip(qscales.tolist(), bad))}")
+        sass = _int8_sass()
+        check(sass is None or sass["IGMMA"] + sass["IMMA"] > 0,
+              f"(a) no tensor-core instruction in the int8 library: {sass}")
         out["max_abs_err"] = err
+        out["sass"] = sass
         out["held"] = {"site_geometries": [list(g) for g in geometry],
+                       "quantizing_geometries": [list(g[:6]) + [g[6]]
+                                                 for g in fused],
                        "batches": list(INT8_BATCHES),
                        "stress": [list(s) for s in INT8_STRESS],
-                       "cases": len(held)}
-        print(f"[int8] (a) the kernel bit-equal to its plain version (int32 "
-              f"and the f32 / bf16 epilogue, per-sample and static scale) "
-              f"at the {len(geometry)} site geometries (B, Hp, Wp, I, O, "
-              f"kh, kw with B in {list(INT8_BATCHES)}): "
-              f"{[list(g) for g in geometry]}; stress shapes "
-              f"{[list(s) for s in INT8_STRESS]}", flush=True)
+                       "negative_padding": list(INT8_NEG_PAD[:7])
+                       + [INT8_NEG_PAD[7]],
+                       "cases": len(held), "quantizing_cases": len(held_q),
+                       "quant_check_scales": qscales.numel(),
+                       "quant_check_seconds": qcheck_s}
+        print(f"[int8] (a) the int8 entry bit-equal to its plain version "
+              f"(int32 and the f32 / bf16 epilogue, per-sample and static "
+              f"scale) at the {len(geometry)} site geometries (B, Hp, Wp, "
+              f"I, O, kh, kw with B in {list(INT8_BATCHES)}): "
+              f"{[list(g) for g in geometry]}; the quantizing entry (f32 "
+              f"and bf16 x on (k + 0.5) s_x and past the clamp, per-sample "
+              f"and static) at {len(held_q)} cases, the same geometries "
+              f"unpadded with their paddings, stress shapes "
+              f"{[list(s) for s in INT8_STRESS]} and padding "
+              f"{INT8_NEG_PAD[7]}; quantization = IEEE division over every "
+              f"finite float at {qscales.numel()} scales ({qcheck_s:.2f} "
+              f"s); cuobjdump -sass: {sass}", flush=True)
 
-        # ---- (b) timing at the largest site shape ------------------------
-        big = max((s[:7] for s in launched if s[0] == BATCH),
-                  key=lambda s: s[1] * s[2] * s[3] * s[4] * s[5] * s[6])
-        out["timing"] = _int8_timing(big, card)
+        # ---- (b) timing at every site geometry ---------------------------
+        out["sites"] = bench_int8.kernel_rows(bench_int8.ITERS,
+                                              geometries=geometry,
+                                              batch=BATCH)
+        for r in out["sites"]:
+            print(f"[int8] (b) {r['shape']}: int8 entry {r['int8_ms']:.4f} "
+                  f"ms ({r['int8_us']} us device; bound "
+                  f"{r['int8_bound_ms']:.4f} {r['int8_bound_by']}), "
+                  f"quantizing f32 {r['fused_f32_ms']:.4f} ms "
+                  f"({r['fused_f32_us']} us; bound "
+                  f"{r['fused_f32_bound_ms']:.4f}), bf16 "
+                  f"{r['fused_bf16_ms']:.4f} ms ({r['fused_bf16_us']} us; "
+                  f"bound {r['fused_bf16_bound_ms']:.4f}); library "
+                  f"{r['library_ms']}, cuDNN f32 TF32 off "
+                  f"{r['cudnn_f32_tf32_off_ms']:.4f} / on "
+                  f"{r['cudnn_f32_tf32_on_ms']:.4f}, bf16 "
+                  f"{r['cudnn_bf16_ms']:.4f}; a static site's quantized_conv "
+                  f"{r['site_ms']:.4f} ms, {r['site_kernels']} device "
+                  f"kernel(s) ({card})", flush=True)
+        big = max(geometry, key=lambda g: g[0] * g[1] * g[2] * g[3] * g[4]
+                  * g[5])
+        out["timing"] = _int8_timing((BATCH, *big), card)
+        out["timing"].update({k: v for k, v in next(
+            r for r in out["sites"] if r["shape"][1:] == list(big)).items()
+            if k.startswith("fused_") or k.startswith("site_")
+            or k in ("int8_us", "cudnn_bf16_ms", "cudnn_f32_tf32_off_ms",
+                     "cudnn_f32_tf32_on_ms")})
 
         # ---- (e) the serving core in int8, the pool, the waves -----------
         # With cuDNN's deterministic algorithms the serial paths compute
@@ -5889,9 +6035,9 @@ def phase_int8(card):
                               "int8_launches": n}
         print(f"[int8] (f) tools/paint_image.py --int8 static: "
               f"{json.dumps(out['paint_image'])}", flush=True)
-        launched |= set(int8_conv.shapes)
-        check(launched <= held, f"the int8 kernel launched at shapes (a) "
-              f"did not hold: {sorted(launched - held)}")
+        launched_q |= set(int8_conv.quantizing_shapes)
+        check(launched_q <= held_q, f"the int8 kernel launched at shapes "
+              f"(a) did not hold: {sorted(launched_q - held_q, key=str)}")
         core.close()
 
         # ---- (g) the kernel cache across processes -----------------------
@@ -6049,7 +6195,13 @@ def main():
         "library_ms": int8["timing"]["library_ms"],
         "cudnn_f32_ms": int8["timing"]["cudnn_f32_ms"],
         "shape": f"{int8['timing']['shape']} (B, Hp, Wp, I, O, kh, kw), "
-                 f"f32 epilogue with per-sample scales",
+                 f"the int8 entry, f32 epilogue with per-sample scales",
+        "quantizing_f32_ms": int8["timing"]["fused_f32_ms"],
+        "quantizing_f32_bound_ms": int8["timing"]["fused_f32_bound_ms"],
+        "quantizing_bf16_ms": int8["timing"]["fused_bf16_ms"],
+        "quantizing_bf16_bound_ms": int8["timing"]["fused_bf16_bound_ms"],
+        "site_ms": int8["timing"]["site_ms"],
+        "sass": int8["sass"],
     })
     kernels[0]["launches"] += int8["k1_launches"]
     kernels[0]["launches_int8_path"] = int8["k1_launches"]

@@ -21,8 +21,9 @@ reference snapshot (bit-equal parameters, 1 LSB) and autoencoder steps
 W^T at Gstitch's batch of 128, and PPL's distances (1e-3 plus the f32 floor
 of LPIPS) and precision / recall (equal) against the CPU; a parallel
 projection step with per-row noise against the CPU (1e-4 relative plus
-Adam's lr bound); the int8 conv against its plain version (bit-equal: the
-accumulator is exact) and the static int8 render against the CPU (scales
+Adam's lr bound); the int8 conv's two entries (int8 and quantizing) against
+their plain versions (bit-equal: the accumulator is exact, the quantization
+the same IEEE operations) and the static int8 render against the CPU (scales
 1e-5 relative, 1 LSB).
 """
 
@@ -1141,16 +1142,23 @@ def test_meshes_of_one_card_equal_no_mesh():
     (1, 34, 34, 32, 32, 3),      # a 32-px conv1 of the small engine
     (2, 6, 6, 32, 32, 3),        # b4.conv1 at B = 2
     (1, 32, 32, 32, 3, 1),       # torgb: 1x1, few outputs
-    (1, 6, 6, 1, 16, 3),         # I = 1, 2, 3: padded to 4 with zeros
+    (1, 6, 6, 1, 16, 3),         # I = 1, 2, 3: the byte-wise window load
     (3, 9, 7, 2, 5, 3),
     (1, 4, 4, 3, 3, 1),          # a 4x4 map at B = 1
     (2, 20, 37, 130, 17, 3),     # I and O off every tile
+    (2, 18, 18, 128, 128, 3),    # the flagship's 16-px conv1
+    (1, 35, 21, 64, 64, 3),      # odd H and W, N = 64 tiles
+    (1, 9, 11, 48, 5, 3),        # I a multiple of 16, not of 32
 ])
 def test_int8_conv_kernel_matches_plain(b, hp, wp, i, o, k):
-    """The int32 accumulator and the epilogue (f32 and bf16, per-sample
-    and static scales) bit for bit against the plain version."""
+    """Both entries bit for bit against their plain versions: the int8
+    entry's int32 accumulator and its epilogue (f32 and bf16, per-sample
+    and static scales), and the quantizing entry on f32 and bf16
+    activations with values on the rounding boundaries and past the clamp,
+    at the site's padding and at a negative one."""
     from brushstroke_engine_torch.ops.int8_conv import (
-        int8_conv, int8_conv_plain, int8_epilogue_plain,
+        int8_conv, int8_conv_plain, int8_conv_quantizing,
+        int8_conv_quantizing_plain, int8_epilogue_plain, quantize_weight,
     )
     rng = np.random.RandomState(b * 1000 + hp + i + o)
     xq = torch.from_numpy(rng.randint(-127, 128, (b, hp, wp, i)).astype(
@@ -1162,12 +1170,47 @@ def test_int8_conv_kernel_matches_plain(b, hp, wp, i, o, k):
     assert got.dtype == torch.int32
     assert torch.equal(got.cpu(), want)
     s_w = torch.from_numpy((rng.rand(o) * 1e-2 + 1e-4).astype(np.float32))
-    for s_x in (torch.from_numpy((rng.rand(b) * 1e-2).astype(np.float32)),
-                torch.tensor([0.0173], dtype=torch.float32)):
+    scales = (torch.from_numpy((rng.rand(b) * 1e-2).astype(np.float32)),
+              torch.tensor([0.0173], dtype=torch.float32))
+    for s_x in scales:
         for dt in (torch.float32, torch.bfloat16):
             y = int8_conv(xq.cuda(), wq.cuda(), s_x.cuda(), s_w.cuda(), dt)
             assert torch.equal(y.cpu(), int8_epilogue_plain(want, s_x, s_w,
                                                             dt))
+    # The quantizing entry: x = (k + 0.5) * s exactly (power-of-two s) for
+    # half the values, k past +-127 for some, the rest Gaussian.
+    w = torch.from_numpy((rng.randn(o, i, k, k) * 0.1).astype(np.float32))
+    h, wd = hp - (k - 1), wp - (k - 1)
+    pad = k // 2
+    for s_x in (torch.from_numpy(2.0 ** -rng.randint(4, 8, b)).float(),
+                torch.tensor([2.0 ** -5], dtype=torch.float32)):
+        s = s_x.numpy()[:, None, None, None] * np.ones((b, 1, 1, 1))
+        half = (rng.randint(-160, 160, (b, h, wd, i)) + 0.5) * s
+        gauss = rng.randn(b, h, wd, i) * 40 * s
+        x = np.where(rng.rand(b, h, wd, i) < 0.5, half, gauss)
+        for dt in (torch.float32, torch.bfloat16):
+            xt = torch.from_numpy(x.astype(np.float32)).to(dt)
+            wp_ = quantize_weight(w.to(dt))
+            wc = wp_._replace(data=wp_.data.cuda(), s_w=wp_.s_w.cuda())
+            for padding in (((pad, pad), (pad, pad)), ((-1, 2), (1, -1))):
+                if h + padding[0][0] + padding[0][1] < k \
+                        or wd + padding[1][0] + padding[1][1] < k:
+                    continue
+                y = int8_conv_quantizing(xt.cuda(), s_x.cuda(), wc, padding)
+                assert y.dtype == dt
+                assert torch.equal(y.cpu(), int8_conv_quantizing_plain(
+                    xt, s_x, wp_, padding, dt)), (dt, padding)
+
+
+def test_int8_quantization_is_an_ieee_division():
+    """The kernel's quantization (a correctly rounded reciprocal and one
+    correction step) against clamp(rint(v / s)) with an IEEE division, over
+    every finite float v, at scales with all-ones significands, powers of
+    two, the 1e-12 floor and others."""
+    from brushstroke_engine_torch.ops.int8_conv import quant_mismatches
+    scales = torch.tensor([1.0, 0.99999994, 2.0 ** -7, 0.49999997, 1e-12,
+                           0.0173, 1.0 / 127, 0.1234567], device="cuda")
+    assert quant_mismatches(scales).tolist() == [0] * scales.numel()
 
 
 def test_int8_render_on_the_card_equals_the_cpu():

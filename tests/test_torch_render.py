@@ -388,7 +388,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tools.diagnose_color_control", "tools.drive_brush_server",
                 "tools.plot_colors", "tools.fetch_and_verify_weights",
                 "parallel.distributed", "parallel.mesh", "utils.stats",
-                "ops.quant", "ops.int8_conv", "utils.compile_cache"):
+                "ops.quant", "ops.int8_conv", "utils.compile_cache",
+                "tools.bench_int8"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
