@@ -194,6 +194,10 @@ class IconStore:
         self._zip.close()
 
 
+# The name the JAX package also gives the icon cache.
+ZipIcons = IconStore
+
+
 class BrushLibrary:
     """Base: subclasses provide ``style_ids()`` and ``resolve(style_id)``;
     option application, interpolation, and icon plumbing live here."""

@@ -26,6 +26,12 @@ def srgb_to_linear(srgb):
                        ((srgb + 0.055) / 1.055) ** 2.4)
 
 
+def linear_to_srgb(rgb):
+    rgb = rgb.clamp(0.0, 1.0)
+    return torch.where(rgb <= 0.0031308, rgb * 12.92,
+                       1.055 * rgb ** (1.0 / 2.4) - 0.055)
+
+
 def rgb2lab(rgb):
     """sRGB ``[..., 3]`` in [0, 1] -> CIELAB ``[..., 3]`` (L in [0, 100])."""
     lin = srgb_to_linear(rgb)

@@ -16,7 +16,8 @@ one per row), ``return_features`` and
 ``blended_features``, ``force_fp32``, the color-triad and 'canvas' heads
 with ``color_w_channels``, and the StyleGAN2 'orig' head on the 'orig' or
 'skip' trunk (a torgb at every block, the running image FIR-upsampled and
-summed).
+summed); and the two heads the reference declares but no config reaches
+(:func:`color_mapping_apply`, :func:`to_canvas_stroke_apply`).
 """
 
 from __future__ import annotations
@@ -158,6 +159,45 @@ def _synthesis_layer_apply(cfg: SynthesisConfig, params, x, w, *,
         resample_filter=cfg.resample_filter, flip_weight=(up == 1),
         bias=params["bias"], activation=cfg.activation,
         act_gain=activation_gain(cfg.activation), clamp=cfg.conv_clamp)
+
+
+# ---------------------------------------------------------------------------
+# Output heads no model config wires in (reference networks.py:178-212,
+# 489-536); their initialisers are in utils/checkpoint.py.
+# ---------------------------------------------------------------------------
+
+def color_mapping_apply(params, w, activation: str = "lrelu",
+                        normalize: bool = True):
+    """ColorMappingNetwork: w ``[B, w_dim]`` through ``fc0 .. fc{n-1}``
+    (each with ``activation``) to colors ``[B, 3, 3]``, tanh-normalized
+    when ``normalize``."""
+    x = w.float()
+    for i in range(len(params)):
+        x = fc_apply(params[f"fc{i}"], x, activation=activation)
+    colors = x.reshape(-1, 3, 3)
+    return torch.tanh(colors) if normalize else colors
+
+
+def to_canvas_stroke_apply(params, x, w, conv_clamp=None):
+    """ToCanvasStrokeLayer: a tanh canvas, a softmax over the 3 UVS channels
+    and a tanh alpha, composited as ``(1 - alpha) * canvas + alpha *
+    stroke``.  ``x`` NHWC, ``w [B, w_dim]``.  Returns ``(img, debug)`` with
+    ``colors``, ``uvs``, ``canvas`` and ``alpha_fg``."""
+    in_ch = params["weight"].shape[1]
+    weight_gain = 1.0 / math.sqrt(in_ch)  # 1x1 kernel
+    scaled = fc_apply(params["affine"], w.float())
+    colors = bias_act(scaled[:, :9], params["color_bias"], dim=-1,
+                      act="tanh").reshape(-1, 3, 3)
+    styles = scaled[:, 9:] * weight_gain
+    x = modulated_conv2d(x, params["weight"], styles, demodulate=False,
+                         bias=params["bias"], clamp=conv_clamp).float()
+    canvas = torch.tanh(x[..., :3])
+    uvs = torch.softmax(x[..., 3:6], dim=-1)
+    alpha_fg = (torch.tanh(x[..., 6:]) + 1.0) / 2.0
+    stroke = torch.einsum("bhwk,bck->bhwc", uvs, colors)
+    out = (1.0 - alpha_fg) * canvas + alpha_fg * stroke
+    return out, {"colors": colors, "uvs": uvs, "canvas": canvas,
+                 "alpha_fg": alpha_fg}
 
 
 def _torgb_apply(cfg: SynthesisConfig, params, x, w):

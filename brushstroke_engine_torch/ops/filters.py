@@ -40,3 +40,8 @@ def setup_filter(f, normalize: bool = True, flip_filter: bool = False,
         f = f[::-1, ::-1]
     f = f * gain
     return np.ascontiguousarray(f, dtype=np.float32)
+
+
+def default_resample_filter() -> np.ndarray:
+    """The [1,3,3,1] binomial filter used throughout StyleGAN2."""
+    return setup_filter([1, 3, 3, 1])

@@ -183,9 +183,11 @@ def site_weight(w, dtype, source=None) -> PackedWeight:
     was derived: the low-precision guard, the flip).  With a source the
     packed weight is kept and served again while the parameter is the same
     object with the same ``_version`` and storage, for the same ``dtype``
-    and device; without one it is quantized on every call.  Safe across
-    threads: a CUDA weight is complete on its stream before another thread
-    can see it."""
+    and device; without one it is quantized on every call.  A write through
+    ``param.data`` would move neither ``_version`` nor the storage and so
+    serve a stale weight: ``tests/test_torch_api.py`` keeps the port free of
+    such writes.  Safe across threads: a CUDA weight is complete on its
+    stream before another thread can see it."""
     if source is None:
         return quantize_weight(w() if callable(w) else w)
     param = source[0]

@@ -502,6 +502,32 @@ def g_stitch_step(cfg: TrainConfig, state, geom_feats1, geom_feats2, z,
     return state, stats
 
 
+def make_stitch_step(cfg: TrainConfig, stitcher=None):
+    """Gstitch as a step with the JAX package's argument order, ``step(state,
+    geom_feats1, geom_feats2, z, crop1, crop2, rng, ema_beta,
+    positions1=None, draws=None)``: :func:`g_stitch_step` with ``stitcher``
+    (a default ``RandomStitcher`` if None) made once here.  ``positions1``
+    (the whole batch's) stands in for ``draws["positions1"]``; with
+    ``cfg.batch_gpu`` rounds each round takes its rows of it."""
+    from brushstroke_engine_torch.train.stitching import RandomStitcher
+    stitcher = stitcher or RandomStitcher()
+
+    def step(state, geom_feats1, geom_feats2, z, crop1, crop2, rng=None,
+             ema_beta=0.0, positions1=None, draws=None):
+        if positions1 is not None:
+            rounds = _num_rounds(cfg, z.shape[0])
+            if rounds == 1:
+                draws = dict(draws or {}, positions1=positions1)
+            else:
+                draws = [dict(d, positions1=p) for d, p in zip(
+                    draws or [{}] * rounds, positions1.chunk(rounds))]
+        return g_stitch_step(cfg, state, geom_feats1, geom_feats2, z, crop1,
+                             crop2, rng=rng, ema_beta=ema_beta, draws=draws,
+                             stitcher=stitcher)
+
+    return step
+
+
 def ada_update(cfg: TrainConfig, state, nimg_per_interval: float):
     """ADA p adjustment from accumulated real-sign statistics
     (training_loop_modified.py:516-519); stays on the device."""

@@ -220,6 +220,27 @@ def _init_torgb(scfg: SynthesisConfig, rng, in_ch: int):
     return p
 
 
+def color_mapping_init(rng, w_dim: int, layer_features=(128, 32)):
+    """ColorMappingNetwork params (``models/synthesis.py:
+    color_mapping_apply``) in the JAX layout, drawn from the numpy
+    ``RandomState`` ``rng``: ``fc0 .. fc{n-1}``, w -> layer_features -> 9."""
+    sizes = [w_dim] + list(layer_features) + [9]
+    return {f"fc{i}": _fc(rng, sizes[i], sizes[i + 1])
+            for i in range(len(sizes) - 1)}
+
+
+def to_canvas_stroke_init(rng, in_ch: int, out_ch: int, w_dim: int):
+    """ToCanvasStrokeLayer params (``models/synthesis.py:
+    to_canvas_stroke_apply``) in the JAX layout from ``rng``: an affine to
+    ``in_ch`` styles and 9 colors, and a 1x1 conv to the canvas (``out_ch``),
+    3 UVS and 1 alpha channel."""
+    out_total = out_ch + 3 + 1
+    return {"affine": _fc(rng, w_dim, in_ch + 9, bias_init=1.0),
+            "weight": _randn(rng, 1, 1, in_ch, out_total),
+            "bias": np.zeros((out_total,), np.float32),
+            "color_bias": np.zeros((9,), np.float32)}
+
+
 def _init_generator(cfg: GeneratorConfig, rng):
     mcfg = cfg.mapping
     feats = mcfg.features_list

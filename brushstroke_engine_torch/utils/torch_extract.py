@@ -34,18 +34,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-
-class EasyDict(dict):
-    """Attribute-access dict standing in for dnnlib.EasyDict during unpickling."""
-
-    def __getattr__(self, name):
-        try:
-            return self[name]
-        except KeyError:
-            raise AttributeError(name)
-
-    def __setattr__(self, name, value):
-        self[name] = value
+# Stands in for dnnlib's EasyDict during unpickling.
+from brushstroke_engine_torch.utils.util import EasyDict
 
 
 class PersistentStub:

@@ -116,7 +116,10 @@ Phases, in order; any failure exits non-zero:
     the CPU at B = 1; (c) the 'conv' encoder feeding a triad generator at
     its bottleneck, 'sine:16' positional encoding injected in 'cat' mode,
     and a c_dim = 4 mapping and discriminator, at the 128-px training
-    widths, card against CPU at B = 8; (d) the autoencoder trainer, 50
+    widths, card against CPU at B = 8; (e) the two output heads no model
+    config wires in (``color_mapping_apply``, ``to_canvas_stroke_apply``)
+    at the flagship's widths, card against CPU within 1e-5 of each
+    output's largest value; (d) the autoencoder trainer, 50
     steps of the flagship 'sauto' encoder at 128 px, batch 16 (the loss
     falls), its checkpoint, and ``tools/train.py`` with ``train_flags.txt``
     and ``--encoder_checkpt`` (one batch, no eval hooks), once with the AE
@@ -241,7 +244,12 @@ Phases, in order; any failure exits non-zero:
     ``torch._int_mm``), cuDNN's conv in f32 with TF32 off and on and in
     bf16, and one static site's whole ``quant.quantized_conv`` call with
     its device kernels (``tools/bench_int8.py:kernel_rows``); at the
-    largest site also the plain version's ms (the kernel table); (e) the
+    largest site also the plain version's ms (the kernel table); (h) the
+    same input at B = 8 and each of its rows alone through both entries at
+    every site geometry, bit-equal row by row; then a flush of 8 flagship
+    rows against each row alone with the static scales: per site the
+    largest difference of its float input and the quantized values that
+    flip, and each row's uint8 LSB; (e) the
     serving core in int8 on the four image paths at 1 and 8 sessions with
     cuDNN's deterministic algorithms (each served image of the serial paths
     within 1 LSB of its replay, of the batched and pooled paths 10 dB above
@@ -364,6 +372,11 @@ CONFIG_F = dict(z_dim=512, w_dim=512, img_resolution=1024, mapping_layers=8,
                 channel_max=512, conv_clamp=None)
 CONFIG_F_BATCH, CONFIG_F_TOL = 2, 1e-3
 VARIANT_RES, VARIANT_BATCH, D_LOGIT_TOL = 128, 8, 1e-3
+# (e) the two output heads no model config wires in (color_mapping_apply,
+# to_canvas_stroke_apply) at the flagship's widths (w_dim 64, the 64
+# channels of its 256-px block), B = HEADS_BATCH, card against CPU with TF32
+# off: each output within HEADS_RTOL of max(1, its largest CPU value).
+HEADS_BATCH, HEADS_IN_CH, HEADS_RTOL = 4, 64, 1e-5
 AE_STEPS, AE_WIDTH, AE_BATCH = 50, 128, 16
 CKPT_CLI_CUTS = ["--kimg", "0", "--geom_warmstart_kimg", "0",
                  "--geom_interval", "8", "--snap", "1", "--image_snap", "1",
@@ -573,6 +586,8 @@ INT8_CHECK_SCALES = (1.0, 0.5, 2.0 ** -7, 0.99999994, 0.49999997, 1e-12,
 INT8_PSNR_DB, INT8_PARITY_DB, INT8_SCALE_RTOL = 25.0, 55.0, 1e-5
 INT8_TIMED, INT8_BATCH_TIMED = 30, 8
 INT8_SERVE_RUNS = ((1, 8, 2), (8, 4, 1))
+# (h) the batch a flush renders against its rows alone.
+INT8_ROWS_BATCH = 8
 INT8_OPS_PER_S = 1979e12
 INT8_CHILD_TIMEOUT = 300
 
@@ -2943,6 +2958,63 @@ def _ckpt_variants(geom_batch, out):
           + json.dumps(result), flush=True)
 
 
+def _ckpt_heads(out):
+    """(e) ``color_mapping_apply`` (with and without the tanh) and
+    ``to_canvas_stroke_apply`` (with and without the clamp) on the card
+    against the CPU, parameters from the port's initialisers carried across
+    by ``params_from_jax``."""
+    import numpy as np
+    import torch
+    from brushstroke_engine_torch.models.synthesis import (
+        color_mapping_apply, to_canvas_stroke_apply,
+    )
+    from brushstroke_engine_torch.utils.checkpoint import (
+        color_mapping_init, params_from_jax, to_canvas_stroke_init,
+    )
+    from brushstroke_engine_torch.utils.util import tree_leaves, tree_to
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "(e) TF32 is on")
+    rng = np.random.RandomState(SEED + 16)
+    cm = params_from_jax(color_mapping_init(rng, 64))
+    tc = params_from_jax(to_canvas_stroke_init(rng, HEADS_IN_CH, 3, 64))
+    w = torch.from_numpy(rng.randn(HEADS_BATCH, 64).astype(np.float32))
+    x = torch.from_numpy(rng.randn(HEADS_BATCH, RES, RES, HEADS_IN_CH)
+                         .astype(np.float32))
+    on = {"cm": tree_to(cm, "cuda"), "tc": tree_to(tc, "cuda")}
+    check(all(t.is_cuda for t in tree_leaves(on)),
+          "(e) head parameters off the card")
+    errs = {}
+
+    def hold(name, got, want):
+        check(got.is_cuda and bool(torch.isfinite(got).all()),
+              f"(e) {name}: not on the card or not finite")
+        errs[name] = _rel_err(got.cpu(), want)
+
+    with torch.no_grad():
+        for normalize in (True, False):
+            hold("color_mapping" + ("" if normalize else "_no_tanh"),
+                 color_mapping_apply(on["cm"], w.cuda(), normalize=normalize),
+                 color_mapping_apply(cm, w, normalize=normalize))
+        for clamp in (None, 0.5):
+            tag = "to_canvas_stroke" + ("" if clamp is None else "_clamp")
+            img, dbg = to_canvas_stroke_apply(on["tc"], x.cuda(), w.cuda(),
+                                              conv_clamp=clamp)
+            want, want_dbg = to_canvas_stroke_apply(tc, x, w,
+                                                    conv_clamp=clamp)
+            hold(tag, img, want)
+            for k in sorted(want_dbg):
+                hold(f"{tag}.{k}", dbg[k], want_dbg[k])
+    worst = max(errs.values())
+    out["heads"] = {"max_rel_err": worst, "errs": errs}
+    check(worst <= HEADS_RTOL, f"(e) output heads card vs CPU: {worst:.3e} "
+          f"relative > {HEADS_RTOL}")
+    print(f"[ckpt] (e) output heads card vs CPU at B = {HEADS_BATCH}, {RES} "
+          f"px, {HEADS_IN_CH} channels, TF32 off: max {worst:.3e} of the "
+          f"largest value (bound {HEADS_RTOL}): {json.dumps(errs)}",
+          flush=True)
+
+
 def _cli_schedule(tcfg, n):
     """The phases of ``n`` batches of the training CLI after its warm
     start, without eval hooks, and the K1, W and W^T launches they make:
@@ -3065,6 +3137,9 @@ def phase_checkpoint(geom_iter, card, held):
         geom_batch = next(geom_iter)
         _ckpt_variants(geom_batch, out)
         out["variants"]["seconds"] = time.time() - t0
+        t0 = time.time()
+        _ckpt_heads(out)
+        out["heads"]["seconds"] = time.time() - t0
         t0 = time.time()
         _ckpt_autoencoder(root, geom_iter, card, out)
         out["autoencoder"]["seconds_with_cli"] = time.time() - t0
@@ -5552,6 +5627,103 @@ def _int8_hold_fused(shape, padding, gen):
     return keys
 
 
+def _int8_rows(geometry, fused, gen):
+    """(h) The kernel's rows do not depend on the batch: the same input at
+    INT8_ROWS_BATCH, and each of its rows alone, through both entries at
+    every site geometry (the int8 entry's int32 and its f32 / bf16
+    epilogue, per-sample and static scale; the quantizing entry on f32 and
+    bf16 activations, per-sample and static), bit-equal row by row.
+    Returns the rows compared."""
+    import torch
+    from brushstroke_engine_torch.ops.int8_conv import (
+        int8_conv, int8_conv_quantizing,
+    )
+    b, rows = INT8_ROWS_BATCH, 0
+    for g in geometry:
+        xq, wq, s_x, s_w = _int8_site_inputs((b, *g), gen)
+        outs = [((), int8_conv(xq, wq))] + [
+            ((sx, dt), int8_conv(xq, wq, sx, s_w, dt))
+            for sx in (s_x, s_x[:1]) for dt in (torch.float32,
+                                                torch.bfloat16)]
+        for args, whole in outs:
+            for r in range(b):
+                extra = () if not args else (
+                    args[0][r:r + 1] if args[0].numel() == b else args[0],
+                    s_w, args[1])
+                check(torch.equal(int8_conv(xq[r:r + 1], wq, *extra),
+                                  whole[r:r + 1]),
+                      f"(h) int8_conv {g}: row {r} alone differs from row "
+                      f"{r} of B = {b} ({args[1:] or 'int32'})")
+                rows += 1
+    for h, w, i, o, kh, kw, pad in fused:
+        for dt in (torch.float32, torch.bfloat16):
+            for per_sample in (True, False):
+                x, s_x, wp = _int8_float_inputs((b, h, w, i, o, kh, kw), dt,
+                                                per_sample, gen)
+                whole = int8_conv_quantizing(x, s_x, wp, pad)
+                for r in range(b):
+                    got = int8_conv_quantizing(
+                        x[r:r + 1].contiguous(),
+                        s_x[r:r + 1] if per_sample else s_x, wp, pad)
+                    check(torch.equal(got, whole[r:r + 1]),
+                          f"(h) int8_conv_quantizing {(h, w, i, o, kh, kw)} "
+                          f"{pad} {dt} per-sample {per_sample}: row {r} "
+                          f"alone differs from row {r} of B = {b}")
+                    rows += 1
+    return rows
+
+
+def _int8_batch_sites(engine, geoms, scales):
+    """(h) The flagship's quantized sites in a flush of INT8_ROWS_BATCH rows
+    against each row alone, with the static scales: per site the largest
+    difference of its float input and how many quantized values flip (at
+    the calibrated scale, half to even, as the kernel rounds), then how many
+    uint8 LSB each rendered row moves."""
+    import torch
+    from brushstroke_engine_torch.ops import quant
+    b = INT8_ROWS_BATCH
+    real, seen = quant.quantized_conv, []
+
+    def spy(x, w, padding, source=None):
+        seen.append(x.detach().float().clone())
+        return real(x, w, padding, source)
+
+    def run(rows):
+        seen.clear()
+        quant.quantized_conv = spy
+        try:
+            rgba = engine.render_batch(
+                geoms[rows], _batch_opts(engine, b)[rows])["rgba"].float()
+            torch.cuda.synchronize()
+        finally:
+            quant.quantized_conv = real
+        return rgba, list(seen)
+
+    whole, sites = run(slice(0, b))
+    alone = [run(slice(r, r + 1)) for r in range(b)]
+    check(len(sites) == len(scales)
+          and all(len(a[1]) == len(scales) for a in alone),
+          f"(h) {len(sites)} quantized sites in a flush, {len(scales)} "
+          f"calibrated")
+    out = []
+    for k, x in enumerate(sites):
+        one = torch.cat([a[1][k] for a in alone])
+        q = [torch.clamp(torch.round(v / scales[k]), -127, 127)
+             for v in (x, one)]
+        flip = q[0] != q[1]
+        diff = (x - one).abs().max().item()
+        check(diff == diff, f"(h) site {k}: non-finite input")
+        out.append({"site": k, "shape": list(x.shape), "max_abs_diff": diff,
+                    "amax": x.abs().max().item(), "flips": int(flip.sum()),
+                    "rows_flipped": flip.flatten(1).any(1).nonzero()
+                    .flatten().tolist()})
+    u8 = [torch.round(v.clamp(0, 1) * 255)
+          for v in (whole, torch.cat([a[0] for a in alone]))]
+    return {"sites": out,
+            "row_max_lsb": (u8[0] - u8[1]).abs().flatten(1).amax(1)
+            .int().tolist()}
+
+
 def _int8_sass():
     """IGMMA / IMMA instructions in the built int8 library (cuobjdump), or
     None where the toolkit has no cuobjdump."""
@@ -5904,6 +6076,26 @@ def phase_int8(card):
               f"{INT8_NEG_PAD[7]}; quantization = IEEE division over every "
               f"finite float at {qscales.numel()} scales ({qcheck_s:.2f} "
               f"s); cuobjdump -sass: {sass}", flush=True)
+
+        # ---- (h) a flush's rows against the rows alone -------------------
+        rows = _int8_rows(geometry, fused, gen)
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        sites_b = _int8_batch_sites(engine, geoms, scales_kept)
+        torch.backends.cudnn.deterministic = det
+        out["batch_rows"] = {"kernel_rows_bit_equal": rows, **sites_b}
+        print(f"[int8] (h) the kernel's rows at B = {INT8_ROWS_BATCH} "
+              f"bit-equal to the same rows alone: {rows} rows, both entries, "
+              f"every site geometry", flush=True)
+        for r in sites_b["sites"]:
+            print(f"[int8] (h) site {r['site']} {r['shape']}: input B = "
+                  f"{INT8_ROWS_BATCH} vs B = 1 max abs diff "
+                  f"{r['max_abs_diff']:.3e} (amax {r['amax']:.4g}), "
+                  f"{r['flips']} quantized values flip, rows "
+                  f"{r['rows_flipped']}", flush=True)
+        print(f"[int8] (h) render_batch B = {INT8_ROWS_BATCH} vs each row "
+              f"alone, int8, cuDNN deterministic: max LSB per row "
+              f"{sites_b['row_max_lsb']} ({card})", flush=True)
 
         # ---- (b) timing at every site geometry ---------------------------
         out["sites"] = bench_int8.kernel_rows(bench_int8.ITERS,

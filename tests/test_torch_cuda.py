@@ -24,7 +24,9 @@ projection step with per-row noise against the CPU (1e-4 relative plus
 Adam's lr bound); the int8 conv's two entries (int8 and quantizing) against
 their plain versions (bit-equal: the accumulator is exact, the quantization
 the same IEEE operations) and the static int8 render against the CPU (scales
-1e-5 relative, 1 LSB).
+1e-5 relative, 1 LSB); the int8 conv's rows at B = 8 against the same rows
+alone (bit-equal); the two output heads no config wires in against the CPU
+(1e-5 of each output's largest value).
 """
 
 import numpy as np
@@ -1238,3 +1240,93 @@ def test_int8_render_on_the_card_equals_the_cpu():
             assert int8_conv.launches - before == len(scales[d])
     assert np.abs(out["cuda"].astype(int) - out["cpu"].astype(int)).max() \
         <= 1
+
+
+@pytest.mark.parametrize("b,hp,wp,i,o,k", [
+    (8, 18, 18, 128, 128, 3),    # the flagship's 16-px conv1
+    (8, 34, 34, 32, 32, 3),      # a 32-px conv1 of the small engine
+    (8, 32, 32, 32, 3, 1),       # torgb
+    (8, 20, 37, 130, 17, 3),     # I and O off every tile
+])
+def test_int8_conv_rows_do_not_depend_on_the_batch(b, hp, wp, i, o, k):
+    """The same int8 (or float) input at B = 8 and row by row at B = 1:
+    both entries' outputs bit-equal, with per-sample and with one static
+    scale, f32 and bf16."""
+    from brushstroke_engine_torch.ops.int8_conv import (
+        int8_conv, int8_conv_quantizing, quantize_weight,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(b * 100 + hp + i + o)
+    xq = torch.randint(-127, 128, (b, hp, wp, i), device="cuda",
+                       generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (o, i, k, k), device="cuda",
+                       generator=gen, dtype=torch.int8)
+    s_w = torch.rand(o, device="cuda", generator=gen) * 1e-2 + 1e-4
+    s_b = torch.rand(b, device="cuda", generator=gen) * 1e-2 + 1e-5
+    whole = int8_conv(xq, wq)
+    for r in range(b):
+        assert torch.equal(int8_conv(xq[r:r + 1], wq), whole[r:r + 1]), r
+    for dt in (torch.float32, torch.bfloat16):
+        for s_x in (s_b, s_b[:1]):
+            whole = int8_conv(xq, wq, s_x, s_w, dt)
+            for r in range(b):
+                sr = s_x[r:r + 1] if s_x.numel() == b else s_x
+                assert torch.equal(int8_conv(xq[r:r + 1], wq, sr, s_w, dt),
+                                   whole[r:r + 1]), (dt, r)
+        h, wd = hp - (k - 1), wp - (k - 1)
+        x = (torch.randn(b, h, wd, i, device="cuda", generator=gen)
+             * 3).to(dt)
+        wp_ = quantize_weight((torch.randn(o, i, k, k, device="cuda",
+                                           generator=gen) * 0.1).to(dt))
+        pad = ((k // 2,) * 2, (k // 2,) * 2)
+        for s_x in (x.abs().float().amax(dim=(1, 2, 3)) / 127.0,
+                    torch.tensor([0.0173], device="cuda")):
+            whole = int8_conv_quantizing(x, s_x, wp_, pad)
+            for r in range(b):
+                sr = s_x[r:r + 1] if s_x.numel() == b else s_x
+                assert torch.equal(
+                    int8_conv_quantizing(x[r:r + 1].contiguous(), sr, wp_,
+                                         pad), whole[r:r + 1]), (dt, r)
+
+
+# ---------------------------------------------------------------------------
+# The two output heads no model config wires in (models/synthesis.py)
+# ---------------------------------------------------------------------------
+
+def test_output_heads_on_the_card_equal_the_cpu():
+    """``color_mapping_apply`` (with and without the tanh) and
+    ``to_canvas_stroke_apply`` (with and without the clamp) on the card and
+    on the CPU, TF32 off: parameters and outputs on the card, every output
+    within 1e-5 of its largest value (at least 1)."""
+    from brushstroke_engine_torch.models.synthesis import (
+        color_mapping_apply, to_canvas_stroke_apply,
+    )
+    from brushstroke_engine_torch.utils.checkpoint import (
+        color_mapping_init, params_from_jax, to_canvas_stroke_init,
+    )
+    from brushstroke_engine_torch.utils.util import tree_leaves, tree_to
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    rng = np.random.RandomState(5)
+    cm = params_from_jax(color_mapping_init(rng, 64))
+    tc = params_from_jax(to_canvas_stroke_init(rng, 32, 3, 64))
+    w = torch.from_numpy(rng.randn(4, 64).astype(np.float32))
+    x = torch.from_numpy(rng.randn(4, 64, 64, 32).astype(np.float32))
+    on = {"cm": tree_to(cm, "cuda"), "tc": tree_to(tc, "cuda")}
+    assert all(t.is_cuda for t in tree_leaves(on))
+
+    def rel(got, want):
+        assert got.is_cuda
+        return ((got.cpu() - want).abs().max()
+                / want.abs().max().clamp_min(1.0)).item()
+
+    for normalize in (True, False):
+        got = color_mapping_apply(on["cm"], w.cuda(), normalize=normalize)
+        assert rel(got, color_mapping_apply(cm, w, normalize=normalize)) \
+            <= 1e-5
+    for clamp in (None, 0.5):
+        img, dbg = to_canvas_stroke_apply(on["tc"], x.cuda(), w.cuda(),
+                                          conv_clamp=clamp)
+        want, want_dbg = to_canvas_stroke_apply(tc, x, w, conv_clamp=clamp)
+        assert rel(img, want) <= 1e-5
+        for k in want_dbg:
+            assert rel(dbg[k], want_dbg[k]) <= 1e-5, k

@@ -17,7 +17,13 @@ generator.  Tolerances (set before the runs):
     gate), and the port's int8 render against the JAX int8 render within 1
     LSB and PSNR >= INT8_PARITY_DB, which must lie at least 10 dB above
     the int8-vs-float PSNR (38.2 dB when this was written);
-  * int8 off: the float render bit-equal to a render that never had int8.
+  * int8 off: the float render bit-equal to a render that never had int8;
+  * a flush's rows (B = 8) against the rows alone (B = 1), both packages:
+    1e-6 in float; in int8 10 dB above the int8-vs-float PSNR per row (a
+    first run: one row of eight stepped, by up to 4 LSB in the JAX engine and
+    1 in the port, 24 values each), and in the port, where no site flips a
+    quantized value, 1e-6 and 0 LSB; each site's activation within 1e-5 of
+    its amax until a flip, and each site row-exact (bit-equal).
 """
 
 import os
@@ -268,6 +274,119 @@ def test_int8_render_against_jax_and_float(engines):
     assert np.abs(t_q.astype(int) - j_q.astype(int)).max() <= 1
     assert _psnr(t_q, j_q) >= INT8_PARITY_DB
     assert np.any(t_q != t_f)
+
+
+# Canvas positions of the batch rows, off x or y = 17, 21, 25, 29 (mod 32),
+# where the JAX package's jitted noise reads wrong texels on the CPU.
+ROW_POS = ((37, 250), (66, 8), (100, 40), (131, 72), (160, 104), (194, 136),
+           (226, 168), (259, 200))
+
+
+def _row_opts(brush, eng, i):
+    opts = brush.GanBrushOptions()
+    opts.set_style(eng.random_style(20 + i), 20 + i)
+    opts.set_position(x=ROW_POS[i][0], y=ROW_POS[i][1])
+    opts.enable_uvs_mapping = False
+    return opts
+
+
+def _rows_rgba(eng, brush, geoms, rows, int8=True):
+    """``render_batch`` of ``geoms[rows]`` with :func:`_row_opts`, in int8
+    under the engine's static scales or in float, as float32 numpy."""
+    scales = eng._int8_scales
+    if not int8:
+        eng._int8_scales = None
+    try:
+        with jpm("strict"):
+            out = eng.render_batch(geoms[rows], [_row_opts(brush, eng, i)
+                                                 for i in range(8)][rows])
+    finally:
+        eng._int8_scales = scales
+    return np.asarray(out["rgba"].numpy() if brush is tbrush
+                      else out["rgba"])
+
+
+def _u8(a):
+    return np.clip(np.round(a * 255), 0, 255).astype(int)
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_int8_batched_rows_against_single_rows(engines, package):
+    """A flush's rows against the same rows rendered alone (B = 8 against
+    B = 1), in the JAX engine and in the port alike.  In float they agree
+    within 1e-6: the batch changes only the f32 rounding of the convs and
+    matmuls.  In int8 that rounding can carry an activation across a
+    rounding boundary of the int8 grid, and the row then steps by a few
+    LSB; each int8 row is held by the rule the card's served-vs-replay
+    check uses, 10 dB above the int8-vs-float PSNR."""
+    j, t, _, _ = engines
+    eng, brush = (j, jbrush) if package == "jax" else (t, tbrush)
+    geoms = (np.random.RandomState(11).rand(8, 32, 32, 1) > 0.5).astype(
+        np.float32)
+    out = {}
+    for mode in ("float", "int8"):
+        batch = _rows_rgba(eng, brush, geoms, slice(0, 8), mode == "int8")
+        single = np.concatenate([
+            _rows_rgba(eng, brush, geoms, slice(i, i + 1), mode == "int8")
+            for i in range(8)])
+        assert batch.shape == single.shape == (8, 32, 32, 4)
+        out[mode] = batch, single
+    np.testing.assert_allclose(*out["float"], rtol=0, atol=1e-6)
+    gap = min(_psnr(_u8(out["int8"][0][i]), _u8(out["float"][0][i]))
+              for i in range(8))
+    assert gap > 25.0
+    for i in range(8):
+        assert _psnr(*(_u8(a[i]) for a in out["int8"])) >= gap + 10.0, i
+
+
+def test_int8_batch_steps_come_from_float_rounding_upstream(engines):
+    """Where the port's int8 rows at B = 8 and B = 1 part: every site's
+    activation at B = 8 is its B = 1 activation to f32 rounding (1e-5 of
+    the site's calibrated amax) until a quantized value flips; the site
+    itself is row-exact (its B = 8 output bit-equal, row by row, to the
+    same rows alone); and a row in which no site flips a value renders
+    within 1e-6 and 0 LSB of its single-row render."""
+    _, t, _, ts = engines
+    geoms = (np.random.RandomState(11).rand(8, 32, 32, 1) > 0.5).astype(
+        np.float32)
+    seen, real = [], quant.quantized_conv
+
+    def spy(x, w, padding, source=None):
+        seen.append((x.detach().clone(), w, padding, source))
+        return real(x, w, padding, source)
+
+    def run(rows):
+        seen.clear()
+        quant.quantized_conv = spy
+        try:
+            rgba = _rows_rgba(t, tbrush, geoms, rows)
+        finally:
+            quant.quantized_conv = real
+        return rgba, list(seen)
+
+    batch, sites = run(slice(0, 8))
+    singles = [run(slice(i, i + 1)) for i in range(8)]
+    assert len(sites) == SITES
+    upstream = np.zeros(8, bool)        # a row flipped at an earlier site
+    for k, (x, w, padding, source) in enumerate(sites):
+        alone = torch.cat([s[1][k][0] for s in singles])
+        q = [torch.clamp(torch.round(v / ts[k]), -127, 127)
+             for v in (x, alone)]
+        flips = (q[0] != q[1]).flatten(1).any(1).numpy()
+        diff = (x - alone).abs().flatten(1).amax(1).numpy()
+        assert np.all(diff[~upstream] <= 1e-5 * ts[k] * 127), (k, diff)
+        upstream |= flips
+        with quant.static_scales([ts[k]]):
+            whole = quant.quantized_conv(x, w, padding, source)
+        for i in range(8):
+            with quant.static_scales([ts[k]]):
+                row = quant.quantized_conv(x[i:i + 1], w, padding, source)
+            assert torch.equal(row, whole[i:i + 1]), (k, i)
+    single = np.concatenate([s[0] for s in singles])
+    assert (~upstream).any()
+    for i in np.flatnonzero(~upstream):
+        np.testing.assert_allclose(batch[i], single[i], rtol=0, atol=1e-6)
+        assert np.abs(_u8(batch[i]) - _u8(single[i])).max() == 0
 
 
 def test_int8_off_renders_the_float_render_bit_equal(engines):

@@ -389,7 +389,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tools.plot_colors", "tools.fetch_and_verify_weights",
                 "parallel.distributed", "parallel.mesh", "utils.stats",
                 "ops.quant", "ops.int8_conv", "utils.compile_cache",
-                "tools.bench_int8"):
+                "tools.bench_int8", "ops.filters", "models.synthesis",
+                "utils.util", "utils.checkpoint"):
         assert f"brushstroke_engine_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
