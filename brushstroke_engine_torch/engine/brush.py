@@ -24,7 +24,7 @@ from brushstroke_engine_torch.models.generator import GeneratorConfig
 from brushstroke_engine_torch.models.geo_encoder import GeoEncoderConfig
 from brushstroke_engine_torch.parallel.mesh import same_device, \
     shard_tile_render
-from brushstroke_engine_torch.utils.util import resolve_device, tree_to
+from brushstroke_engine_torch.utils.util import resolve_device, span, tree_to
 
 logger = logging.getLogger(__name__)
 
@@ -302,20 +302,23 @@ class GanPaintEngine(PaintEngine):
 
     def _run_core(self, geom, opts: GanBrushOptions,
                   blended_features=None, return_features=(), mesh=None):
-        b = geom.shape[0]
-        opts.prepare_style(b)
-        override, mask = opts.color_override(b)
-        sfactor = None
-        if opts.enable_uvs_mapping:
-            sfactor = self.uvs_mapper.get_sfactor(opts)
-        noise_buffers = opts.custom_args.get("noise_buffers") or None
-        if noise_buffers is not None:
-            noise_buffers = {k: np.asarray(v, np.float32).reshape(
-                np.asarray(v).shape[-2:]) for k, v in noise_buffers.items()}
-        return self._render(geom, opts.style_z, opts.style_ws,
-                            opts.get_position(), noise_buffers, override,
-                            mask, blended_features, sfactor, return_features,
-                            mesh=mesh)
+        with span("bse.render.pass"):
+            b = geom.shape[0]
+            with span("bse.render.inputs"):
+                opts.prepare_style(b)
+                override, mask = opts.color_override(b)
+                noise_buffers = opts.custom_args.get("noise_buffers") or None
+                if noise_buffers is not None:
+                    noise_buffers = {k: np.asarray(v, np.float32).reshape(
+                        np.asarray(v).shape[-2:])
+                        for k, v in noise_buffers.items()}
+            sfactor = None
+            if opts.enable_uvs_mapping:
+                sfactor = self.uvs_mapper.get_sfactor(opts)
+            return self._render(geom, opts.style_z, opts.style_ws,
+                                opts.get_position(), noise_buffers, override,
+                                mask, blended_features, sfactor,
+                                return_features, mesh=mesh)
 
     def render_batch(self, geoms, opts_list, blended_features=None,
                      return_features=()):

@@ -20,7 +20,7 @@ from brushstroke_engine_torch.models.geo_encoder import (
     GeoEncoderConfig, geo_encoder_encode,
 )
 from brushstroke_engine_torch.ops import quant
-from brushstroke_engine_torch.utils.util import resolve_device
+from brushstroke_engine_torch.utils.util import resolve_device, span
 
 
 def map_uvs_s(uvs, sfactor):
@@ -95,73 +95,77 @@ def _render_core_impl(gen_cfg, enc_cfg, enc_res, render_mode,
                       blended_features, sfactor, device):
     dev = resolve_device(device)
     f32 = torch.float32
-    geom = _as_tensor(geom, dev, f32)
-    z = _as_tensor(z, dev, f32)
-    ws = _as_tensor(ws, dev, f32)
-    positions = _as_tensor(positions, dev)
-    if noise_buffers is not None:
-        noise_buffers = {k: _as_tensor(v, dev, f32)
-                         for k, v in noise_buffers.items()}
-    if blended_features is not None:
-        blended_features = {r: (_as_tensor(f, dev), _as_tensor(a, dev, f32))
-                            for r, (f, a) in blended_features.items()}
+    with span("bse.render.inputs"):
+        geom = _as_tensor(geom, dev, f32)
+        z = _as_tensor(z, dev, f32)
+        ws = _as_tensor(ws, dev, f32)
+        positions = _as_tensor(positions, dev)
+        if noise_buffers is not None:
+            noise_buffers = {k: _as_tensor(v, dev, f32)
+                             for k, v in noise_buffers.items()}
+        if blended_features is not None:
+            blended_features = {
+                r: (_as_tensor(f, dev), _as_tensor(a, dev, f32))
+                for r, (f, a) in blended_features.items()}
 
-    feats = geo_encoder_encode(enc_cfg, enc_params, enc_state, geom,
-                               res=list(enc_res))
+    with span("bse.render.encoder"):
+        feats = geo_encoder_encode(enc_cfg, enc_params, enc_state, geom,
+                                   res=list(enc_res))
     img, debug = generator_apply(
         gen_cfg, gen_params, gen_state, z=z, ws=ws, geom_features=feats,
         positions=positions, noise_buffers=noise_buffers,
         noise_mode="const", return_debug_data=True,
         return_features=return_features, blended_features=blended_features)
 
-    uvs = debug["uvs"]                              # [B, W, W, 3]
-    colors = (debug["colors"] + 1.0) / 2.0          # [B, 3(rgb), 3(slot)]
+    with span("bse.render.head"):
+        uvs = debug["uvs"]                          # [B, W, W, 3]
+        colors = (debug["colors"] + 1.0) / 2.0      # [B, 3(rgb), 3(slot)]
 
-    if sfactor is not None:
-        uvs = map_uvs_s(uvs, float(sfactor))
-    if color_override is not None:
-        mask = _as_tensor(color_mask, dev, f32)
-        colors = mask * _as_tensor(color_override, dev, f32) \
-            + (1.0 - mask) * colors
+        if sfactor is not None:
+            uvs = map_uvs_s(uvs, float(sfactor))
+        if color_override is not None:
+            mask = _as_tensor(color_mask, dev, f32)
+            colors = mask * _as_tensor(color_override, dev, f32) \
+                + (1.0 - mask) * colors
 
-    stroke = torch.einsum("bhwk,bck->bhwc", uvs, colors)
-    ones = torch.ones_like(stroke[..., :1])
-    if color_format == "triad":
-        if render_mode == "clear":
-            alpha = uvs[..., 0:2].sum(dim=-1, keepdim=True)
-        elif render_mode == "full":
-            alpha = ones
+        stroke = torch.einsum("bhwk,bck->bhwc", uvs, colors)
+        ones = torch.ones_like(stroke[..., :1])
+        if color_format == "triad":
+            if render_mode == "clear":
+                alpha = uvs[..., 0:2].sum(dim=-1, keepdim=True)
+            elif render_mode == "full":
+                alpha = ones
+            else:
+                raise ValueError(
+                    f"triad engine: unknown render mode {render_mode}")
+            rgba = torch.cat([stroke, alpha], dim=-1)
         else:
-            raise ValueError(
-                f"triad engine: unknown render mode {render_mode}")
-        rgba = torch.cat([stroke, alpha], dim=-1)
-    else:
-        # The canvas head (reference brush.py:905-947): its own alpha and a
-        # generated canvas color in [-1, 1].
-        alpha_fg = debug["alpha_fg"]
-        gen_canvas = debug["canvas"]
-        if render_mode == "clear":
-            rgba = torch.cat([stroke, alpha_fg], dim=-1)
-        elif render_mode == "stroke":
-            rgba = torch.cat([stroke, ones], dim=-1)
-        elif render_mode == "canvas":
-            rgba = torch.cat([(gen_canvas + 1.0) / 2.0, ones], dim=-1)
-        elif render_mode == "full":
-            comp = (1 - alpha_fg) * (gen_canvas + 1.0) / 2.0 \
-                + alpha_fg * stroke
-            rgba = torch.cat([comp, ones], dim=-1)
-        else:
-            raise ValueError(
-                f"canvas engine: unknown render mode {render_mode}")
+            # The canvas head (reference brush.py:905-947): its own alpha
+            # and a generated canvas color in [-1, 1].
+            alpha_fg = debug["alpha_fg"]
+            gen_canvas = debug["canvas"]
+            if render_mode == "clear":
+                rgba = torch.cat([stroke, alpha_fg], dim=-1)
+            elif render_mode == "stroke":
+                rgba = torch.cat([stroke, ones], dim=-1)
+            elif render_mode == "canvas":
+                rgba = torch.cat([(gen_canvas + 1.0) / 2.0, ones], dim=-1)
+            elif render_mode == "full":
+                comp = (1 - alpha_fg) * (gen_canvas + 1.0) / 2.0 \
+                    + alpha_fg * stroke
+                rgba = torch.cat([comp, ones], dim=-1)
+            else:
+                raise ValueError(
+                    f"canvas engine: unknown render mode {render_mode}")
 
-    out = {"rgba": rgba, "uvs": uvs, "colors": colors, "raw_img": img}
-    for r in return_features:
-        out[f"features{r}"] = debug[f"features{r}"]
-        out[f"features{r}_preblend"] = debug[f"features{r}_preblend"]
-    for k in ("alpha_fg", "canvas"):
-        if k in debug:
-            out[k] = debug[k]
-    return out
+        out = {"rgba": rgba, "uvs": uvs, "colors": colors, "raw_img": img}
+        for r in return_features:
+            out[f"features{r}"] = debug[f"features{r}"]
+            out[f"features{r}_preblend"] = debug[f"features{r}_preblend"]
+        for k in ("alpha_fg", "canvas"):
+            if k in debug:
+                out[k] = debug[k]
+        return out
 
 
 @torch.inference_mode()

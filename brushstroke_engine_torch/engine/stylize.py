@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from brushstroke_engine_torch.engine.device_canvas import clamp_start
+from brushstroke_engine_torch.utils.util import span
 
 logger = logging.getLogger(__name__)
 
@@ -250,70 +251,84 @@ def _stylize_waves(engine, geom, brush_options, overlap_margin,
     if stride * 2 < patch_width:
         raise ValueError("checkerboard waves need overlap_margin <= "
                          "patch_width/4")
-    geom, _ = pad_geometry(geom, patch_width, overlap_margin)
-    rows, cols = geom.shape
-    crops = generate_stitching_crops((rows, cols), patch_width,
-                                     overlap_margin, geom=geom, mode=mode)
-    dev = engine.device
-    blend_res, ffeat, fmask, border = _feature_canvas(
-        engine, rows, cols, patch_width, feature_blending_level, crop_margin)
-    rf = () if blend_res is None else (blend_res,)
-    if on_device:
-        # Binary geometry (the binarized path) ships as uint8: 4x less
-        # traffic, recovered exactly on the device.
-        geom32 = np.asarray(geom, np.float32)
-        g255 = geom32 * 255.0
-        if np.array_equal(g255, np.round(g255)):
-            geom = torch.from_numpy(g255.astype(np.uint8)).to(dev).float() \
-                / 255.0
-        else:
-            geom = torch.from_numpy(geom32).to(dev)
-        canvas = torch.zeros((rows, cols, 4), dtype=torch.uint8, device=dev)
-    else:
-        canvas = np.zeros((rows, cols, 4), np.uint8)
-    cm = crop_margin
-    inner = patch_width - 2 * cm
-    chunks = zip(*(a.tolist() for a in _prepare_wave_chunks(
-        crops, stride, batch_size))) if crops else ()
+    with span("bse.stylize"):
+        with span("bse.stylize.pad"):
+            geom, _ = pad_geometry(geom, patch_width, overlap_margin)
+            rows, cols = geom.shape
+            crops = generate_stitching_crops((rows, cols), patch_width,
+                                             overlap_margin, geom=geom,
+                                             mode=mode)
+            chunks = list(zip(*(a.tolist() for a in _prepare_wave_chunks(
+                crops, stride, batch_size)))) if crops else []
+        dev = engine.device
+        with span("bse.stylize.upload"):
+            blend_res, ffeat, fmask, border = _feature_canvas(
+                engine, rows, cols, patch_width, feature_blending_level,
+                crop_margin)
+            if on_device:
+                # Binary geometry (the binarized path) ships as uint8: 4x
+                # less traffic, recovered exactly on the device.
+                geom32 = np.asarray(geom, np.float32)
+                g255 = geom32 * 255.0
+                if np.array_equal(g255, np.round(g255)):
+                    geom = torch.from_numpy(g255.astype(np.uint8)).to(
+                        dev).float() / 255.0
+                else:
+                    geom = torch.from_numpy(geom32).to(dev)
+                canvas = torch.zeros((rows, cols, 4), dtype=torch.uint8,
+                                     device=dev)
+            else:
+                canvas = np.zeros((rows, cols, 4), np.uint8)
+        rf = () if blend_res is None else (blend_res,)
+        cm = crop_margin
+        inner = patch_width - 2 * cm
 
-    for cys, cxs in chunks:
-        if on_device:
-            geoms = geom[_window_index(cys, cxs, patch_width, geom.shape,
-                                       dev)][..., None]
-        else:
-            geoms = np.stack([geom[y:y + patch_width, x:x + patch_width]
-                              for y, x in zip(cys, cxs)])[..., None]
-        brush_options.set_position(np.asarray(cxs), np.asarray(cys))
-        blended = None
-        if blend_res is not None:
-            down = patch_width // blend_res
-            fys = [y // down for y in cys]
-            fxs = [x // down for x in cxs]
-            feats_win, alpha, upds = _gather_feature_windows(
-                ffeat, fmask, fys, fxs, border)
-            blended = {blend_res: (feats_win, alpha)}
-        out = engine._run_core(geoms, brush_options,
-                               blended_features=blended, return_features=rf,
-                               mesh=mesh)
-        if blend_res is not None:
-            _scatter_feature_windows(
-                ffeat, fmask, out[f"features{blend_res}"].float(), upds,
-                fys, fxs)
-        # uint8 cast on the device: 4x less to copy than f32.
-        rgba = (torch.clamp(out["rgba"], 0.0, 1.0) * 255).to(torch.uint8)
-        rgba = rgba[:, cm:patch_width - cm, cm:patch_width - cm]
-        if on_device:
-            canvas[_window_index([y + cm for y in cys],
-                                 [x + cm for x in cxs], inner, canvas.shape,
-                                 dev)] = rgba
-        else:
-            rgba = rgba.cpu().numpy()
-            for i, (y, x) in enumerate(zip(cys, cxs)):
-                canvas[y + cm:y + cm + inner, x + cm:x + cm + inner] = rgba[i]
+        for cys, cxs in chunks:
+            with span("bse.stylize.chunk"):
+                with span("bse.stylize.gather"):
+                    if on_device:
+                        geoms = geom[_window_index(
+                            cys, cxs, patch_width, geom.shape, dev)][..., None]
+                    else:
+                        geoms = np.stack(
+                            [geom[y:y + patch_width, x:x + patch_width]
+                             for y, x in zip(cys, cxs)])[..., None]
+                    brush_options.set_position(np.asarray(cxs),
+                                               np.asarray(cys))
+                    blended = None
+                    if blend_res is not None:
+                        down = patch_width // blend_res
+                        fys = [y // down for y in cys]
+                        fxs = [x // down for x in cxs]
+                        feats_win, alpha, upds = _gather_feature_windows(
+                            ffeat, fmask, fys, fxs, border)
+                        blended = {blend_res: (feats_win, alpha)}
+                out = engine._run_core(geoms, brush_options,
+                                       blended_features=blended,
+                                       return_features=rf, mesh=mesh)
+                with span("bse.stylize.scatter"):
+                    if blend_res is not None:
+                        _scatter_feature_windows(
+                            ffeat, fmask, out[f"features{blend_res}"].float(),
+                            upds, fys, fxs)
+                    # uint8 cast on the device: 4x less to copy than f32.
+                    rgba = (torch.clamp(out["rgba"], 0.0, 1.0) * 255).to(
+                        torch.uint8)
+                    rgba = rgba[:, cm:patch_width - cm, cm:patch_width - cm]
+                    if on_device:
+                        canvas[_window_index([y + cm for y in cys],
+                                             [x + cm for x in cxs], inner,
+                                             canvas.shape, dev)] = rgba
+                    else:
+                        rgba = rgba.cpu().numpy()
+                        for i, (y, x) in enumerate(zip(cys, cxs)):
+                            canvas[y + cm:y + cm + inner,
+                                   x + cm:x + cm + inner] = rgba[i]
 
-    if on_device:
-        canvas = canvas.cpu().numpy()
-    return composite_on_white(canvas) if on_white else canvas
+        with span("bse.stylize.download"):
+            if on_device:
+                canvas = canvas.cpu().numpy()
+            return composite_on_white(canvas) if on_white else canvas
 
 
 def stylize_image_ondevice(engine, geom: np.ndarray, brush_options, *,

@@ -21,6 +21,7 @@ from brushstroke_engine_torch.models.mapping import MappingConfig, \
 from brushstroke_engine_torch.models.synthesis import SynthesisConfig, \
     synthesis_apply
 from brushstroke_engine_torch.parallel.distributed import draw_rows
+from brushstroke_engine_torch.utils.util import span
 
 
 @dataclass(frozen=True)
@@ -175,23 +176,23 @@ def generator_apply(cfg: GeneratorConfig, params, state, *,
     Returns (img, debug_data); debug_data is {} unless debug / feature
     outputs were requested.
     """
-    if ws is None:
-        assert z is not None
-        ws = mapping_apply(
-            cfg.mapping, params["mapping"], z, c,
-            w_avg=state.get("w_avg"), truncation_psi=truncation_psi,
-            truncation_cutoff=truncation_cutoff)
-        if style_mixing_prob > 0:
-            if mixing is None:
-                mixing = draw_style_mixing(rng, tuple(z.shape), z.device)
-            ws2 = mapping_apply(
-                cfg.mapping, params["mapping"], mixing["z2"], c,
+    with span("bse.render.mapping"):
+        if ws is None:
+            assert z is not None
+            ws = mapping_apply(
+                cfg.mapping, params["mapping"], z, c,
                 w_avg=state.get("w_avg"), truncation_psi=truncation_psi,
                 truncation_cutoff=truncation_cutoff)
-            ws = mix_styles(ws, ws2, mixing, style_mixing_prob)
-
-    pos_encoding = generate_positional_encoding(
-        cfg, positions, ws.shape[0], rng=rng, device=ws.device)
+            if style_mixing_prob > 0:
+                if mixing is None:
+                    mixing = draw_style_mixing(rng, tuple(z.shape), z.device)
+                ws2 = mapping_apply(
+                    cfg.mapping, params["mapping"], mixing["z2"], c,
+                    w_avg=state.get("w_avg"), truncation_psi=truncation_psi,
+                    truncation_cutoff=truncation_cutoff)
+                ws = mix_styles(ws, ws2, mixing, style_mixing_prob)
+        pos_encoding = generate_positional_encoding(
+            cfg, positions, ws.shape[0], rng=rng, device=ws.device)
     out = synthesis_apply(
         cfg.synthesis, params["synthesis"], ws, geom_features,
         noise=state.get("noise"), noise_buffers=noise_buffers,

@@ -34,6 +34,7 @@ from brushstroke_engine_torch.ops import (
 )
 from brushstroke_engine_torch.models.layers import fc_apply
 from brushstroke_engine_torch.parallel.distributed import draw_rows
+from brushstroke_engine_torch.utils.util import span
 
 
 @dataclass(frozen=True)
@@ -329,74 +330,76 @@ def synthesis_apply(cfg: SynthesisConfig, params, ws, geom_features=(), *,
     last_res = cfg.block_resolutions[-1]
 
     for res in cfg.block_resolutions:
-        bp = params[f"b{res}"]
-        cur_ws = block_ws[res]
-        dtype = torch.float32 if force_fp32 else cfg.block_dtype(res)
-        w_i = 0
+        with span(f"bse.render.block{res}"):
+            bp = params[f"b{res}"]
+            cur_ws = block_ws[res]
+            dtype = torch.float32 if force_fp32 else cfg.block_dtype(res)
+            w_i = 0
 
-        def layer_noise(name):
-            key = f"b{res}.{name}.noise_const"
-            if key in noise_buffers:
-                return None, noise_buffers[key]
-            return noise.get(key), None
+            def layer_noise(name):
+                key = f"b{res}.{name}.noise_const"
+                if key in noise_buffers:
+                    return None, noise_buffers[key]
+                return noise.get(key), None
 
-        if res == 4:
-            const = bp["const"].to(dtype).permute(1, 2, 0)   # [4, 4, C]
-            x = const[None].expand(b, -1, -1, -1).contiguous()
-        else:
-            x = x.to(dtype)
-            nc, ni = layer_noise("conv0")
+            if res == 4:
+                const = bp["const"].to(dtype).permute(1, 2, 0)   # [4, 4, C]
+                x = const[None].expand(b, -1, -1, -1).contiguous()
+            else:
+                x = x.to(dtype)
+                nc, ni = layer_noise("conv0")
+                x = _synthesis_layer_apply(
+                    cfg, bp["conv0"], x, cur_ws[:, w_i], resolution=res, up=2,
+                    noise_mode=noise_mode, noise_const=nc, input_noise=ni,
+                    positions=positions, rng=rng,
+                    random_noise=random_noise.get(f"b{res}.conv0"))
+                w_i += 1
+
+            nc, ni = layer_noise("conv1")
             x = _synthesis_layer_apply(
-                cfg, bp["conv0"], x, cur_ws[:, w_i], resolution=res, up=2,
+                cfg, bp["conv1"], x, cur_ws[:, w_i], resolution=res, up=1,
                 noise_mode=noise_mode, noise_const=nc, input_noise=ni,
                 positions=positions, rng=rng,
-                random_noise=random_noise.get(f"b{res}.conv0"))
+                random_noise=random_noise.get(f"b{res}.conv1"))
             w_i += 1
 
-        nc, ni = layer_noise("conv1")
-        x = _synthesis_layer_apply(
-            cfg, bp["conv1"], x, cur_ws[:, w_i], resolution=res, up=1,
-            noise_mode=noise_mode, noise_const=nc, input_noise=ni,
-            positions=positions, rng=rng,
-            random_noise=random_noise.get(f"b{res}.conv1"))
-        w_i += 1
+            # The 'skip' trunk carries the image up and adds every block's
+            # torgb; on the 'orig' trunk only the last block has one.
+            if img is not None:
+                img = upsample2d(img, cfg.resample_filter)
+            if cfg.block_has_torgb(res):
+                y, tdebug = _torgb_apply(cfg, bp["torgb"], x, cur_ws[:, -1])
+                y = y.float()
+                img = y if img is None else img + y
+                if res == last_res:
+                    debug.update(tdebug)
 
-        # The 'skip' trunk carries the image up and adds every block's torgb;
-        # on the 'orig' trunk only the last block has one.
-        if img is not None:
-            img = upsample2d(img, cfg.resample_filter)
-        if cfg.block_has_torgb(res):
-            y, tdebug = _torgb_apply(cfg, bp["torgb"], x, cur_ws[:, -1])
-            y = y.float()
-            img = y if img is None else img + y
-            if res == last_res:
-                debug.update(tdebug)
+            if res in return_features:
+                debug[f"features{res}_preblend"] = x
 
-        if res in return_features:
-            debug[f"features{res}_preblend"] = x
+            if res in blended_features:
+                feats, alpha = blended_features[res]
+                x = (alpha * feats.float()
+                     + (1.0 - alpha) * x.float()).to(x.dtype)
+                if res == last_res:
+                    img, tdebug = _torgb_apply(cfg, bp["torgb"], x,
+                                               cur_ws[:, -1])
+                    debug.update(tdebug)
 
-        if res in blended_features:
-            feats, alpha = blended_features[res]
-            x = (alpha * feats.float()
-                 + (1.0 - alpha) * x.float()).to(x.dtype)
-            if res == last_res:
-                img, tdebug = _torgb_apply(cfg, bp["torgb"], x, cur_ws[:, -1])
-                debug.update(tdebug)
+            if res in return_features:
+                debug[f"features{res}"] = x
 
-        if res in return_features:
-            debug[f"features{res}"] = x
-
-        # Geometry / positional-encoding injection for the next block.
-        block_geom = None
-        if res in cfg.geom_feature_resolutions:
-            block_geom = geom_features[geo_idx].to(x.dtype)
-            geo_idx += 1
-        if res in cfg.pos_encoding_resolutions:
-            enc = pos_encoding[pos_idx].to(x.dtype)
-            pos_idx += 1
-            x, block_geom = _inject_position(cfg, x, block_geom, enc)
-        if block_geom is not None:
-            x = torch.cat([x, block_geom], dim=-1)
+            # Geometry / positional-encoding injection for the next block.
+            block_geom = None
+            if res in cfg.geom_feature_resolutions:
+                block_geom = geom_features[geo_idx].to(x.dtype)
+                geo_idx += 1
+            if res in cfg.pos_encoding_resolutions:
+                enc = pos_encoding[pos_idx].to(x.dtype)
+                pos_idx += 1
+                x, block_geom = _inject_position(cfg, x, block_geom, enc)
+            if block_geom is not None:
+                x = torch.cat([x, block_geom], dim=-1)
 
     if return_debug_data or return_features:
         return img, debug

@@ -85,15 +85,16 @@ def device_kernels(fn):
     """How many device kernels one call of ``fn`` launches (profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from brushstroke_engine_torch.utils.util import device_activity
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "memcpy" not in e.name.lower()
+    return sum(1 for e in device_activity(prof.events())
+               if "memcpy" not in e.name.lower()
                and "memset" not in e.name.lower())
 
 

@@ -35,7 +35,8 @@ import torch
 
 from brushstroke_engine_torch.ui import core as ui_core
 from brushstroke_engine_torch.ui import protocol
-from brushstroke_engine_torch.utils.util import resolve_device
+from brushstroke_engine_torch.utils.util import device_activity, \
+    resolve_device
 
 PATHS = ("helper", "device_canvas", "batched", "pooled")
 
@@ -157,10 +158,8 @@ class Painter:
 
 def _busy_ms(prof) -> float:
     """Union of the CUDA activity intervals the profiler recorded, ms."""
-    from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   for e in device_activity(prof.events()))
     busy, end = 0.0, None
     for s, e in spans:
         if end is None or s > end:

@@ -5,10 +5,12 @@ activities) in three configurations -- ``render_stroke`` (B=1, strict f32,
 UVS mapping on), ``render_batch`` B=16 strict f32, ``render_batch`` B=16
 with bf16 blocks in 'fast' mode -- and prints, per configuration, the wall
 time per call, the device's busy time and idle share, K1's share and the
-kernels that take the most device time.  With ``--canvas`` it traces the
-paint path instead (strict f32): one blended ``PaintingHelper`` stroke and
-one ``DevicePaintSession`` stroke on a 1024-px canvas at blending level 2,
-and the 2048-px stylize of ``chip_smoke.py`` through
+kernels that take the most device time, then each of the program's
+``bse.*`` spans with its count, host ms and the ms within it in which the
+device was idle.  With ``--canvas`` it traces the paint path instead
+(strict f32): one blended ``PaintingHelper`` stroke and one
+``DevicePaintSession`` stroke on a 1024-px canvas at blending level 2, and
+the 2048-px stylize of ``chip_smoke.py`` through
 ``stylize_image_batched`` (B=16: 7 wave chunks) and
 ``stylize_image_ondevice`` (B=32: 4).  The full tables go to
 ``<out_dir>/profile_<config>.txt`` (default ``build/profile``).
@@ -36,6 +38,7 @@ from brushstroke_engine_torch.data.curated_geometry import \
 from brushstroke_engine_torch.engine.brush import GanBrushOptions
 from brushstroke_engine_torch.flagship import flagship_engine, flagship_trees
 from brushstroke_engine_torch.ops.precision import precision_mode
+from brushstroke_engine_torch.utils.util import device_activity
 
 RES = 256
 BATCH = 16
@@ -69,11 +72,12 @@ def trace(name, fn, iters, out_dir):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    events = prof.events()
+    device = device_activity(events)
     per_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = per_name.get(e.name, (0.0, 0))
-            per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for e in device:
+        us, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in per_name.values()) / 1e3 / iters
     if busy_ms <= 0:
         raise RuntimeError(f"{name}: the profiler recorded no device time")
@@ -93,12 +97,61 @@ def trace(name, fn, iters, out_dir):
               "top_kernels": rows(ranked[:15]),
               # The port's own kernel, every instantiation the call launched.
               "own_kernels": own}
+    spans = span_table(events, device, iters)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=60))
+        f.write("\n" + spans)
     print(json.dumps(result), flush=True)
+    print(spans, flush=True)
     return result
+
+
+def _merge(spans):
+    merged = []
+    for s, e in sorted(spans):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
+def _overlap_us(a, b):
+    """Length of the intersection of two merged lists of spans."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def span_table(events, device, iters):
+    """Each ``bse.*`` span of the program (``utils.util.span``) per call:
+    how often it opened, its host ms, and the ms within it in which no
+    device activity ran -- the attribution of the device's idle time that
+    the program's spans give."""
+    busy = _merge([(e.time_range.start, e.time_range.end) for e in device])
+    by = {}
+    for e in events:
+        if e.name.startswith("bse.") and e.device_type == DeviceType.CPU:
+            by.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    lines = [f"{'span':<24} {'count':>8} {'host ms':>10} {'idle ms':>10}"
+             f"   (per call, {iters} calls)"]
+    for name in sorted(by):
+        spans = by[name]
+        merged = _merge(spans)
+        host = sum(e - s for s, e in merged)
+        idle = host - _overlap_us(merged, busy)
+        lines.append(f"{name:<24} {len(spans) / iters:>8.2f} "
+                     f"{host / 1e3 / iters:>10.3f} "
+                     f"{idle / 1e3 / iters:>10.3f}")
+    return "\n".join(lines) + "\n"
 
 
 def trace_canvas(trees, iters, out_dir):

@@ -36,7 +36,6 @@ import tempfile
 import time
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from brushstroke_engine_torch.flagship import (
@@ -44,6 +43,7 @@ from brushstroke_engine_torch.flagship import (
 )
 from brushstroke_engine_torch.ops.precision import set_precision_mode
 from brushstroke_engine_torch.train.loop import TrainingLoop
+from brushstroke_engine_torch.utils.util import device_activity
 
 RES, BATCH, WARMUP_BATCHES = 128, 64, 16
 OWN_KERNELS = ("fir4_epilogue", "resample_gather", "warp_fused")
@@ -99,10 +99,9 @@ def main(argv=None):
         shutil.rmtree(run_dir, ignore_errors=True)
 
     per_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, cnt = per_name.get(e.name, (0.0, 0))
-            per_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+    for e in device_activity(prof.events()):
+        us, cnt = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
     busy_ms = sum(us for us, _ in per_name.values()) / 1e3 / n
     if busy_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")

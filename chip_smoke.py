@@ -3698,6 +3698,7 @@ def _profile_projection_step(engine, targets, geoms):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from brushstroke_engine_torch.tools import projection
+    from brushstroke_engine_torch.utils.util import device_activity
 
     cfg = projection.ProjectionConfig(num_steps=2,
                                       w_avg_samples=WF_PROFILE_W_SAMPLES,
@@ -3712,8 +3713,8 @@ def _profile_projection_step(engine, targets, geoms):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    busy = sum(e.time_range.elapsed_us() for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
+    busy = sum(e.time_range.elapsed_us()
+               for e in device_activity(events)) / 1e3
     check(busy > 0, "the profiler recorded no device time")
     fwd = sum(e.time_range.elapsed_us() for e in events
               if e.device_type == DeviceType.CUDA
@@ -4513,7 +4514,6 @@ def _fused_modes(style_iter, geom_iter, card, held, warp_held, out):
     import shutil
     import tempfile
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from brushstroke_engine_torch.flagship import flagship_train_config
     from brushstroke_engine_torch.ops import warp as tw
@@ -4521,6 +4521,7 @@ def _fused_modes(style_iter, geom_iter, card, held, warp_held, out):
     from brushstroke_engine_torch.train.device_dataset import \
         build_device_banks
     from brushstroke_engine_torch.train.loop import TrainingLoop
+    from brushstroke_engine_torch.utils.util import device_activity
 
     b = TRAIN_BATCH
     cfg = flagship_train_config(
@@ -4562,8 +4563,8 @@ def _fused_modes(style_iter, geom_iter, card, held, warp_held, out):
                 wall = time.perf_counter() - t0
             got = _launch_counts()    # the mode's training ends here
             wall -= loop._last_snapshot_sec or 0.0
-            busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == DeviceType.CUDA) / 1e6
+            busy = sum(e.time_range.elapsed_us()
+                       for e in device_activity(prof.events())) / 1e6
             check(busy > 0, f"[fused] {name}: the CUDA-only profiler "
                   f"recorded no device time")
             timed = FUSED_BATCHES - FUSED_CHUNK
