@@ -20,10 +20,6 @@ from brushstroke_engine_torch.parallel.distributed import (
 )
 from brushstroke_engine_torch.parallel.mesh import make_mesh
 from brushstroke_engine_torch.train import device_dataset as tdd
-from tests.torch_helpers import one_torch_thread  # noqa: F401
-
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 class _ArrayDS:

@@ -54,10 +54,7 @@ from brushstroke_engine_torch.utils import checkpoint as tck
 from brushstroke_engine_torch.utils import util as tutil
 from brushstroke_engine_torch.utils.checkpoint import params_from_jax
 from brushstroke_engine_torch.utils.util import tree_leaves
-from tests.torch_helpers import one_torch_thread  # noqa: F401
 from tests.torch_train_helpers import B, RES, _batch, _train_cfgs
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 W_DIM, IN_CH, OUT_CH, PX = 16, 8, 3, 16
 
@@ -500,3 +497,8 @@ def test_log_tensor_both(caplog):
     (rec,) = caplog.records
     assert rec.getMessage() == \
         "y: shape (2,) dtype bfloat16 min 1.0000 max 1.0000 mean 1.0000"
+
+
+def test_suite_runs_torch_on_one_thread():
+    """``tests/torch_helpers.py``'s policy holds inside a test."""
+    assert torch.get_num_threads() == 1

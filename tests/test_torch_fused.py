@@ -43,9 +43,6 @@ from tests.torch_train_helpers import (  # noqa: F401 (_strict: autouse)
     _strict, RES, B, _np_tree, _train_cfgs, _jax_state, _batch,
     _assert_update_parity, STAT_TOL,
 )
-from tests.torch_helpers import one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 WARM_LOSSES = "0.5*iou_inv(uvs)+2.0*l1(fake_orig)"

@@ -22,10 +22,6 @@ from brushstroke_engine_torch.utils.util import tree_leaves
 from tests.torch_train_helpers import (  # noqa: F401 (_strict: autouse)
     _strict, RES, B, _train_cfgs,
 )
-from tests.torch_helpers import one_torch_thread  # noqa: F401
-
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 class _DS:

@@ -23,9 +23,6 @@ from brushstroke_engine_torch.ops.int8_conv import (
     int8_conv_quantizing_plain, int8_epilogue_plain, pack_weight,
     quant_mismatches, quantize_weight, unpack_weight,
 )
-from tests.torch_helpers import one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # The flagship's site geometries (O, I, kh, kw) and odd ones.
 WEIGHT_SHAPES = [(128, 128, 3, 3), (64, 64, 3, 3), (3, 64, 1, 1),

@@ -63,15 +63,6 @@ from brushstroke_engine_torch.viz import visualize as tviz
 from tests.torch_helpers import small_model
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.fixture(autouse=True)
 def _strict():
     jset("strict")

@@ -53,17 +53,6 @@ RTOL, ATOL = 1e-4, 1e-5
 LOOP_RTOL, LOOP_ATOL = 1e-3, 1e-4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for these small shapes: the suite runs several
-    test processes on the machine's cores, and torch's default pool of one
-    thread per core then oversubscribes them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.fixture(autouse=True)
 def _strict():
     jset("strict")

@@ -40,9 +40,6 @@ from tests.torch_train_helpers import (  # noqa: F401 (_strict: autouse)
     _strict, RES, _np_tree, _train_cfgs, _jax_state, _assert_update_parity,
     STAT_TOL,
 )
-from tests.torch_helpers import one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DP_B = 8
 

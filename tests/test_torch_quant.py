@@ -52,9 +52,7 @@ from brushstroke_engine_torch.ops.int8_conv import (
 )
 from brushstroke_engine_torch.ops.precision import set_precision_mode
 from brushstroke_engine_torch.utils import compile_cache
-from tests.torch_helpers import one_torch_thread, small_model  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from tests.torch_helpers import small_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INT8_PARITY_DB = 55.0

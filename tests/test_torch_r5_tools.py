@@ -43,12 +43,7 @@ from brushstroke_engine_torch.tools import (
 from brushstroke_engine_torch.utils import img_proc
 from brushstroke_engine_torch.utils import reference_layout as rl
 from brushstroke_engine_torch.utils import weights as tweights
-from tests.torch_helpers import (  # noqa: F401 (one_torch_thread)
-    REPO, one_torch_thread, run_script, small_model,
-)
-
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from tests.torch_helpers import REPO, run_script, small_model
 
 
 @pytest.fixture(scope="module")

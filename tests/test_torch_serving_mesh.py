@@ -25,9 +25,7 @@ from brushstroke_engine_torch.engine import brush as tbrush
 from brushstroke_engine_torch.engine.stylize import stylize_image_ondevice
 from brushstroke_engine_torch.parallel.mesh import Mesh, make_mesh
 from brushstroke_engine_torch.tools import train as ttrain
-from tests.torch_helpers import one_torch_thread, small_model  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from tests.torch_helpers import small_model
 
 
 @pytest.fixture(scope="module")

@@ -62,15 +62,6 @@ STITCH_LOSSES = "1.0*gan(fake)+1.0*gan(fake_composite)+1.0*l1(patch)"
 BAD_NOISE_POS = {17, 21, 25, 29}        # mod 32, see the module doc
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)

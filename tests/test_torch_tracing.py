@@ -16,9 +16,7 @@ from brushstroke_engine_torch.data.curves import random_spline_stroke
 from brushstroke_engine_torch.engine import brush as tbrush
 from brushstroke_engine_torch.engine import stylize as tst
 from brushstroke_engine_torch.utils import util
-from tests.torch_helpers import one_torch_thread, small_model  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from tests.torch_helpers import small_model
 
 # 32-px tiles, stride 24: a 70-px drawing pads to 3 x 3 tiles in waves of
 # 4, 2, 2 and 1 tiles: five chunks of 3, four of them padded.

@@ -58,17 +58,6 @@ from tests.torch_train_helpers import (  # noqa: F401 (_strict: autouse)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for these small shapes: the suite runs several
-    test processes on the machine's cores, and torch's default pool of one
-    thread per core then oversubscribes them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 def _jax_cli():
     spec = importlib.util.spec_from_file_location(
         "train_main_for_tests", os.path.join(REPO, "scripts", "train_main.py"))

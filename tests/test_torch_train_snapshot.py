@@ -37,17 +37,6 @@ from tests.torch_train_helpers import (  # noqa: F401 (_strict: autouse)
 )
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for these small shapes: the suite runs several
-    test processes on the machine's cores, and torch's default pool of one
-    thread per core then oversubscribes them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 class _Batches:
     """Iterates given batches; ``start`` skips the first ones."""
 

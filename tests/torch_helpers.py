@@ -1,5 +1,9 @@
 """Shared fixtures of the torch-port parity tests: one small engine config
-in both packages, and numpy weight trees in the JAX layout for both."""
+in both packages, and numpy weight trees in the JAX layout for both.
+
+Importing it puts torch on one intra-op thread for the whole process.  Every
+xdist worker collects every test module, and the port's modules import this
+one, so that holds for every test of the suite."""
 
 import contextlib
 import dataclasses
@@ -11,7 +15,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
+import torch
 
 from brushstroke_engine_tpu.models.generator import make_generator_config
 from brushstroke_engine_tpu.models.geo_encoder import GeoEncoderConfig
@@ -19,6 +23,9 @@ from brushstroke_engine_tpu.ops.precision import precision_mode
 from brushstroke_engine_torch.utils.checkpoint import (
     configs_from_dicts, init_native_params, params_from_jax,
 )
+
+# One thread: the tests' tensors are small, and 6 workers share 8 cores.
+torch.set_num_threads(1)
 
 
 def small_configs(img_resolution=32, inject_res=(0, 1), color_format="triad",
@@ -63,24 +70,11 @@ def small_model(seed=0, noise_strength=0.4, **config):
                 torch={k: params_from_jax(v) for k, v in trees.items()})
 
 
-@pytest.fixture(scope="module")
-def one_torch_thread():
-    """One intra-op thread for a module's torch ops: its tensors are small,
-    and under the parallel test runner the default pool of one thread per
-    core oversubscribes the machine (tens of times slower there)."""
-    import torch
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def replay_augment_draws(cfg, key, batch, shape):
     """The raw draws that the JAX ``augment_pipe(cfg, key, images, p)``
     makes for ``images [batch, *shape]``, as the port's ``draws`` dict:
     the key is split and consumed exactly as in
     ``brushstroke_engine_tpu/train/augment.py``."""
-    import torch
     from brushstroke_engine_torch.train.augment import draw_spec
 
     fns = {"uniform": jax.random.uniform, "normal": jax.random.normal}
