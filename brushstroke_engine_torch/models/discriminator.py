@@ -23,6 +23,7 @@ from brushstroke_engine_torch.models.mapping import MappingConfig, \
 from brushstroke_engine_torch.parallel.distributed import (
     all_gather_rows, local_rows,
 )
+from brushstroke_engine_torch.utils.util import span
 
 
 @dataclass(frozen=True)
@@ -104,30 +105,35 @@ def discriminator_apply(cfg: DiscriminatorConfig, params, img, c=None,
     f = cfg.resample_filter
     x = None
     for res in cfg.block_resolutions:
-        bp = params[f"b{res}"]
-        dtype = torch.float32 if force_fp32 else cfg.block_dtype(res)
-        if res == cfg.img_resolution:
-            x = conv_layer_apply(bp["fromrgb"], img.to(dtype),
-                                 activation=cfg.activation,
-                                 conv_clamp=cfg.conv_clamp)
-        else:
-            x = x.to(dtype)
-        if cfg.architecture == "resnet":
-            y = conv_layer_apply(bp["skip"], x, down=2, resample_filter=f,
-                                 gain=math.sqrt(0.5))
-            x = conv_layer_apply(bp["conv0"], x, activation=cfg.activation,
-                                 conv_clamp=cfg.conv_clamp)
-            x = conv_layer_apply(bp["conv1"], x, activation=cfg.activation,
-                                 down=2, resample_filter=f,
-                                 conv_clamp=cfg.conv_clamp,
-                                 gain=math.sqrt(0.5))
-            x = y + x
-        else:
-            x = conv_layer_apply(bp["conv0"], x, activation=cfg.activation,
-                                 conv_clamp=cfg.conv_clamp)
-            x = conv_layer_apply(bp["conv1"], x, activation=cfg.activation,
-                                 down=2, resample_filter=f,
-                                 conv_clamp=cfg.conv_clamp)
+        with span(f"bse.disc.block{res}"):
+            bp = params[f"b{res}"]
+            dtype = torch.float32 if force_fp32 else cfg.block_dtype(res)
+            if res == cfg.img_resolution:
+                x = conv_layer_apply(bp["fromrgb"], img.to(dtype),
+                                     activation=cfg.activation,
+                                     conv_clamp=cfg.conv_clamp)
+            else:
+                x = x.to(dtype)
+            if cfg.architecture == "resnet":
+                y = conv_layer_apply(bp["skip"], x, down=2,
+                                     resample_filter=f, gain=math.sqrt(0.5))
+                x = conv_layer_apply(bp["conv0"], x,
+                                     activation=cfg.activation,
+                                     conv_clamp=cfg.conv_clamp)
+                x = conv_layer_apply(bp["conv1"], x,
+                                     activation=cfg.activation, down=2,
+                                     resample_filter=f,
+                                     conv_clamp=cfg.conv_clamp,
+                                     gain=math.sqrt(0.5))
+                x = y + x
+            else:
+                x = conv_layer_apply(bp["conv0"], x,
+                                     activation=cfg.activation,
+                                     conv_clamp=cfg.conv_clamp)
+                x = conv_layer_apply(bp["conv1"], x,
+                                     activation=cfg.activation, down=2,
+                                     resample_filter=f,
+                                     conv_clamp=cfg.conv_clamp)
 
     # Epilogue at 4x4 (reference networks.py:899-952).
     x = x.float()

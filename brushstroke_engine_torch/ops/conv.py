@@ -4,7 +4,9 @@ Counterpart of ``brushstroke_engine_tpu/ops/conv.py``.  Activations are NHWC
 at the public functions; weights are torch's OIHW.  The convs themselves are
 cuDNN (``F.conv2d`` / ``F.conv_transpose2d``) on ``channels_last`` views,
 except where int8 inference is on (``ops/quant.py``): then the stride-1
-dense convs of :func:`conv2d_resample` are int8 convs.
+dense convs of :func:`conv2d_resample` are int8 convs.  Where a gradient is
+taken they run through ``ops/gradfix.py``, whose second derivatives (R1's
+and the path length's) are convolutions of the forward's shapes.
 
 ``modulated_conv2d`` uses the activation-scaling form of the JAX package:
 scale input channels by the style, run one shared conv, scale output channels
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from brushstroke_engine_torch.ops import quant
 from brushstroke_engine_torch.ops.biasact import bias_act
 from brushstroke_engine_torch.ops.fir_epilogue import fir4_epilogue
+from brushstroke_engine_torch.ops.gradfix import conv
 from brushstroke_engine_torch.ops.upfirdn import (
     _filter_2d, _parse_padding, nchw, nhwc, upfirdn2d,
 )
@@ -31,7 +34,7 @@ from brushstroke_engine_torch.ops.upfirdn import (
 
 def _dense_conv(x, w, stride: int = 1):
     """VALID conv of NHWC ``x`` with OIHW ``w``."""
-    return nhwc(F.conv2d(nchw(x), w.to(x.dtype), stride=stride))
+    return nhwc(conv(nchw(x), w.to(x.dtype), stride=stride))
 
 
 def _upsample_conv(x, w, up: int, pads):
@@ -46,7 +49,7 @@ def _upsample_conv(x, w, up: int, pads):
     kh, kw = int(w.shape[2]), int(w.shape[3])
     px0, px1, py0, py1 = pads
     wt = w.flip([2, 3]).transpose(0, 1).to(x.dtype)    # [I, O, kh, kw]
-    y = F.conv_transpose2d(nchw(x), wt, stride=up)
+    y = conv(nchw(x), wt, transpose=True, stride=up)
     y = F.pad(y, [px0 - (kw - 1), px1 - (kw - 1), py0 - (kh - 1),
                   py1 - (kh - 1)])
     return nhwc(y)

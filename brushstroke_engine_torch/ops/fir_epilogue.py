@@ -28,9 +28,9 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from brushstroke_engine_torch.ops import cuda_build
+from brushstroke_engine_torch.ops.gradfix import conv
 from brushstroke_engine_torch.ops.upfirdn import nchw
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,7 +82,7 @@ def fir4_epilogue_plain(x, taps, dcoefs, noise, bias, act_gain: float,
     """
     c = x.shape[-1]
     k = torch.as_tensor(np.array(taps, np.float32), device=x.device)
-    y = F.conv2d(nchw(x.float()), k[None, None].expand(c, 1, 4, 4), groups=c)
+    y = conv(nchw(x.float()), k[None, None].expand(c, 1, 4, 4), groups=c)
     y = y.permute(0, 2, 3, 1)
     y = y * dcoefs.float()[:, None, None, :]
     if noise is not None:

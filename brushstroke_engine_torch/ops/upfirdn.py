@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from brushstroke_engine_torch.ops.gradfix import conv
+
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC -> NCHW view (``channels_last`` strides when x is contiguous)."""
@@ -93,7 +95,7 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter: bool = False,
     y = F.pad(y, [px0, px1, py0, py1])
     weight = torch.as_tensor(f, dtype=x.dtype, device=x.device)
     weight = weight[None, None].expand(c, 1, *f.shape)
-    y = F.conv2d(y, weight, groups=c)
+    y = conv(y, weight, groups=c)
     y = y[:, :, ::downy, ::downx]
     return nhwc(y)
 

@@ -83,6 +83,10 @@ def build_parser():
     ap.add_argument("--output_resolution", type=int, default=128)
     ap.add_argument("--zdim", type=int, default=64)
     ap.add_argument("--wdim", type=int, default=64)
+    ap.add_argument("--channel_base", type=int, default=16384,
+                    help="Channels of G and D at a block are channel_base "
+                         "/ res, at most channel_max (StyleGAN2 config-f: "
+                         "32768).")
     ap.add_argument("--channel_max", type=int, default=128)
     ap.add_argument("--num_bf16_res", type=int, default=4,
                     help="Run G and D at bf16 for the N highest "
@@ -91,7 +95,9 @@ def build_parser():
                     choices=["orig", "triad", "canvas"])
     ap.add_argument("--color_w_channels", type=int, default=0)
     ap.add_argument("--geom_inject_resolutions", default="0,1",
-                    help="Encoder resolutions to inject (CSV).")
+                    help="Encoder resolutions to inject (CSV); empty: no "
+                         "encoder and no geometry data, a plain StyleGAN2 "
+                         "run.")
     ap.add_argument("--synthesis_arch", default="orig")
     ap.add_argument("--d_arch", default="orig")
     ap.add_argument("--positional_encoding", default=None)
@@ -197,7 +203,8 @@ def setup_config(args):
     """argparse args -> (TrainConfig, enc_cfg, enc_params, enc_state), as
     ``scripts/train_main.py:setup_config`` builds them; without
     ``--encoder_checkpt`` the flagship encoder's weights are random from the
-    numpy seed ``args.seed + 99``."""
+    numpy seed ``args.seed + 99``.  With no injected resolution there is no
+    encoder: the three are None."""
     from brushstroke_engine_torch.flagship import flagship_encoder_config
     from brushstroke_engine_torch.models.discriminator import (
         DiscriminatorConfig,
@@ -212,7 +219,9 @@ def setup_config(args):
 
     inject = tuple(int(x) for x in
                    args.geom_inject_resolutions.split(",") if x != "")
-    if args.encoder_checkpt:
+    if not inject:
+        enc_cfg = enc_params = enc_state = None
+    elif args.encoder_checkpt:
         enc_cfg, enc_params, enc_state = load_encoder(args.encoder_checkpt)
     else:
         enc_cfg = flagship_encoder_config()
@@ -229,14 +238,15 @@ def setup_config(args):
             enc_cfg.feature_channels(r) for r in inject),
         color_format=args.color_format,
         color_w_channels=args.color_w_channels,
-        channel_base=16384, channel_max=args.channel_max,
+        architecture=args.synthesis_arch,
+        channel_base=args.channel_base, channel_max=args.channel_max,
         num_bf16_res=args.num_bf16_res,
         positional_encoding=args.positional_encoding,
         posenc_inject_resolutions=posenc_res,
         posenc_injection_mode=args.posenc_injection_mode)
     disc_cfg = DiscriminatorConfig(
         c_dim=0, img_resolution=res, img_channels=3,
-        channel_base=16384, channel_max=args.channel_max,
+        channel_base=args.channel_base, channel_max=args.channel_max,
         num_bf16_res=args.num_bf16_res, architecture=args.d_arch)
 
     gamma = args.gamma if args.gamma is not None else \
@@ -328,7 +338,12 @@ def build(argv=None):
         logger.warning("--data not given: using random noise style images "
                        "(smoke-test mode)")
         style_ds = NoiseStyleDataset(res)
-    if args.geom_data:
+    if cfg.enc_cfg is None:
+        if args.fused:
+            raise SystemExit("--fused encodes geometry: it needs "
+                             "--geom_inject_resolutions")
+        geom_ds = None
+    elif args.geom_data:
         geom_ds = ImageFolderDataset(args.geom_data, res + 64, channels=3)
     else:
         # The banks decode the whole dataset up front: a smaller synthetic
@@ -341,8 +356,9 @@ def build(argv=None):
         # This rank's rows: batch / world items from its index stream.
         style_iter = BatchIterator(style_ds, local_bs, seed=args.seed,
                                    rank=rank, num_ranks=num_ranks)
-        geom_iter = BatchIterator(geom_ds, local_bs, seed=args.seed + 1,
-                                  rank=rank, num_ranks=num_ranks)
+        geom_iter = None if geom_ds is None else BatchIterator(
+            geom_ds, local_bs, seed=args.seed + 1, rank=rank,
+            num_ranks=num_ranks)
 
     resume_state = None
     if args.resume:
@@ -366,7 +382,8 @@ def build(argv=None):
             fid_real = [
                 np.stack([style_ds[j] for j in range(i, min(i + 16, n))])
                 for i in range(0, n, 16)]
-        metric_geom_iter = BatchIterator(geom_ds, 4, seed=args.seed + 2)
+        metric_geom_iter = None if geom_ds is None else BatchIterator(
+            geom_ds, 4, seed=args.seed + 2)
         hooks = make_eval_hooks(
             image_snapshot_ticks=args.image_snap,
             metric_snapshot_ticks=args.snap,

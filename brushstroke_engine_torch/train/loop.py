@@ -88,7 +88,7 @@ from brushstroke_engine_torch.train.stitching import RandomStitcher
 from brushstroke_engine_torch.utils.checkpoint import EngineBundle, \
     save_native
 from brushstroke_engine_torch.utils.util import (
-    resolve_device, tree_map, tree_to,
+    resolve_device, span, tree_map, tree_to,
 )
 
 TRAIN_STATE_MAGIC = "brushstroke_engine_torch.train_state.v1"
@@ -208,10 +208,14 @@ class TrainingLoop:
         self.stitch_on = cfg.stitch_interval > 0 and \
             bool(cfg.losses("stitch").items)
 
+        # With no injected resolution there is no geometry: no encoder
+        # pass, no geometry batch, no Ggeom and no warm start.
+        self.geometry = bool(cfg.enc_res)
         self.geom_step = train_steps.make_geom_step(cfg, warmstart=False) \
-            if cfg.geom_interval > 0 and cfg.losses("geom").items else None
+            if self.geometry and cfg.geom_interval > 0 and \
+            cfg.losses("geom").items else None
         self.warm_step = train_steps.make_geom_step(cfg, warmstart=True) \
-            if cfg.geom_warmstart_kimg > 0 else None
+            if self.geometry and cfg.geom_warmstart_kimg > 0 else None
         self.fused_step = None
         if use_fused:
             from brushstroke_engine_torch.train.fused import \
@@ -454,17 +458,21 @@ class TrainingLoop:
     def in_warmstart(self) -> bool:
         c = self.cfg
         start = c.geom_warmstart_start_kimg * 1000
-        return (self.cur_nimg >= start and
+        return (self.warm_step is not None and self.cur_nimg >= start and
                 self.cur_nimg - start < c.geom_warmstart_kimg * 1000)
 
     # ------------------------------------------------------------------
 
     def _fetch_batch(self):
+        """(style, triband, crop, geometry input, geometry truth) of the
+        next batch; without geometry the last four are None."""
         cfg = self.cfg
         res = cfg.gen_cfg.img_resolution
         style_u8 = next(self.style_iter)
-        geom_u8 = next(self.geom_iter)
         style = style_batch_to_float(style_u8)
+        if not self.geometry:
+            return style, None, None, None, None
+        geom_u8 = next(self.geom_iter)
         tri = geom_batch_to_float(geom_u8)            # [B, H, W, 3]
 
         # Crop the triband image to training resolution.
@@ -585,45 +593,55 @@ class TrainingLoop:
             # fused step enters the same context itself).
             with rank_context(self._ranks):
                 if self.fused_step is None:
-                    style, tri_full, crop1, geom_input, geom_truth = \
-                        self._fetch_batch()
-                    feats = train_steps.encode_geometry(
-                        cfg, self.enc_params, self.enc_state,
-                        self._data(geom_input))
-                    geom_truth_t = self._data(geom_truth)
+                    with span("bse.train.data"):
+                        style, tri_full, crop1, geom_input, geom_truth = \
+                            self._fetch_batch()
+                    feats, geom_truth_t = [], None
+                    if self.geometry:
+                        feats = train_steps.encode_geometry(
+                            cfg, self.enc_params, self.enc_state,
+                            self._data(geom_input))
+                        geom_truth_t = self._data(geom_truth)
                     phase_t0[0] = time.time()
                 if self.fused_step is not None:
-                    self.state, s = self._fused_call(warm, ema_beta)
+                    with span("bse.train.fused"):
+                        self.state, s = self._fused_call(warm, ema_beta)
                     note(s, "fused")
                 elif warm:
                     z = self._host_normal(bs, zd)
-                    self.state, s = self.warm_step(
-                        self.state, feats, geom_truth_t, z, rng, ema_beta,
-                        g_orig_params=self.g_orig_params, draws=loss_draws)
+                    with span("bse.train.Ggeom-warm"):
+                        self.state, s = self.warm_step(
+                            self.state, feats, geom_truth_t, z, rng,
+                            ema_beta, g_orig_params=self.g_orig_params,
+                            draws=loss_draws)
                     note(s, "Ggeom-warm")
                 else:
                     style_t = self._data(style)
                     z = self._host_normal(bs, zd)
-                    self.state, s = train_steps.d_main_step(
-                        cfg, self.state, style_t, feats, z, rng)
+                    with span("bse.train.Dmain"):
+                        self.state, s = train_steps.d_main_step(
+                            cfg, self.state, style_t, feats, z, rng)
                     note(s, "Dmain")
                     if cfg.d_reg_interval > 0 and \
                             self.batch_idx % cfg.d_reg_interval == 0:
-                        self.state, s = train_steps.d_reg_step(
-                            cfg, self.state, style_t, rng)
+                        with span("bse.train.Dr1"):
+                            self.state, s = train_steps.d_reg_step(
+                                cfg, self.state, style_t, rng)
                         note(s, "Dreg")
                     z = self._host_normal(bs, zd)
-                    self.state, s = train_steps.g_main_step(
-                        cfg, self.state, feats, geom_truth_t, z, rng, ema_beta,
-                        draws=None
-                        if train_steps._num_rounds(cfg, z.shape[0]) > 1
-                        else loss_draws)
+                    with span("bse.train.Gmain"):
+                        self.state, s = train_steps.g_main_step(
+                            cfg, self.state, feats, geom_truth_t, z, rng,
+                            ema_beta, draws=None
+                            if train_steps._num_rounds(cfg, z.shape[0]) > 1
+                            else loss_draws)
                     note(s, "Gmain")
                     if cfg.g_reg_interval > 0 and \
                             self.batch_idx % cfg.g_reg_interval == 0:
                         z = self._host_normal(bs, zd)
-                        self.state, s = train_steps.g_reg_step(
-                            cfg, self.state, feats, z, rng, ema_beta)
+                        with span("bse.train.Gpl"):
+                            self.state, s = train_steps.g_reg_step(
+                                cfg, self.state, feats, z, rng, ema_beta)
                         note(s, "Greg")
                     if self.stitch_on and \
                             self.batch_idx % cfg.stitch_interval == 0:
@@ -631,26 +649,31 @@ class TrainingLoop:
                             tri_full.shape[1], crop1, self.stitch_rng)
                         g2 = tri_full[:, crop2[0]:crop2[0] + crop2[2],
                                       crop2[1]:crop2[1] + crop2[3], 1:2]
-                        feats2 = train_steps.encode_geometry(
-                            cfg, self.enc_params, self.enc_state, self._data(g2))
                         z = self._host_normal(bs, zd)
-                        self.state, s = train_steps.g_stitch_step(
-                            cfg, self.state, feats, feats2, z, crop1, crop2, rng,
-                            ema_beta, stitcher=self.stitcher)
+                        with span("bse.train.Gstitch"):
+                            feats2 = train_steps.encode_geometry(
+                                cfg, self.enc_params, self.enc_state,
+                                self._data(g2))
+                            self.state, s = train_steps.g_stitch_step(
+                                cfg, self.state, feats, feats2, z, crop1,
+                                crop2, rng, ema_beta, stitcher=self.stitcher)
                         note(s, "Gstitch")
                     if self.geom_step is not None and \
                             self.batch_idx % cfg.geom_interval == 0:
                         z = self._host_normal(bs, zd)
-                        self.state, s = self.geom_step(
-                            self.state, feats, geom_truth_t, z, rng, ema_beta,
-                            g_orig_params=self.g_orig_params, draws=loss_draws)
+                        with span("bse.train.Ggeom"):
+                            self.state, s = self.geom_step(
+                                self.state, feats, geom_truth_t, z, rng,
+                                ema_beta, g_orig_params=self.g_orig_params,
+                                draws=loss_draws)
                         note(s, "Ggeom")
                     if cfg.augment is not None and \
                             self.batch_idx % cfg.ada_interval == 0 and \
                             self.batch_idx > 0:
-                        self.state = train_steps.ada_update(
-                            cfg, self.state,
-                            float(cfg.batch_size * cfg.ada_interval))
+                        with span("bse.train.ada"):
+                            self.state = train_steps.ada_update(
+                                cfg, self.state,
+                                float(cfg.batch_size * cfg.ada_interval))
                         note({}, "ada")
 
             self.cur_nimg += cfg.batch_size * self.steps_per_dispatch

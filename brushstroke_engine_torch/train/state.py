@@ -36,7 +36,9 @@ from brushstroke_engine_torch.utils.util import (
 class TrainConfig:
     gen_cfg: GeneratorConfig
     disc_cfg: DiscriminatorConfig
-    enc_cfg: GeoEncoderConfig
+    # None with no injected resolution (``enc_res`` empty): a plain
+    # StyleGAN2 run, no geometry.
+    enc_cfg: Optional[GeoEncoderConfig]
     enc_res: Tuple[int, ...] = (0, 1)
     batch_size: int = 64
     # Microbatch size for gradient accumulation (reference --batch-gpu).

@@ -129,13 +129,15 @@ def _tupled(d: Dict, keys) -> Dict:
 
 
 def configs_from_dicts(gen_cfg: Dict, enc_cfg: Dict):
-    """Config dicts of a native bundle -> (GeneratorConfig, GeoEncoderConfig)."""
+    """Config dicts of a native bundle -> (GeneratorConfig, GeoEncoderConfig);
+    the encoder's is None in the bundle of a generator trained without
+    geometry."""
     gen_d = _tupled(gen_cfg, ("posenc_inject_resolutions",))
     syn = _tupled(gen_d.pop("synthesis"), (
         "geom_feature_resolutions", "geom_feature_channels",
         "resample_taps", "pos_encoding_resolutions"))
     gen = GeneratorConfig(synthesis=SynthesisConfig(**syn), **gen_d)
-    enc = GeoEncoderConfig(**_tupled(
+    enc = None if enc_cfg is None else GeoEncoderConfig(**_tupled(
         enc_cfg, ("down_filters", "post_filters", "up_filters")))
     return gen, enc
 
@@ -174,8 +176,9 @@ def save_native(path: str, bundle: EngineBundle) -> None:
     payload = {
         "magic": NATIVE_MAGIC,
         "gen_cfg": dataclasses.asdict(bundle.gen_cfg),
-        "enc_cfg": dataclasses.asdict(bundle.enc_cfg),
-        **{k: params_to_jax(getattr(bundle, k)) for k in
+        "enc_cfg": None if bundle.enc_cfg is None
+        else dataclasses.asdict(bundle.enc_cfg),
+        **{k: params_to_jax(getattr(bundle, k) or {}) for k in
            ("gen_params", "gen_state", "enc_params", "enc_state")},
         "color_format": bundle.color_format,
         "geom_inject_resolutions": tuple(bundle.geom_inject_resolutions),
@@ -380,9 +383,11 @@ def init_native_params(gen_cfg: GeneratorConfig, enc_cfg: GeoEncoderConfig,
     """Random numpy trees in the JAX layout from ``RandomState(seed)``:
     ``{"gen_params", "gen_state", "enc_params", "enc_state"}``, plus
     ``"disc_params"`` for a ``DiscriminatorConfig`` (drawn last, so the other
-    trees do not depend on it)."""
+    trees do not depend on it).  With no ``enc_cfg`` the encoder's trees
+    are empty."""
     rng = np.random.RandomState(seed)
-    enc_params, enc_state = _init_encoder(enc_cfg, rng)
+    enc_params, enc_state = ({}, {}) if enc_cfg is None else \
+        _init_encoder(enc_cfg, rng)
     gen_params, gen_state = _init_generator(gen_cfg, rng)
     trees = {"gen_params": gen_params, "gen_state": gen_state,
              "enc_params": enc_params, "enc_state": enc_state}

@@ -153,6 +153,8 @@ NOT_PORTED = {
 PORT_ONLY_FLAGS = {
     "--device": "the port's entry points run on the card unless asked for "
                 "the CPU",
+    "--channel_base": "the JAX CLI builds G and D at channel_base 16384, "
+                      "which StyleGAN2 config-f (32768) cannot use",
 }
 
 

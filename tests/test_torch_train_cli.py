@@ -85,13 +85,15 @@ def test_parser_has_every_flag_of_the_jax_cli():
     jp, tp = _jax_cli().build_parser(), ttrain.build_parser()
     want = {a.dest: a.default for a in jp._actions if a.dest != "help"}
     got = {a.dest: a.default for a in tp._actions if a.dest != "help"}
-    assert set(got) - set(want) == {"device"} and got["device"] == "cuda"
+    assert set(got) - set(want) == {"device", "channel_base"}
+    assert got["device"] == "cuda" and got["channel_base"] == 16384
     assert set(want) <= set(got)
     for dest, default in want.items():
         assert got[dest] == default, dest
     jopts = {s for a in jp._actions for s in a.option_strings}
     topts = {s for a in tp._actions for s in a.option_strings}
-    assert topts - jopts == {"--device"} and jopts <= topts
+    assert topts - jopts == {"--device", "--channel_base"} and \
+        jopts <= topts
 
 
 @pytest.mark.parametrize("files", [TRAIN, FINETUNE])

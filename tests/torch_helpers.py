@@ -29,7 +29,7 @@ torch.set_num_threads(1)
 
 
 def small_configs(img_resolution=32, inject_res=(0, 1), color_format="triad",
-                  color_w_channels=0):
+                  color_w_channels=0, architecture="orig"):
     """The JAX package's ``tests.helpers.small_bundle`` configs (2-layer
     'sauto' encoder, 16-dim styles, <= 32 channels), without its init."""
     enc_cfg = GeoEncoderConfig(
@@ -44,7 +44,7 @@ def small_configs(img_resolution=32, inject_res=(0, 1), color_format="triad",
         geom_feature_channels=tuple(enc_cfg.feature_channels(r)
                                     for r in inject_res),
         color_format=color_format, color_w_channels=color_w_channels,
-        channel_base=2048, channel_max=32)
+        architecture=architecture, channel_base=2048, channel_max=32)
     return gen_cfg, enc_cfg
 
 
